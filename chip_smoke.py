@@ -1,0 +1,382 @@
+"""Drive the PyTorch/CUDA port on one card: build the GN-block kernels, hold
+each against its plain PyTorch version, run FluxD's rollout at the shipped
+width through them, and report each kernel's time beside its bound.
+
+    python3 chip_smoke.py
+
+Phases (each prints one flushed line; any failure exits non-zero):
+
+1. device and build: the card's name and power limit, the kernels' build time;
+2. kernel vs plain: K1-K3 at the slice's shapes on seeded inputs;
+3. slice: FluxD (hidden 128, 15 GN blocks, bf16) on the RCM-ordered cylinder
+   mesh of ``bench.py`` (3,462 cells, 5,361 faces, 1,899 vertices) with seeded
+   weights and statistics from the synthetic channel flow. Each of the first
+   5 steps is held against the same model's plain path on the card, on the
+   same inputs; then a 100-step rollout is timed with every launch counter
+   set to 0 just before it;
+4. the ``kernels`` line: per kernel its time per launch, launches, bound,
+   plain time and library time.
+
+The last line is ``{"ok": true, "device": {...}}``. Without a card the script
+exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from gnn_fluid_dynamics_tpu_torch.data.synthetic import (channel_flow_trajectory,
+                                                         make_geometry)
+from gnn_fluid_dynamics_tpu_torch.graph import from_geometry
+from gnn_fluid_dynamics_tpu_torch.models.arch import MLP
+from gnn_fluid_dynamics_tpu_torch.models.base import ModelConfig, feature_masks
+from gnn_fluid_dynamics_tpu_torch.models.flux import FluxD
+from gnn_fluid_dynamics_tpu_torch.models.normalizer import StatsAccumulator
+from gnn_fluid_dynamics_tpu_torch.ops import kernels
+from gnn_fluid_dynamics_tpu_torch.ops.reorder import rcm_reorder_geometry
+from gnn_fluid_dynamics_tpu_torch.rollout.engine import (SAVABLE_FIELDS,
+                                                         RolloutConfig,
+                                                         rollout_scan)
+
+H = kernels.H
+MP_NUM = 15
+STEPS = 100            # timed rollout steps
+CHECK_STEPS = 5        # steps held against the plain path
+TIMING_ITERS = 50      # launches per timed batch
+# H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
+PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+# kernel vs its plain version, elementwise on bf16 outputs: one bf16
+# rounding step (2**-8 relative) taken on the other side of a boundary,
+# from f32 sums in another order, plus its effect downstream
+KERNEL_RTOL = KERNEL_ATOL = 2.0 ** -7
+# fused vs plain path of the same model on the same inputs, as the largest
+# difference relative to the field's largest magnitude: bf16 latents through
+# 15 blocks (measured on the CPU at 904 cells: up to 2.8% on face fields)
+STEP_TOL = 5e-2
+
+KERNELS = {
+    "K1_fused_face_block": dict(
+        wrapper=kernels.fused_face_block,
+        source="gnn_fluid_dynamics_tpu_torch/csrc/face_block.cu",
+        replaces="gnn_fluid_dynamics_tpu/ops/pallas_agg.py:903 "
+                 "(_fused_face_kernel_chunk; per-tile _fused_face_kernel :543)"),
+    "K2_fused_cell_block": dict(
+        wrapper=kernels.fused_cell_block,
+        source="gnn_fluid_dynamics_tpu_torch/csrc/cell_block.cu",
+        replaces="gnn_fluid_dynamics_tpu/ops/pallas_agg.py:951 "
+                 "(_fused_cell_kernel_chunk; per-tile _fused_cell_kernel :596)"),
+    "K3_edges_to_vertices": dict(
+        wrapper=kernels.edges_to_vertices,
+        source="gnn_fluid_dynamics_tpu_torch/csrc/edge_vertex.cu",
+        replaces="gnn_fluid_dynamics_tpu/ops/pallas_agg.py:1090 "
+                 "(_dual_colidx_kernel_chunk; per-tile _dual_colidx_kernel :137)"),
+}
+
+
+def say(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def fail(msg: str) -> None:
+    say(f"FAIL: {msg}")
+    sys.exit(1)
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout
+    return out.strip().splitlines()[0]
+
+
+def gpu_ms(fn, iters: int = TIMING_ITERS) -> float:
+    """Device time per call of ``fn``: the calls are queued behind a sleep
+    kernel, so the card runs them back to back however slowly the host
+    issues them."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)          # ~50 ms at the card's clock
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bench_mesh(device):
+    geom = rcm_reorder_geometry(make_geometry("cylinder", n_points=2400, seed=0))
+    fields = channel_flow_trajectory(geom, num_timesteps=CHECK_STEPS + 2,
+                                     dt=0.01)
+    window = {k: v[:2] for k, v in fields.items()}
+    graph = from_geometry(geom, window, dt=0.01, device=device)
+    return graph, fields
+
+
+def bounds(graph) -> dict:
+    """Least time (ms) for each kernel's work at these shapes: the larger of
+    its bytes (each input read once, each output written once) over the
+    memory rate and its operations over the peak rate for their type (the
+    three products in bf16 on the tensor cores for K1/K2, the f32 adds of
+    K3). K1 runs single-output and K2 dual-output on the main path."""
+    F, C, V = graph.num_faces, graph.num_cells, graph.num_vertices
+    vec = 5 * H * 2                                   # b0,b1,b2,ln_g,ln_b
+    k1_bytes = (F * H * 2 + C * H * 2 + 2 * F * 4
+                + (3 * H * H + 2 * H * H) * 2 + vec + F * H * 2)
+    k1_flops = 2 * F * H * (3 * H + 2 * H)
+    k2_bytes = (C * H * 2 + V * (H // 2) * 2 + 3 * C * 4
+                + ((H + H // 2) * H + 2 * H * H) * 2 + vec + 2 * C * H * 2)
+    k2_flops = 2 * C * H * (H + H // 2 + 2 * H)
+    k3_bytes = F * H * 2 + (V + 1) * 4 + 2 * F * 4 + V * (H // 2) * 2
+    k3_flops = 2 * F * (H // 2)
+
+    def bound(nbytes, flops, peak):
+        t_b, t_o = nbytes / PEAK_BYTES, flops / peak
+        return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations",
+                nbytes, flops)
+    return {"K1_fused_face_block": bound(k1_bytes, k1_flops, PEAK_BF16_FLOPS),
+            "K2_fused_cell_block": bound(k2_bytes, k2_flops, PEAK_BF16_FLOPS),
+            "K3_edges_to_vertices": bound(k3_bytes, k3_flops, PEAK_F32_FLOPS)}
+
+
+def kernel_phase(graph) -> dict:
+    """Each kernel on seeded inputs at the slice's shapes, held against its
+    plain version on the same inputs, then timed beside it."""
+    dev = graph.device
+    rng = np.random.default_rng(0)
+
+    def latents(n):
+        return torch.from_numpy(rng.normal(size=(n, H)).astype(np.float32)).to(
+            dev, torch.bfloat16)
+
+    gen = torch.Generator().manual_seed(0)
+    w_face = MLP(3 * H, H, H, generator=gen).to(dev).kernel_weights()
+    w_cell = MLP(H + H // 2, H, H, generator=gen).to(dev).kernel_weights()
+    cells, edges = latents(graph.num_cells), latents(graph.num_faces)
+    vtx = kernels.edges_to_vertices_ref(edges, graph)
+    cases = {
+        "K3_edges_to_vertices": (
+            lambda: kernels.edges_to_vertices(edges, graph),
+            lambda: kernels.edges_to_vertices_ref(edges, graph)),
+        "K2_fused_cell_block": (
+            lambda: kernels.fused_cell_block(cells, vtx, graph, w_cell, True),
+            lambda: kernels.fused_cell_block_ref(cells, vtx, graph, w_cell, True)),
+        "K1_fused_face_block": (
+            lambda: kernels.fused_face_block(cells, edges, graph, w_face),
+            lambda: kernels.fused_face_block_ref(cells, edges, graph, w_face)),
+    }
+    results = {}
+    for name, (run, ref) in cases.items():
+        got, want = run(), ref()
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        err = 0.0
+        for a, b in zip(got, want):
+            a, b = a.float(), b.float()
+            if not torch.isfinite(a).all():
+                fail(f"{name}: non-finite output")
+            err = max(err, float((a - b).abs().max()))
+            if not torch.allclose(a, b, rtol=KERNEL_RTOL, atol=KERNEL_ATOL):
+                fail(f"{name}: kernel differs from its plain version "
+                     f"(max abs err {err:.3g})")
+        results[name] = {"max_abs_err": err, "ms": gpu_ms(run),
+                         "plain_ms": gpu_ms(ref)}
+    # one PyTorch call computing K3's function: index_add_ of the (2F, H/2)
+    # half-rows onto their vertices (bf16 accumulation); timed, never used
+    half_rows = edges.view(2 * graph.num_faces, H // 2)
+    owner_of_row = graph.vertex_edge_index.T.reshape(-1)   # 2f: sender, 2f+1: receiver
+    out = torch.zeros(graph.num_vertices, H // 2, device=dev,
+                      dtype=torch.bfloat16)
+    results["K3_edges_to_vertices"]["library_ms"] = gpu_ms(
+        lambda: out.index_add_(0, owner_of_row, half_rows))
+    return results
+
+
+def check_against_plain(fused, plain, graph, feats) -> dict:
+    """The fused and the plain path of the same model, step by step on the
+    same inputs: each step's predicted fields from both, then the plain
+    path's state fed back. (Free-running, the two would drift apart: with
+    random weights the model amplifies any difference step over step.)
+    Returns the largest difference of each field relative to its largest
+    magnitude."""
+    worst = {}
+    with torch.inference_mode():
+        for _ in range(CHECK_STEPS):
+            sol_p = plain.derive_state(plain.forward(graph, feats), feats, graph)
+            sol_f = fused.derive_state(fused.forward(graph, feats), feats, graph)
+            for key in SAVABLE_FIELDS:
+                a, b = sol_f[key].float(), sol_p[key].float()
+                if not torch.isfinite(a).all():
+                    fail(f"fused path: non-finite {key}")
+                rel = float((a - b).abs().max() / b.abs().max())
+                worst[key] = max(worst.get(key, 0.0), rel)
+            feats = plain.update_features(sol_p, feats, graph)
+    for key, rel in worst.items():
+        if rel > STEP_TOL:
+            fail(f"fused vs plain path, {key}: {rel:.3g} > {STEP_TOL}")
+    return worst
+
+
+def slice_phase(graph, fields, device_line: str) -> dict:
+    """FluxD's rollout through the kernels: first held against the plain
+    path, then timed with the launch counters read around it."""
+    dev = graph.device
+    cfg = ModelConfig(hidden_width=H, mp_num=MP_NUM, compute_dtype="bfloat16")
+    fused = FluxD(cfg, device=dev, seed=0)
+    plain = FluxD(dataclasses.replace(cfg, aggregation="segment"), device=dev,
+                  seed=0)
+    _, feats = fused.transform_rollout(graph)
+    acc = StatsAccumulator(fused.nmap)
+    acc.update(feats, feature_masks(graph, feats))
+    stats = acc.finalize()
+    fused.set_stats(stats)
+    plain.set_stats(stats)
+    plain.module.load_state_dict(fused.module.state_dict())
+
+    worst = check_against_plain(fused, plain, graph, feats)
+    say(f"phase 3a fused vs plain path, {CHECK_STEPS} steps on the same "
+        "inputs: ok " + json.dumps({k: round(v, 6) for k, v in worst.items()}))
+    gv = torch.from_numpy(fields["cell_velocity"][1:CHECK_STEPS + 1]).to(dev)
+    gp = torch.from_numpy(fields["cell_pressure"][1:CHECK_STEPS + 1]).to(dev)
+    errors, saved = rollout_scan(fused, graph, feats, gv, gp, RolloutConfig(
+        num_steps=CHECK_STEPS, compute_error=True, save_fields=True))
+    for key, val in {**errors, **saved}.items():
+        if not torch.isfinite(val).all():
+            fail(f"fused rollout: non-finite {key}")
+
+    # timed: plain, fused (the main path, counters read around it), fused,
+    # plain — both versions in turns on the same card
+    for model in (plain, fused):                                   # warm-up
+        rollout_scan(model, graph, feats, config=RolloutConfig(
+            num_steps=5, compute_error=False))
+    walls = {"plain": [timed_rollout(plain, graph, feats)]}
+    for spec in KERNELS.values():
+        spec["wrapper"].launches = 0
+    walls["fused"] = [timed_rollout(fused, graph, feats)]
+    launches = {name: spec["wrapper"].launches for name, spec in KERNELS.items()}
+    walls["fused"].append(timed_rollout(fused, graph, feats))
+    walls["plain"].append(timed_rollout(plain, graph, feats))
+    for name, n in launches.items():
+        if n != MP_NUM * STEPS:
+            fail(f"{name}: {n} launches in {STEPS} steps, "
+                 f"expected {MP_NUM * STEPS}")
+    wall = walls["fused"][0]
+    say(f"phase 3b slice: FluxD h{H} mp{MP_NUM} bf16, {graph.num_cells} cells "
+        f"{graph.num_faces} faces {graph.num_vertices} vertices, {STEPS} steps "
+        f"in {wall:.4f} s = {STEPS / wall:.1f} steps/s, "
+        f"{1e3 * wall / STEPS:.4f} ms/step; launches {json.dumps(launches)}; "
+        "steps/s in turns plain, fused, fused, plain: "
+        + ", ".join(f"{STEPS / w:.1f}" for w in (walls["plain"][0],
+                                                 *walls["fused"],
+                                                 walls["plain"][1]))
+        + f"; card {device_line}")
+    return {"launches": launches, "steps_per_s": STEPS / wall,
+            "ms_per_step": 1e3 * wall / STEPS,
+            "profile": device_profile(fused, graph, feats)}
+
+
+def timed_rollout(model, graph, feats) -> float:
+    """Wall seconds of a STEPS-step rollout (no error metrics, as bench.py),
+    ending in a synchronize; fails on a non-finite final state."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, out = rollout_scan(model, graph, feats, config=RolloutConfig(
+        num_steps=STEPS, compute_error=False))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not torch.isfinite(out["final_cell_state"]).all():
+        fail("timed rollout: non-finite final state")
+    return wall
+
+
+def device_profile(model, graph, feats, steps: int = 10):
+    """Device time per step by kernel name over a short rollout, and the
+    share of the window's wall time with a kernel running, from
+    torch.profiler (device activity only); None where the profiler shows no
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = RolloutConfig(num_steps=steps, compute_error=False)
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            rollout_scan(model, graph, feats, config=cfg)
+            torch.cuda.synchronize()
+            wall_us = 1e6 * (time.perf_counter() - t0)
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    except Exception as exc:  # measurement only: report, do not fail the run
+        say(f"profiler unavailable: {exc!r}")
+        return None
+    if not events:
+        return None
+    per_name = {}
+    for e in events:
+        per_name[e.name] = per_name.get(e.name, 0.0) + (
+            e.time_range.end - e.time_range.start)
+    busy = sum(per_name.values())
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"busy_share": busy / wall_us,
+            "device_ms_per_step": busy / steps / 1e3,
+            "wall_ms_per_step": wall_us / steps / 1e3,
+            "kernels_per_step": len(events) / steps,
+            "top_ms_per_step": {n[:60]: t / steps / 1e3 for n, t in top}}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    line = card_line()
+    build_s = kernels.build_kernels()
+    say(f"phase 1 device: {line}; kernels built in {build_s:.2f} s "
+        f"(nvcc, sm_90a, {kernels.BUILD_DIR})")
+
+    graph, fields = bench_mesh(dev)
+    per_kernel = kernel_phase(graph)
+    say("phase 2 kernel vs plain: ok " + json.dumps(
+        {k: round(v["max_abs_err"], 6) for k, v in per_kernel.items()}))
+
+    sl = slice_phase(graph, fields, line)
+    prof = sl["profile"]
+    say("phase 3c device profile of 10 fused steps: "
+        + ("not measured" if prof is None else json.dumps(prof)))
+
+    bnd = bounds(graph)
+    rows = []
+    for name, spec in KERNELS.items():
+        r = per_kernel[name]
+        b_ms, b_by, nbytes, flops = bnd[name]
+        rows.append({
+            "name": name, "route": "cuda", "source": spec["source"],
+            "replaces": spec["replaces"], "launches": sl["launches"][name],
+            "launches_per_step": sl["launches"][name] / STEPS,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": r.get("library_ms"), "bytes": nbytes, "flops": flops,
+        })
+    say(f"phase 4 card {line}; slice {sl['steps_per_s']:.1f} steps/s, "
+        f"{sl['ms_per_step']:.4f} ms/step")
+    say(json.dumps({"kernels": rows}))
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

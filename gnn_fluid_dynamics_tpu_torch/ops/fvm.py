@@ -1,0 +1,28 @@
+"""Finite-volume numerics used by the FluxD rollout (counterpart of
+``ops/fvm.py``). The owner/neighbour sign bookkeeping is the precomputed
+``cell_face_sign`` table, so each conversion is a plain gather."""
+
+from __future__ import annotations
+
+import torch
+
+
+def divergence_from_cell_flux(cell_flux: torch.Tensor) -> torch.Tensor:
+    """Sum of per-cell signed local fluxes (reference ``fvm.py:13-19``).
+    cell_flux: (C, 3) -> (C, 1)."""
+    return torch.sum(cell_flux, dim=1, keepdim=True)
+
+
+def face_flux_to_cell_flux(face_flux: torch.Tensor, face_index: torch.Tensor,
+                           cell_face_sign: torch.Tensor) -> torch.Tensor:
+    """Owner-oriented face flux -> signed per-cell local flux.
+    face_flux: (F, 1) or (F,) -> (C, 3, 1)."""
+    ff = face_flux.reshape(-1)
+    return (ff[face_index.T] * cell_face_sign)[..., None]
+
+
+def face_flux_to_cell_flux_g(face_flux: torch.Tensor, graph) -> torch.Tensor:
+    """Graph-aware :func:`face_flux_to_cell_flux` (the JAX package's banded
+    selector variant is a TPU device; on the card it is the row gather)."""
+    return face_flux_to_cell_flux(face_flux, graph.face_index,
+                                  graph.cell_face_sign)

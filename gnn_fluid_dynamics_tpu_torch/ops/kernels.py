@@ -1,0 +1,304 @@
+"""The rollout's GN-block kernels, hand-written in CUDA C++ for Hopper.
+
+Counterpart of ``gnn_fluid_dynamics_tpu/ops/pallas_agg.py``. Each kernel has a
+wrapper, a plain PyTorch version of the same function, and a launch counter:
+
+=====  =======================  ===================================  ==========================
+name   wrapper                  plain version                        source
+=====  =======================  ===================================  ==========================
+K1     :func:`fused_face_block`  :func:`fused_face_block_ref`        ``csrc/face_block.cu``
+K2     :func:`fused_cell_block`  :func:`fused_cell_block_ref`        ``csrc/cell_block.cu``
+K3     :func:`edges_to_vertices` :func:`edges_to_vertices_ref`       ``csrc/edge_vertex.cu``
+=====  =======================  ===================================  ==========================
+
+A wrapper given tensors on the CPU returns its plain version; given CUDA
+tensors it launches its kernel or raises. Each launch adds one to the
+wrapper's ``launches`` attribute.
+
+The sources are compiled with ``nvcc`` for ``sm_90a`` into plain-C shared
+libraries under ``build/torch_kernels/`` at the checkout's root, at first use
+(one ``nvcc`` per source, all started together), keyed by a hash of the
+sources and flags, and loaded with ``ctypes``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+
+from gnn_fluid_dynamics_tpu_torch.ops.segment import (
+    aggregate_edges_to_vertices_scatter)
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+SOURCES = {"face_block": "face_block.cu", "cell_block": "cell_block.cu",
+           "edge_vertex": "edge_vertex.cu"}
+HEADERS = ("gn_block.cuh",)
+H = 128          # the latent width the kernels are built for
+LN_EPS = 1e-5
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_ARGTYPES = {
+    "gfd_face_block": [_I] + [_P] * 4 + [_I] + [_P] * 11,
+    "gfd_cell_block": [_I] + [_P] * 5 + [_I] + [_P] * 11,
+    "gfd_edge_vertex": [_I] + [_P] * 3 + [_I] + [_P] * 2,
+}
+_ENTRY = {"face_block": "gfd_face_block", "cell_block": "gfd_cell_block",
+          "edge_vertex": "gfd_edge_vertex"}
+
+_libs: dict = {}
+_lock = threading.Lock()
+
+
+class BlockWeights(NamedTuple):
+    """One GN sub-block's MLP + LayerNorm as the fused kernels take it: each
+    matrix (inputs, outputs) row-major and every tensor in the latents' dtype.
+    ``w0``'s rows follow the kernel's gathered input, ``[e | x[owner] |
+    x[neighbour]]`` for K1 and ``[c | vertex mean]`` for K2."""
+    w0: torch.Tensor
+    b0: torch.Tensor
+    w1: torch.Tensor
+    b1: torch.Tensor
+    w2: torch.Tensor
+    b2: torch.Tensor
+    ln_g: torch.Tensor
+    ln_b: torch.Tensor
+
+
+# ---------------------------------------------------------------------------
+# build and load
+# ---------------------------------------------------------------------------
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _library_path(name: str) -> Path:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for fname in (SOURCES[name],) + HEADERS:
+        digest.update((CSRC / fname).read_bytes())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build_kernels() -> float:
+    """Compile every kernel library not yet built: one ``nvcc`` process per
+    source, all started together. Returns the wall seconds it took (0 when
+    nothing was missing)."""
+    missing = {n: _library_path(n) for n in SOURCES
+               if not _library_path(n).exists()}
+    if not missing:
+        return 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    procs = {}
+    for name, out in missing.items():
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / SOURCES[name])]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    failures = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)
+    if failures:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
+    return time.perf_counter() - t0
+
+
+def _library(name: str) -> ctypes.CDLL:
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    with _lock:
+        if not _libs:
+            build_kernels()
+            for n in SOURCES:
+                dll = ctypes.CDLL(str(_library_path(n)))
+                fn = getattr(dll, _ENTRY[n])
+                fn.argtypes = _ARGTYPES[_ENTRY[n]]
+                fn.restype = ctypes.c_int
+                dll.gfd_error_name.argtypes = [ctypes.c_int]
+                dll.gfd_error_name.restype = ctypes.c_char_p
+                _libs[n] = dll
+    return _libs[name]
+
+
+def _launch(name: str, device: torch.device, *args) -> None:
+    lib = _library(name)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = getattr(lib, _ENTRY[name])(device.index or 0, *args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel failed: CUDA error {rc} "
+                           f"({lib.gfd_error_name(rc).decode()})")
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _check(t: torch.Tensor, what: str, device, dtype, shape) -> None:
+    if t.device != device:
+        raise ValueError(f"{what} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{what} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{what} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what} is not contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{what} is not 16-byte aligned")
+
+
+def _check_weights(w: BlockWeights, k0: int, device) -> None:
+    shapes = {"w0": (k0, H), "w1": (H, H), "w2": (H, H)}
+    for field, t in zip(BlockWeights._fields, w):
+        _check(t, field, device, torch.bfloat16, shapes.get(field, (H,)))
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def _mlp_ln_tail_ref(base: torch.Tensor, h0: torch.Tensor, w: BlockWeights):
+    """SiLU -> W1 -> SiLU -> W2 -> LayerNorm on the f32 pre-activation
+    ``h0``, with the products' operands rounded to the latents' dtype and
+    everything else in f32 (``pallas_agg.py::_mlp_ln_tail``). Returns (raw,
+    base + raw) in the latents' dtype."""
+    wdt = base.dtype
+    h = F.silu(h0)
+    h = h.to(wdt).float() @ w.w1.float() + w.b1.float()
+    h = F.silu(h)
+    h = h.to(wdt).float() @ w.w2.float() + w.b2.float()
+    mu = h.mean(dim=1, keepdim=True)
+    var = (h * h).mean(dim=1, keepdim=True) - mu * mu
+    hn = (h - mu) * torch.rsqrt(var + LN_EPS) * w.ln_g.float() + w.ln_b.float()
+    return hn.to(wdt), (base.float() + hn).to(wdt)
+
+
+def fused_face_block_ref(cell_attr, edge_attr, graph, w: BlockWeights,
+                         dual_out: bool = False):
+    """Plain version of K1: the face block's MLP on ``[e | x[owner] |
+    x[neighbour]]``, LayerNorm and residual. Returns the residualed edge
+    latents, or (raw, residualed) with ``dual_out``."""
+    own, nbr = graph.cell_edge_index[0], graph.cell_edge_index[1]
+    x = torch.cat([edge_attr, cell_attr[own], cell_attr[nbr]], dim=1)
+    h0 = x.float() @ w.w0.float() + w.b0.float()
+    raw, res = _mlp_ln_tail_ref(edge_attr, h0, w)
+    return (raw, res) if dual_out else res
+
+
+def fused_cell_block_ref(cell_attr, vtx, graph, w: BlockWeights,
+                         dual_out: bool = False):
+    """Plain version of K2: the cell block's MLP on ``[c | mean of the 3
+    vertex rows]`` (``vtx`` is K3's (V, H/2) sum), LayerNorm and residual.
+    The mean is taken in f32 and rounded to the latents' dtype, as the TPU
+    kernel does."""
+    vf = graph.vertex_face
+    v = vtx.float()
+    agg = (v[vf[0]] + v[vf[1]] + v[vf[2]]) * (1.0 / 3.0)
+    x = torch.cat([cell_attr, agg.to(cell_attr.dtype)], dim=1)
+    h0 = x.float() @ w.w0.float() + w.b0.float()
+    raw, res = _mlp_ln_tail_ref(cell_attr, h0, w)
+    return (raw, res) if dual_out else res
+
+
+def edges_to_vertices_ref(edge_attr, graph):
+    """Plain version of K3: the f32 scatter-sum of forward halves onto
+    senders and reverse halves onto receivers (``ops/segment.py``), rounded
+    to the latents' dtype. (F, H) -> (V, H/2)."""
+    e = edge_attr.float()
+    h2 = e.shape[1] // 2
+    out = aggregate_edges_to_vertices_scatter(
+        e[:, :h2], e[:, h2:], graph.vertex_edge_index, graph.num_vertices)
+    return out.to(edge_attr.dtype)
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+def fused_face_block(cell_attr, edge_attr, graph, w: BlockWeights,
+                     dual_out: bool = False):
+    """K1: the fused face block. See :func:`fused_face_block_ref`."""
+    if edge_attr.device.type == "cpu":
+        return fused_face_block_ref(cell_attr, edge_attr, graph, w, dual_out)
+    dev = edge_attr.device
+    nf, nc = graph.num_faces, graph.num_cells
+    _check(edge_attr, "edge_attr", dev, torch.bfloat16, (nf, H))
+    _check(cell_attr, "cell_attr", dev, torch.bfloat16, (nc, H))
+    _check(graph.cell_edge_index, "cell_edge_index", dev, torch.int32, (2, nf))
+    _check_weights(w, 3 * H, dev)
+    res = torch.empty_like(edge_attr)
+    raw = torch.empty_like(edge_attr) if dual_out else None
+    _launch("face_block", dev, _ptr(edge_attr), _ptr(cell_attr),
+            _ptr(graph.cell_edge_index[0]), _ptr(graph.cell_edge_index[1]),
+            nf, *map(_ptr, w), _ptr(raw), _ptr(res))
+    fused_face_block.launches += 1
+    return (raw, res) if dual_out else res
+
+
+def fused_cell_block(cell_attr, vtx, graph, w: BlockWeights,
+                     dual_out: bool = False):
+    """K2: the fused cell block. See :func:`fused_cell_block_ref`."""
+    if cell_attr.device.type == "cpu":
+        return fused_cell_block_ref(cell_attr, vtx, graph, w, dual_out)
+    dev = cell_attr.device
+    nc, nv = graph.num_cells, graph.num_vertices
+    _check(cell_attr, "cell_attr", dev, torch.bfloat16, (nc, H))
+    _check(vtx, "vtx", dev, torch.bfloat16, (nv, H // 2))
+    _check(graph.vertex_face, "vertex_face", dev, torch.int32, (3, nc))
+    _check_weights(w, H + H // 2, dev)
+    res = torch.empty_like(cell_attr)
+    raw = torch.empty_like(cell_attr) if dual_out else None
+    vf = graph.vertex_face
+    _launch("cell_block", dev, _ptr(cell_attr), _ptr(vtx), _ptr(vf[0]),
+            _ptr(vf[1]), _ptr(vf[2]), nc, *map(_ptr, w), _ptr(raw), _ptr(res))
+    fused_cell_block.launches += 1
+    return (raw, res) if dual_out else res
+
+
+def edges_to_vertices(edge_attr, graph):
+    """K3: the edge->vertex half sum. See :func:`edges_to_vertices_ref`."""
+    if edge_attr.device.type == "cpu":
+        return edges_to_vertices_ref(edge_attr, graph)
+    dev = edge_attr.device
+    nf, nv = graph.num_faces, graph.num_vertices
+    _check(edge_attr, "edge_attr", dev, torch.bfloat16, (nf, H))
+    _check(graph.vertex_inc_ptr, "vertex_inc_ptr", dev, torch.int32, (nv + 1,))
+    _check(graph.vertex_inc_row, "vertex_inc_row", dev, torch.int32, (2 * nf,))
+    out = torch.empty((nv, H // 2), dtype=torch.bfloat16, device=dev)
+    _launch("edge_vertex", dev, _ptr(edge_attr), _ptr(graph.vertex_inc_ptr),
+            _ptr(graph.vertex_inc_row), nv, _ptr(out))
+    edges_to_vertices.launches += 1
+    return out
+
+
+fused_face_block.launches = 0
+fused_cell_block.launches = 0
+edges_to_vertices.launches = 0

@@ -1,0 +1,241 @@
+"""The plain versions of the port's GN-block kernels (the CPU path of
+``ops/kernels.py``) against the JAX package's Pallas kernels in interpret
+mode, and against its segment reference semantics in f32.
+
+Inputs and weights come from a numpy seed; the weights reach the port through
+``params_from_flax``. Tolerances:
+
+* f32, against the JAX f32 reference: rtol 1e-5, atol 1e-5 (the same math up
+  to f32 summation order);
+* bf16, against the Pallas kernels: 2**-7 relative plus 2**-7 absolute — one
+  bf16 rounding step (8 bits of mantissa) where an f32 sum taken in another
+  order lands on the other side of a rounding boundary.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gnn_fluid_dynamics_tpu.data.synthetic import make_geometry
+from gnn_fluid_dynamics_tpu.graph import from_geometry as jax_from_geometry
+from gnn_fluid_dynamics_tpu.graph import to_static_bands
+from gnn_fluid_dynamics_tpu.models.arch import MLP as JaxMLP
+from gnn_fluid_dynamics_tpu.models.arch import \
+    aggregate_twice_mp as jax_aggregate_twice_mp
+from gnn_fluid_dynamics_tpu.ops import pallas_agg
+from gnn_fluid_dynamics_tpu.ops.reorder import rcm_reorder_geometry
+from gnn_fluid_dynamics_tpu.ops.segment import \
+    aggregate_edges_to_vertices_scatter as jax_scatter
+
+from gnn_fluid_dynamics_tpu_torch.graph import from_geometry
+from gnn_fluid_dynamics_tpu_torch.models.arch import MLP
+from gnn_fluid_dynamics_tpu_torch.ops import kernels
+from gnn_fluid_dynamics_tpu_torch.weights import params_from_flax
+
+H = 128
+F32_TOL = dict(rtol=1e-5, atol=1e-5)
+BF16_TOL = dict(rtol=2 ** -7, atol=2 ** -7)
+
+
+@pytest.fixture(scope="module")
+def graphs():
+    geom = rcm_reorder_geometry(make_geometry("cylinder", n_points=300, seed=0))
+    gj = to_static_bands(jax_from_geometry(geom, pad_multiple=128,
+                                           with_banded=True))
+    gt = from_geometry(geom, pad_multiple=128, device="cpu")
+    return gj, gt
+
+
+def _flax_mlp_params(rng, k0):
+    """A Flax MLP param tree (Dense kernels (in, out)) with LayerNorm."""
+    def dense(n_in, n_out):
+        return {"kernel": rng.normal(size=(n_in, n_out)) / np.sqrt(n_in),
+                "bias": 0.1 * rng.normal(size=(n_out,))}
+    return {"Dense_0": dense(k0, H), "Dense_1": dense(H, H),
+            "Dense_2": dense(H, H),
+            "LayerNorm_0": {"scale": 1.0 + 0.1 * rng.normal(size=(H,)),
+                            "bias": 0.1 * rng.normal(size=(H,))}}
+
+
+def _pallas_params(tree):
+    """The ``MLP(..., raw=True)`` dict the Pallas kernels take."""
+    f32 = lambda x: jnp.asarray(x, jnp.float32)  # noqa: E731
+    return {"w0": f32(tree["Dense_0"]["kernel"]), "b0": f32(tree["Dense_0"]["bias"]),
+            "w1": f32(tree["Dense_1"]["kernel"]), "b1": f32(tree["Dense_1"]["bias"]),
+            "w2": f32(tree["Dense_2"]["kernel"]), "b2": f32(tree["Dense_2"]["bias"]),
+            "ln_scale": f32(tree["LayerNorm_0"]["scale"]),
+            "ln_bias": f32(tree["LayerNorm_0"]["bias"])}
+
+
+def _port_weights(tree, k0, dtype):
+    mlp = MLP(k0, H, H)
+    mlp.load_state_dict(params_from_flax(tree))
+    return mlp.kernel_weights(dtype)
+
+
+def _latents(rng, n, dtype):
+    x = rng.normal(size=(n, H)).astype(np.float32)
+    jdt, tdt = ((jnp.bfloat16, torch.bfloat16) if dtype == "bfloat16"
+                else (jnp.float32, torch.float32))
+    xj = jnp.asarray(x, jdt)
+    return xj, torch.from_numpy(np.array(xj.astype(jnp.float32))).to(tdt)
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+# ---- K3: edge -> vertex sum -------------------------------------------------
+
+def test_edges_to_vertices_f32_matches_segment_reference(graphs):
+    gj, gt = graphs
+    rng = np.random.default_rng(0)
+    ej, et = _latents(rng, gt.num_faces, "float32")
+    want = jax_scatter(ej[:, :H // 2], ej[:, H // 2:], gj.vertex_edge_index,
+                       gj.num_vertices)
+    got = kernels.edges_to_vertices_ref(et, gt)
+    np.testing.assert_allclose(_np(got), _np(want), **F32_TOL)
+
+
+def test_edges_to_vertices_bf16_matches_pallas(graphs):
+    gj, gt = graphs
+    rng = np.random.default_rng(1)
+    ej, et = _latents(rng, gt.num_faces, "bfloat16")
+    want = pallas_agg.aggregate_edges_to_vertices_pallas(ej, gj)[:, :H // 2]
+    got = kernels.edges_to_vertices(et, gt)        # CPU tensors: plain version
+    assert got.dtype == torch.bfloat16 and got.shape == (gt.num_vertices, H // 2)
+    np.testing.assert_allclose(_np(got), _np(want), **BF16_TOL)
+
+
+# ---- K1: fused face block ---------------------------------------------------
+
+@pytest.mark.parametrize("dual_out", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_face_block_matches_pallas(graphs, dtype, dual_out):
+    gj, gt = graphs
+    rng = np.random.default_rng(2)
+    tree = _flax_mlp_params(rng, 3 * H)
+    cj, ct = _latents(rng, gt.num_cells, dtype)
+    ej, et = _latents(rng, gt.num_faces, dtype)
+    want = pallas_agg.fused_face_block_pallas(cj, ej, gj, _pallas_params(tree),
+                                              dual_out=dual_out)
+    w = _port_weights(tree, 3 * H, ct.dtype)
+    got = kernels.fused_face_block(ct, et, gt, w, dual_out=dual_out)
+    want, got = (want, got) if dual_out else ((want,), (got,))
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    for a, b in zip(got, want):
+        assert a.dtype == ct.dtype and a.shape == (gt.num_faces, H)
+        np.testing.assert_allclose(_np(a), _np(b), **tol)
+
+
+# ---- K2: fused cell block ---------------------------------------------------
+
+def test_fused_cell_block_f32_matches_segment_reference(graphs):
+    """f32: the JAX package's plain cell block (3-vertex mean of the segment
+    vertex sum, then its Flax MLP) gives the raw output; res = c + raw."""
+    gj, gt = graphs
+    rng = np.random.default_rng(3)
+    tree = _flax_mlp_params(rng, H + H // 2)
+    cj, ct = _latents(rng, gt.num_cells, "float32")
+    ej, et = _latents(rng, gt.num_faces, "float32")
+    agg = jax_aggregate_twice_mp(ej, gj, "segment")
+    want_raw = JaxMLP(H, H).apply({"params": tree},
+                                  jnp.concatenate([cj, agg], axis=1))
+    w = _port_weights(tree, H + H // 2, torch.float32)
+    vtx = kernels.edges_to_vertices(et, gt)
+    raw, res = kernels.fused_cell_block(ct, vtx, gt, w, dual_out=True)
+    np.testing.assert_allclose(_np(raw), _np(want_raw), **F32_TOL)
+    np.testing.assert_allclose(_np(res), _np(cj + want_raw), **F32_TOL)
+
+
+@pytest.mark.parametrize("dual_out", [False, True])
+def test_fused_cell_block_bf16_matches_pallas(graphs, dual_out):
+    gj, gt = graphs
+    rng = np.random.default_rng(4)
+    tree = _flax_mlp_params(rng, H + H // 2)
+    cj, ct = _latents(rng, gt.num_cells, "bfloat16")
+    ej, et = _latents(rng, gt.num_faces, "bfloat16")
+    want = pallas_agg.fused_cell_block_pallas(cj, ej, gj, _pallas_params(tree),
+                                              dual_out=dual_out)
+    w = _port_weights(tree, H + H // 2, torch.bfloat16)
+    got = kernels.fused_cell_block(ct, kernels.edges_to_vertices(et, gt), gt, w,
+                                   dual_out=dual_out)
+    want, got = (want, got) if dual_out else ((want,), (got,))
+    # live cells only: the Pallas path's index vectors give a padded cell
+    # (3 x the pad vertex) one vertex term where the segment reference, and
+    # the port, sum three; padded rows are masked out downstream
+    live = gt.cell_mask.numpy()
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16 and a.shape == (gt.num_cells, H)
+        np.testing.assert_allclose(_np(a)[live], _np(b)[live], **BF16_TOL)
+
+
+# ---- wrappers ---------------------------------------------------------------
+
+def test_cpu_tensors_take_the_plain_version_and_launch_nothing(graphs):
+    _, gt = graphs
+    rng = np.random.default_rng(5)
+    _, ct = _latents(rng, gt.num_cells, "bfloat16")
+    _, et = _latents(rng, gt.num_faces, "bfloat16")
+    wf = _port_weights(_flax_mlp_params(rng, 3 * H), 3 * H, torch.bfloat16)
+    wc = _port_weights(_flax_mlp_params(rng, H + H // 2), H + H // 2,
+                       torch.bfloat16)
+    before = [f.launches for f in (kernels.fused_face_block,
+                                   kernels.fused_cell_block,
+                                   kernels.edges_to_vertices)]
+    vtx = kernels.edges_to_vertices(et, gt)
+    torch.testing.assert_close(vtx, kernels.edges_to_vertices_ref(et, gt),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(
+        kernels.fused_cell_block(ct, vtx, gt, wc, dual_out=True),
+        kernels.fused_cell_block_ref(ct, vtx, gt, wc, dual_out=True),
+        rtol=0, atol=0)
+    torch.testing.assert_close(kernels.fused_face_block(ct, et, gt, wf),
+                               kernels.fused_face_block_ref(ct, et, gt, wf),
+                               rtol=0, atol=0)
+    after = [f.launches for f in (kernels.fused_face_block,
+                                  kernels.fused_cell_block,
+                                  kernels.edges_to_vertices)]
+    assert after == before
+
+
+def test_padded_rows_do_not_touch_live_rows(graphs):
+    """Padded faces and cells point at the last padded slot: changing every
+    padded latent leaves the live outputs of K1-K3 unchanged."""
+    _, gt = graphs
+    rng = np.random.default_rng(6)
+    _, ct = _latents(rng, gt.num_cells, "bfloat16")
+    _, et = _latents(rng, gt.num_faces, "bfloat16")
+    wf = _port_weights(_flax_mlp_params(rng, 3 * H), 3 * H, torch.bfloat16)
+    wc = _port_weights(_flax_mlp_params(rng, H + H // 2), H + H // 2,
+                       torch.bfloat16)
+    cm, fm, vm = gt.cell_mask, gt.face_mask, gt.vertex_mask
+    assert not cm.all() and not fm.all() and not vm.all()
+    ct2, et2 = ct.clone(), et.clone()
+    ct2[~cm] = 7.0
+    et2[~fm] = -5.0
+
+    def run(c, e):
+        vtx = kernels.edges_to_vertices(e, gt)
+        c_raw, c_res = kernels.fused_cell_block(c, vtx, gt, wc, dual_out=True)
+        return vtx, c_raw, c_res, kernels.fused_face_block(c_raw, e, gt, wf)
+
+    a, b = run(ct, et), run(ct2, et2)
+    for x, y, m in zip(a, b, (vm, cm, cm, fm)):
+        torch.testing.assert_close(x[m], y[m], rtol=0, atol=0)
+
+
+def test_kernel_weights_split_matches_dense_layers():
+    """``kernel_weights`` holds each Dense kernel as (inputs, outputs): the
+    fused input order [e | x[own] | x[nbr]] hits W0's rows in order."""
+    mlp = MLP(3 * H, H, H, generator=torch.Generator().manual_seed(0))
+    w = mlp.kernel_weights(torch.float32)
+    x = torch.randn(5, 3 * H, generator=torch.Generator().manual_seed(1))
+    torch.testing.assert_close(x @ w.w0 + w.b0, mlp.dense0(x))
+    assert mlp.kernel_weights(torch.float32) is w          # cached
+    with torch.no_grad():
+        mlp.dense0.weight.mul_(2.0)
+    assert mlp.kernel_weights(torch.float32) is not w      # in-place change seen
