@@ -1,19 +1,30 @@
 """Drive the PyTorch/CUDA port on one card: build the GN-block kernels, hold
-each against its plain PyTorch version, run FluxD's rollout at the shipped
-width through them, and report each kernel's time beside its bound.
+each against its plain PyTorch version, run the FluxD and FvgnF rollouts at
+their shipped width through them, and report each kernel's time beside its
+bound.
 
     python3 chip_smoke.py
 
 Phases (each prints one flushed line; any failure exits non-zero):
 
 1. device and build: the card's name and power limit, the kernels' build time;
-2. kernel vs plain: K1-K3 at the slice's shapes on seeded inputs;
-3. slice: FluxD (hidden 128, 15 GN blocks, bf16) on the RCM-ordered cylinder
-   mesh of ``bench.py`` (3,462 cells, 5,361 faces, 1,899 vertices) with seeded
-   weights and statistics from the synthetic channel flow. Each of the first
-   5 steps is held against the same model's plain path on the card, on the
-   same inputs; then a 100-step rollout is timed with every launch counter
-   set to 0 just before it;
+2. kernel vs plain: K1-K5 at the slice's shapes on seeded inputs;
+3. the two paths, each on the RCM-ordered cylinder mesh of ``bench.py``
+   (3,462 cells, 5,361 faces, 1,899 vertices) at hidden 128, 15 GN block
+   applications and bf16, with seeded weights and statistics from the
+   synthetic channel flow:
+
+   * FluxD, 15 fused GN blocks: K3 -> K2 -> K1 per block;
+   * FvgnF, one shared GN block applied 15 times with a step scalar, so
+     unfused: K3 -> K5 -> cell MLP, K4 -> face MLP per application; its
+     integrator's BatchNorm at Flax's init (mean 0, var 1).
+
+   Each of the first 5 steps of a path is held against the same model's
+   plain path on the card, on the same inputs; a 5-step rollout with the
+   error metrics must stay finite; then a 100-step rollout is timed with
+   every launch counter set to 0 just before it and read just after, and
+   each kernel must have launched 15 times per step on its path and never
+   on the other; last a device profile of 10 steps;
 4. the ``kernels`` line: per kernel its time per launch, launches, bound,
    plain time and library time.
 
@@ -31,6 +42,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from gnn_fluid_dynamics_tpu_torch.data.synthetic import (channel_flow_trajectory,
                                                          make_geometry)
@@ -38,6 +50,7 @@ from gnn_fluid_dynamics_tpu_torch.graph import from_geometry
 from gnn_fluid_dynamics_tpu_torch.models.arch import MLP
 from gnn_fluid_dynamics_tpu_torch.models.base import ModelConfig, feature_masks
 from gnn_fluid_dynamics_tpu_torch.models.flux import FluxD
+from gnn_fluid_dynamics_tpu_torch.models.fvgn import FvgnF
 from gnn_fluid_dynamics_tpu_torch.models.normalizer import StatsAccumulator
 from gnn_fluid_dynamics_tpu_torch.ops import kernels
 from gnn_fluid_dynamics_tpu_torch.ops.reorder import rcm_reorder_geometry
@@ -56,11 +69,13 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 # kernel vs its plain version, elementwise on bf16 outputs: one bf16
 # rounding step (2**-8 relative) taken on the other side of a boundary,
-# from f32 sums in another order, plus its effect downstream
+# from f32 sums in another order, plus its effect downstream. K4 copies
+# rows and is held exactly.
 KERNEL_RTOL = KERNEL_ATOL = 2.0 ** -7
-# fused vs plain path of the same model on the same inputs, as the largest
-# difference relative to the field's largest magnitude: bf16 latents through
-# 15 blocks (measured on the CPU at 904 cells: up to 2.8% on face fields)
+# kernel vs plain route of the same model on the same inputs, as the
+# largest difference relative to the field's largest magnitude: bf16
+# latents through 15 blocks (measured on the CPU at 904 cells: up to 2.8%
+# on FluxD's face fields)
 STEP_TOL = 5e-2
 
 KERNELS = {
@@ -79,6 +94,23 @@ KERNELS = {
         source="gnn_fluid_dynamics_tpu_torch/csrc/edge_vertex.cu",
         replaces="gnn_fluid_dynamics_tpu/ops/pallas_agg.py:1090 "
                  "(_dual_colidx_kernel_chunk; per-tile _dual_colidx_kernel :137)"),
+    "K4_gather_face_cells": dict(
+        wrapper=kernels.gather_face_cells,
+        source="gnn_fluid_dynamics_tpu_torch/csrc/face_gather.cu",
+        replaces="gnn_fluid_dynamics_tpu/ops/pallas_agg.py:221 "
+                 "(_dual_rowidx_kernel; banded_dual_rowidx_pallas :259)"),
+    "K5_vertices_to_cells": dict(
+        wrapper=kernels.vertices_to_cells,
+        source="gnn_fluid_dynamics_tpu_torch/csrc/vertex_cell.cu",
+        replaces="gnn_fluid_dynamics_tpu/ops/pallas_agg.py:289 "
+                 "(_rowidx3_kernel; banded_rowidx3_pallas :322)"),
+}
+# the main paths and the kernels each must launch MP_NUM times per step
+PATHS = {
+    "FluxD": (FluxD, ("K1_fused_face_block", "K2_fused_cell_block",
+                      "K3_edges_to_vertices")),
+    "FvgnF": (FvgnF, ("K3_edges_to_vertices", "K4_gather_face_cells",
+                      "K5_vertices_to_cells")),
 }
 
 
@@ -129,7 +161,8 @@ def bounds(graph) -> dict:
     its bytes (each input read once, each output written once) over the
     memory rate and its operations over the peak rate for their type (the
     three products in bf16 on the tensor cores for K1/K2, the f32 adds of
-    K3). K1 runs single-output and K2 dual-output on the main path."""
+    K3 and K5; K4 does none). K1 runs single-output and K2 dual-output on
+    the main path; K5 stores its f32 mean."""
     F, C, V = graph.num_faces, graph.num_cells, graph.num_vertices
     vec = 5 * H * 2                                   # b0,b1,b2,ln_g,ln_b
     k1_bytes = (F * H * 2 + C * H * 2 + 2 * F * 4
@@ -140,6 +173,9 @@ def bounds(graph) -> dict:
     k2_flops = 2 * C * H * (H + H // 2 + 2 * H)
     k3_bytes = F * H * 2 + (V + 1) * 4 + 2 * F * 4 + V * (H // 2) * 2
     k3_flops = 2 * F * (H // 2)
+    k4_bytes = C * H * 2 + 2 * F * 4 + 2 * F * H * 2
+    k5_bytes = V * (H // 2) * 2 + 3 * C * 4 + C * (H // 2) * 4
+    k5_flops = 3 * C * (H // 2)                       # 2 adds + 1 division
 
     def bound(nbytes, flops, peak):
         t_b, t_o = nbytes / PEAK_BYTES, flops / peak
@@ -147,7 +183,9 @@ def bounds(graph) -> dict:
                 nbytes, flops)
     return {"K1_fused_face_block": bound(k1_bytes, k1_flops, PEAK_BF16_FLOPS),
             "K2_fused_cell_block": bound(k2_bytes, k2_flops, PEAK_BF16_FLOPS),
-            "K3_edges_to_vertices": bound(k3_bytes, k3_flops, PEAK_F32_FLOPS)}
+            "K3_edges_to_vertices": bound(k3_bytes, k3_flops, PEAK_F32_FLOPS),
+            "K4_gather_face_cells": bound(k4_bytes, 0, PEAK_F32_FLOPS),
+            "K5_vertices_to_cells": bound(k5_bytes, k5_flops, PEAK_F32_FLOPS)}
 
 
 def kernel_phase(graph) -> dict:
@@ -175,39 +213,59 @@ def kernel_phase(graph) -> dict:
         "K1_fused_face_block": (
             lambda: kernels.fused_face_block(cells, edges, graph, w_face),
             lambda: kernels.fused_face_block_ref(cells, edges, graph, w_face)),
+        "K5_vertices_to_cells": (
+            lambda: kernels.vertices_to_cells(vtx, graph),
+            lambda: kernels.vertices_to_cells_ref(vtx, graph)),
+        "K4_gather_face_cells": (
+            lambda: kernels.gather_face_cells(cells, graph),
+            lambda: kernels.gather_face_cells_ref(cells, graph)),
     }
+    exact = {"K4_gather_face_cells"}
     results = {}
     for name, (run, ref) in cases.items():
         got, want = run(), ref()
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
+        rtol, atol = (0.0, 0.0) if name in exact else (KERNEL_RTOL, KERNEL_ATOL)
         err = 0.0
         for a, b in zip(got, want):
             a, b = a.float(), b.float()
             if not torch.isfinite(a).all():
                 fail(f"{name}: non-finite output")
             err = max(err, float((a - b).abs().max()))
-            if not torch.allclose(a, b, rtol=KERNEL_RTOL, atol=KERNEL_ATOL):
+            if not torch.allclose(a, b, rtol=rtol, atol=atol):
                 fail(f"{name}: kernel differs from its plain version "
-                     f"(max abs err {err:.3g})")
+                     f"(max abs err {err:.3g}, rtol {rtol}, atol {atol})")
         results[name] = {"max_abs_err": err, "ms": gpu_ms(run),
                          "plain_ms": gpu_ms(ref)}
-    # one PyTorch call computing K3's function: index_add_ of the (2F, H/2)
-    # half-rows onto their vertices (bf16 accumulation); timed, never used
+    # one PyTorch call computing each kernel's function where there is one;
+    # timed here, never used by the port. K3: index_add_ of the (2F, H/2)
+    # half-rows onto their vertices (bf16 accumulation)
     half_rows = edges.view(2 * graph.num_faces, H // 2)
     owner_of_row = graph.vertex_edge_index.T.reshape(-1)   # 2f: sender, 2f+1: receiver
     out = torch.zeros(graph.num_vertices, H // 2, device=dev,
                       dtype=torch.bfloat16)
-    results["K3_edges_to_vertices"]["library_ms"] = gpu_ms(
-        lambda: out.index_add_(0, owner_of_row, half_rows))
+    cell_vertices = graph.vertex_face.T.contiguous().long()
+    library = {
+        "K3_edges_to_vertices": lambda: out.index_add_(0, owner_of_row,
+                                                       half_rows),
+        # K4: both rows of every face in one (2F, H) row selection
+        "K4_gather_face_cells": lambda: torch.index_select(
+            cells, 0, graph.cell_edge_index.view(-1)),
+        # K5: the 3-vertex bag sum (bf16 out, without K5's division by 3)
+        "K5_vertices_to_cells": lambda: F.embedding_bag(
+            cell_vertices, vtx, mode="sum"),
+    }
+    for name, call in library.items():
+        results[name]["library_ms"] = gpu_ms(call)
     return results
 
 
-def check_against_plain(fused, plain, graph, feats) -> dict:
-    """The fused and the plain path of the same model, step by step on the
+def check_against_plain(kern, plain, graph, feats) -> dict:
+    """The kernel and the plain route of the same model, step by step on the
     same inputs: each step's predicted fields from both, then the plain
-    path's state fed back. (Free-running, the two would drift apart: with
+    route's state fed back. (Free-running, the two would drift apart: with
     random weights the model amplifies any difference step over step.)
     Returns the largest difference of each field relative to its largest
     magnitude."""
@@ -215,76 +273,84 @@ def check_against_plain(fused, plain, graph, feats) -> dict:
     with torch.inference_mode():
         for _ in range(CHECK_STEPS):
             sol_p = plain.derive_state(plain.forward(graph, feats), feats, graph)
-            sol_f = fused.derive_state(fused.forward(graph, feats), feats, graph)
+            sol_k = kern.derive_state(kern.forward(graph, feats), feats, graph)
             for key in SAVABLE_FIELDS:
-                a, b = sol_f[key].float(), sol_p[key].float()
+                if key not in sol_p:
+                    continue
+                a, b = sol_k[key].float(), sol_p[key].float()
                 if not torch.isfinite(a).all():
-                    fail(f"fused path: non-finite {key}")
+                    fail(f"kernel route: non-finite {key}")
                 rel = float((a - b).abs().max() / b.abs().max())
                 worst[key] = max(worst.get(key, 0.0), rel)
             feats = plain.update_features(sol_p, feats, graph)
     for key, rel in worst.items():
         if rel > STEP_TOL:
-            fail(f"fused vs plain path, {key}: {rel:.3g} > {STEP_TOL}")
+            fail(f"kernel vs plain route, {key}: {rel:.3g} > {STEP_TOL}")
     return worst
 
 
-def slice_phase(graph, fields, device_line: str) -> dict:
-    """FluxD's rollout through the kernels: first held against the plain
-    path, then timed with the launch counters read around it."""
+def slice_phase(path: str, graph, fields, device_line: str) -> dict:
+    """One path's rollout through the kernels: first held against the plain
+    route, then timed with the launch counters read around it."""
+    cls, expected = PATHS[path]
     dev = graph.device
-    cfg = ModelConfig(hidden_width=H, mp_num=MP_NUM, compute_dtype="bfloat16")
-    fused = FluxD(cfg, device=dev, seed=0)
-    plain = FluxD(dataclasses.replace(cfg, aggregation="segment"), device=dev,
-                  seed=0)
-    _, feats = fused.transform_rollout(graph)
-    acc = StatsAccumulator(fused.nmap)
+    cfg = ModelConfig(name=path, hidden_width=H, mp_num=MP_NUM,
+                      compute_dtype="bfloat16")
+    kern = cls(cfg, device=dev, seed=0)
+    plain = cls(dataclasses.replace(cfg, aggregation="segment"), device=dev,
+                seed=0)
+    _, feats = kern.transform_rollout(graph)
+    acc = StatsAccumulator(kern.nmap)
     acc.update(feats, feature_masks(graph, feats))
     stats = acc.finalize()
-    fused.set_stats(stats)
+    kern.set_stats(stats)
     plain.set_stats(stats)
-    plain.module.load_state_dict(fused.module.state_dict())
+    plain.module.load_state_dict(kern.module.state_dict())
 
-    worst = check_against_plain(fused, plain, graph, feats)
-    say(f"phase 3a fused vs plain path, {CHECK_STEPS} steps on the same "
-        "inputs: ok " + json.dumps({k: round(v, 6) for k, v in worst.items()}))
+    worst = check_against_plain(kern, plain, graph, feats)
+    say(f"phase 3a {path} kernel vs plain route, {CHECK_STEPS} steps on the "
+        "same inputs: ok " + json.dumps({k: round(v, 6) for k, v in worst.items()}))
     gv = torch.from_numpy(fields["cell_velocity"][1:CHECK_STEPS + 1]).to(dev)
     gp = torch.from_numpy(fields["cell_pressure"][1:CHECK_STEPS + 1]).to(dev)
-    errors, saved = rollout_scan(fused, graph, feats, gv, gp, RolloutConfig(
+    errors, saved = rollout_scan(kern, graph, feats, gv, gp, RolloutConfig(
         num_steps=CHECK_STEPS, compute_error=True, save_fields=True))
     for key, val in {**errors, **saved}.items():
         if not torch.isfinite(val).all():
-            fail(f"fused rollout: non-finite {key}")
+            fail(f"{path} rollout: non-finite {key}")
 
-    # timed: plain, fused (the main path, counters read around it), fused,
-    # plain — both versions in turns on the same card
-    for model in (plain, fused):                                   # warm-up
+    # timed: plain, kernel (the main path, counters read around it), kernel,
+    # plain — both routes in turns on the same card
+    for model in (plain, kern):                                    # warm-up
         rollout_scan(model, graph, feats, config=RolloutConfig(
             num_steps=5, compute_error=False))
     walls = {"plain": [timed_rollout(plain, graph, feats)]}
     for spec in KERNELS.values():
         spec["wrapper"].launches = 0
-    walls["fused"] = [timed_rollout(fused, graph, feats)]
+    walls["kernel"] = [timed_rollout(kern, graph, feats)]
     launches = {name: spec["wrapper"].launches for name, spec in KERNELS.items()}
-    walls["fused"].append(timed_rollout(fused, graph, feats))
+    walls["kernel"].append(timed_rollout(kern, graph, feats))
     walls["plain"].append(timed_rollout(plain, graph, feats))
     for name, n in launches.items():
-        if n != MP_NUM * STEPS:
-            fail(f"{name}: {n} launches in {STEPS} steps, "
-                 f"expected {MP_NUM * STEPS}")
-    wall = walls["fused"][0]
-    say(f"phase 3b slice: FluxD h{H} mp{MP_NUM} bf16, {graph.num_cells} cells "
+        want = MP_NUM * STEPS if name in expected else 0
+        if n != want:
+            fail(f"{path}: {name} launched {n} times in {STEPS} steps, "
+                 f"expected {want}")
+    wall = walls["kernel"][0]
+    say(f"phase 3b {path} h{H} mp{MP_NUM} bf16, {graph.num_cells} cells "
         f"{graph.num_faces} faces {graph.num_vertices} vertices, {STEPS} steps "
         f"in {wall:.4f} s = {STEPS / wall:.1f} steps/s, "
         f"{1e3 * wall / STEPS:.4f} ms/step; launches {json.dumps(launches)}; "
-        "steps/s in turns plain, fused, fused, plain: "
+        "steps/s in turns plain, kernel, kernel, plain: "
         + ", ".join(f"{STEPS / w:.1f}" for w in (walls["plain"][0],
-                                                 *walls["fused"],
+                                                 *walls["kernel"],
                                                  walls["plain"][1]))
         + f"; card {device_line}")
+    prof = device_profile(kern, graph, feats)
+    say(f"phase 3c {path} device profile of 10 kernel-route steps: "
+        + ("not measured" if prof is None else json.dumps(prof)))
     return {"launches": launches, "steps_per_s": STEPS / wall,
             "ms_per_step": 1e3 * wall / STEPS,
-            "profile": device_profile(fused, graph, feats)}
+            "profile": prof}
 
 
 def timed_rollout(model, graph, feats) -> float:
@@ -302,10 +368,10 @@ def timed_rollout(model, graph, feats) -> float:
 
 
 def device_profile(model, graph, feats, steps: int = 10):
-    """Device time per step by kernel name over a short rollout, and the
-    share of the window's wall time with a kernel running, from
-    torch.profiler (device activity only); None where the profiler shows no
-    device time."""
+    """Device time per step by kernel name over a short rollout (the 8
+    largest, and each of this package's kernels), and the share of the
+    window's wall time with a kernel running, from torch.profiler (device
+    activity only); None where the profiler shows no device time."""
     from torch.profiler import ProfilerActivity, profile
     cfg = RolloutConfig(num_steps=steps, compute_error=False)
     try:
@@ -327,11 +393,14 @@ def device_profile(model, graph, feats, steps: int = 10):
             e.time_range.end - e.time_range.start)
     busy = sum(per_name.values())
     top = sorted(per_name.items(), key=lambda kv: -kv[1])[:8]
+    ours = {n.split("(")[0]: t for n, t in per_name.items()
+            if n.startswith("gfd::")}
     return {"busy_share": busy / wall_us,
             "device_ms_per_step": busy / steps / 1e3,
             "wall_ms_per_step": wall_us / steps / 1e3,
             "kernels_per_step": len(events) / steps,
-            "top_ms_per_step": {n[:60]: t / steps / 1e3 for n, t in top}}
+            "top_ms_per_step": {n[:60]: t / steps / 1e3 for n, t in top},
+            "gfd_ms_per_step": {n: t / steps / 1e3 for n, t in ours.items()}}
 
 
 def main() -> int:
@@ -351,26 +420,26 @@ def main() -> int:
     say("phase 2 kernel vs plain: ok " + json.dumps(
         {k: round(v["max_abs_err"], 6) for k, v in per_kernel.items()}))
 
-    sl = slice_phase(graph, fields, line)
-    prof = sl["profile"]
-    say("phase 3c device profile of 10 fused steps: "
-        + ("not measured" if prof is None else json.dumps(prof)))
+    paths = {path: slice_phase(path, graph, fields, line) for path in PATHS}
 
     bnd = bounds(graph)
     rows = []
     for name, spec in KERNELS.items():
         r = per_kernel[name]
         b_ms, b_by, nbytes, flops = bnd[name]
+        by_path = {path: p["launches"][name] for path, p in paths.items()}
         rows.append({
             "name": name, "route": "cuda", "source": spec["source"],
-            "replaces": spec["replaces"], "launches": sl["launches"][name],
-            "launches_per_step": sl["launches"][name] / STEPS,
+            "replaces": spec["replaces"], "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "launches_per_step": {p: n / STEPS for p, n in by_path.items()},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": r.get("library_ms"), "bytes": nbytes, "flops": flops,
         })
-    say(f"phase 4 card {line}; slice {sl['steps_per_s']:.1f} steps/s, "
-        f"{sl['ms_per_step']:.4f} ms/step")
+    say(f"phase 4 card {line}; " + "; ".join(
+        f"{path} {p['steps_per_s']:.1f} steps/s, {p['ms_per_step']:.4f} ms/step"
+        for path, p in paths.items()))
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,17 +1,22 @@
-"""Core neural architecture: MLPs, GN blocks, encode-process-decode.
+"""Core neural architecture: MLPs, GN blocks, encode-process-decode and the
+FVGN integrator.
 
-Counterpart of ``gnn_fluid_dynamics_tpu/models/arch.py`` for what FluxD's
-rollout runs. Module and parameter names follow the Flax tree, so
-:func:`gnn_fluid_dynamics_tpu_torch.weights.params_from_flax` maps one onto the
-other.
+Counterpart of ``gnn_fluid_dynamics_tpu/models/arch.py`` for what the FluxD
+and FvgnA/FvgnF rollouts run. Module and parameter names follow the Flax
+tree, so :func:`gnn_fluid_dynamics_tpu_torch.weights.params_from_flax` maps
+one onto the other.
 
-The GN blocks have two paths, as in the JAX package:
+The GN blocks take one of two routes, as in the JAX package:
 
-* the **fused** path: per block, the edge->vertex sum (K3), the fused cell
-  block (K2) and the fused face block (K1) of
-  :mod:`gnn_fluid_dynamics_tpu_torch.ops.kernels`, with bf16 latents between
-  them — the CUDA kernels on the card, their plain versions on the CPU;
-* the **plain** (unfused) path: segment aggregation, row gathers and the
+* the **kernel** route, through the CUDA kernels of
+  :mod:`gnn_fluid_dynamics_tpu_torch.ops.kernels` on the card (their plain
+  versions on the CPU). A block without a step scalar is **fused**: per
+  block the edge->vertex sum (K3), the fused cell block (K2) and the fused
+  face block (K1), with bf16 latents between them. A block with a step
+  scalar (FvgnF) is **unfused**: K3 then the 3-vertex mean (K5) before the
+  cell MLP, the owner/neighbour gather (K4) before the face MLP, the MLPs
+  as :class:`MLP` modules and the residuals outside;
+* the **plain** route: segment aggregation, row gathers and the
   :class:`MLP` modules in the configured compute dtype.
 """
 
@@ -33,11 +38,14 @@ AGGREGATIONS = ("segment", "pallas", "auto")
 class ArchConfig:
     hidden: int = 128
     mp_num: int = 15
-    # "segment": the plain path; "pallas": the fused path (the name of the
-    # JAX package's fused backend); "auto": fused when the latents are on the
-    # card at the kernels' width, else plain
+    # "segment": the plain route; "pallas": the kernel route (the name of
+    # the JAX package's Pallas backend); "auto": the kernel route when the
+    # latents are on the card at the kernels' width, else plain
     aggregation: str = "auto"
     compute_dtype: str = "float32"   # "bfloat16" runs the MLP stack in bf16
+    share_blocks: bool = False       # FvgnF: one GN block applied mp_num times
+    step_scalar: bool = False        # FvgnF: (i+1)/mp_num appended to both
+    #                                  block inputs of application i
 
     def __post_init__(self):
         if self.aggregation not in AGGREGATIONS:
@@ -49,8 +57,9 @@ class ArchConfig:
         return torch.bfloat16 if self.compute_dtype == "bfloat16" else torch.float32
 
 
-def use_fused(cfg: ArchConfig, latent: torch.Tensor) -> bool:
-    """Whether the GN blocks take the fused path for latents ``latent``."""
+def kernel_route(cfg: ArchConfig, latent: torch.Tensor) -> bool:
+    """Whether the GN blocks take the kernel route for latents ``latent``
+    (``_resolve_aggregation``)."""
     if cfg.aggregation == "pallas":
         return True
     return (cfg.aggregation == "auto" and latent.is_cuda
@@ -138,24 +147,37 @@ def aggregate_twice_mp(edge_attr: torch.Tensor, graph) -> torch.Tensor:
     return seg_ops.gather_vertices_to_cells(vtx, graph.vertex_face)
 
 
+def _with_extra(parts: list, extra, rows: int) -> torch.Tensor:
+    """``parts`` concatenated along channels, with the (1, E) step scalar
+    ``extra`` broadcast over the rows appended when given."""
+    if extra is not None:
+        parts = parts + [extra.expand(rows, extra.shape[-1])]
+    return torch.cat(parts, dim=-1)
+
+
 class CellBlock(nn.Module):
     """Edge->vertex->cell aggregation + cell MLP (reference ``Cell_Block``,
     Fvgn.py:298-325)."""
 
     def __init__(self, cfg: ArchConfig, generator: torch.Generator = None):
         super().__init__()
-        self.mlp = MLP(cfg.hidden + cfg.hidden // 2, cfg.hidden, cfg.hidden,
-                       dtype=cfg.dtype, generator=generator)
+        self.mlp = MLP(cfg.hidden + cfg.hidden // 2 + int(cfg.step_scalar),
+                       cfg.hidden, cfg.hidden, dtype=cfg.dtype,
+                       generator=generator)
 
-    def forward(self, cell_attr, edge_attr, graph, fused: bool = False,
-                dual_out: bool = False):
-        if fused:
+    def forward(self, cell_attr, edge_attr, graph, extra=None,
+                use_kernels: bool = False, dual_out: bool = False):
+        if use_kernels:
             vtx = kernels.edges_to_vertices(edge_attr.to(torch.bfloat16), graph)
-            return kernels.fused_cell_block(cell_attr.to(torch.bfloat16), vtx,
-                                            graph, self.mlp.kernel_weights(),
-                                            dual_out=dual_out)
-        cell_agg = aggregate_twice_mp(edge_attr, graph)
-        return self.mlp(torch.cat([cell_attr, cell_agg], dim=-1))
+            if extra is None:
+                return kernels.fused_cell_block(
+                    cell_attr.to(torch.bfloat16), vtx, graph,
+                    self.mlp.kernel_weights(), dual_out=dual_out)
+            cell_agg = kernels.vertices_to_cells(vtx, graph)
+        else:
+            cell_agg = aggregate_twice_mp(edge_attr, graph)
+        return self.mlp(_with_extra([cell_attr, cell_agg], extra,
+                                    cell_attr.shape[0]))
 
 
 class FaceBlock(nn.Module):
@@ -164,40 +186,50 @@ class FaceBlock(nn.Module):
 
     def __init__(self, cfg: ArchConfig, generator: torch.Generator = None):
         super().__init__()
-        self.mlp = MLP(3 * cfg.hidden, cfg.hidden, cfg.hidden,
-                       dtype=cfg.dtype, generator=generator)
+        self.mlp = MLP(3 * cfg.hidden + int(cfg.step_scalar), cfg.hidden,
+                       cfg.hidden, dtype=cfg.dtype, generator=generator)
 
-    def forward(self, cell_attr, edge_attr, graph, fused: bool = False,
-                dual_out: bool = False):
-        if fused:
+    def forward(self, cell_attr, edge_attr, graph, extra=None,
+                use_kernels: bool = False, dual_out: bool = False):
+        if use_kernels and extra is None:
             return kernels.fused_face_block(cell_attr.to(torch.bfloat16),
                                             edge_attr.to(torch.bfloat16),
                                             graph, self.mlp.kernel_weights(),
                                             dual_out=dual_out)
-        own, nbr = graph.cell_edge_index[0], graph.cell_edge_index[1]
-        return self.mlp(torch.cat([edge_attr, cell_attr[own], cell_attr[nbr]],
-                                  dim=-1))
+        if use_kernels:
+            own, nbr = kernels.gather_face_cells(cell_attr.to(torch.bfloat16),
+                                                 graph)
+            own, nbr = own.float(), nbr.float()
+        else:
+            own = cell_attr[graph.cell_edge_index[0]]
+            nbr = cell_attr[graph.cell_edge_index[1]]
+        return self.mlp(_with_extra([edge_attr, own, nbr], extra,
+                                    edge_attr.shape[0]))
 
 
 class GNBlock(nn.Module):
     """One processor block, FVGN order (cell block, then face block) with
-    residuals (Fvgn.py:274-284)."""
+    residuals (Fvgn.py:274-284). On the kernel route a block without a step
+    scalar is fused (``_fused_block_ok``)."""
 
     def __init__(self, cfg: ArchConfig, generator: torch.Generator = None):
         super().__init__()
         self.cell_block = CellBlock(cfg, generator)
         self.face_block = FaceBlock(cfg, generator)
 
-    def forward(self, cell_attr, edge_attr, graph, fused: bool = False):
-        if fused:
+    def forward(self, cell_attr, edge_attr, graph, extra=None,
+                use_kernels: bool = False):
+        if use_kernels and extra is None:
             # residuals are applied inside the kernels; the face block reads
             # the cell block's RAW (pre-residual) output
             c_raw, c_res = self.cell_block(cell_attr, edge_attr, graph,
-                                           fused=True, dual_out=True)
-            e_res = self.face_block(c_raw, edge_attr, graph, fused=True)
+                                           use_kernels=True, dual_out=True)
+            e_res = self.face_block(c_raw, edge_attr, graph, use_kernels=True)
             return c_res, e_res
-        new_cell = self.cell_block(cell_attr, edge_attr, graph)
-        new_edge = self.face_block(new_cell, edge_attr, graph)
+        new_cell = self.cell_block(cell_attr, edge_attr, graph, extra,
+                                   use_kernels)
+        new_edge = self.face_block(new_cell, edge_attr, graph, extra,
+                                   use_kernels)
         return cell_attr + new_cell, edge_attr + new_edge
 
 
@@ -219,24 +251,36 @@ class Encoder(nn.Module):
 
 class EncodeProcessDecode(nn.Module):
     """Encoder -> mp_num GN blocks -> the face decoder head (``decoder_face``,
-    no LayerNorm)."""
+    no LayerNorm). With ``share_blocks`` one block (``blocks.0``, Flax
+    ``GNBlock_0``) is applied ``mp_num`` times; with ``step_scalar``
+    application ``i`` appends ``(i+1)/mp_num`` to both block inputs."""
 
     def __init__(self, cfg: ArchConfig, cell_in: int, face_in: int,
                  face_out: int, generator: torch.Generator = None):
         super().__init__()
         self.cfg = cfg
         self.encoder = Encoder(cfg, cell_in, face_in, generator)
-        self.blocks = nn.ModuleList(GNBlock(cfg, generator)
-                                    for _ in range(cfg.mp_num))
+        self.blocks = nn.ModuleList(
+            GNBlock(cfg, generator)
+            for _ in range(1 if cfg.share_blocks else cfg.mp_num))
         self.decoder_face = MLP(cfg.hidden, cfg.hidden, face_out,
                                 layer_norm=False, dtype=cfg.dtype,
                                 generator=generator)
+        # the step scalars, one (1, 1) row each, in the encoder's output
+        # dtype (f32); not weights, so outside the state dict
+        self.register_buffer("step_scalars", torch.tensor(
+            [[(i + 1) / cfg.mp_num] for i in range(cfg.mp_num)],
+            dtype=torch.float32), persistent=False)
 
     def forward(self, cell_x, face_x, graph):
         cell_attr, edge_attr = self.encoder(cell_x, face_x)
-        fused = use_fused(self.cfg, cell_attr)
-        for block in self.blocks:
-            cell_attr, edge_attr = block(cell_attr, edge_attr, graph, fused)
+        kern = kernel_route(self.cfg, cell_attr)
+        for i in range(self.cfg.mp_num):
+            block = self.blocks[0 if self.cfg.share_blocks else i]
+            extra = (self.step_scalars[i:i + 1] if self.cfg.step_scalar
+                     else None)
+            cell_attr, edge_attr = block(cell_attr, edge_attr, graph, extra,
+                                         kern)
         return self.decoder_face(edge_attr)
 
 
@@ -244,6 +288,94 @@ def gather3(x: torch.Tensor, graph) -> torch.Tensor:
     """(F, D) -> (C, 3, D): each cell's 3 face rows (a plain index gather;
     the JAX package's ``fc3`` banded table is a TPU device)."""
     return x[graph.face_index.T]
+
+
+class BatchNorm(nn.Module):
+    """Flax ``BatchNorm`` over the last axis in eval mode (running
+    statistics): ``(x - mean) * (rsqrt(var + eps) * scale) + bias``, eps 1e-5.
+    Initialized as Flax does: scale 1, bias 0, mean 0, var 1. The port runs
+    rollouts only; batch statistics and their momentum-0.9 update come with
+    training."""
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, x):
+        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+        return (x - self.running_mean) * mul + self.bias
+
+
+class MaskedBatchNorm(nn.Module):
+    """1-channel batch norm over valid elements only (reference
+    ``torch.nn.BatchNorm1d(1)`` in the integrators, normalisation.py:325-365).
+    In eval mode the mask plays no part: the running statistics apply to
+    every row."""
+
+    def __init__(self):
+        super().__init__()
+        self.batch_norm = BatchNorm(1)
+
+    def forward(self, x):
+        return self.batch_norm(x)
+
+
+def _vol_dt_coeff(graph) -> torch.Tensor:
+    """mean(dt) / mean-adjacent-cell-volume per face (reference
+    ``normalize_vol_dt`` core, normalisation.py:346-365). -> (F, 1)."""
+    vol = graph.cell_volume.reshape(-1)
+    v_avg = 0.5 * (vol[graph.cell_edge_index[0]] + vol[graph.cell_edge_index[1]])
+    # padded faces point at padded cells of zero volume
+    v_avg = torch.clamp(v_avg, min=1e-12)
+    return (torch.mean(graph.dt) / v_avg).reshape(-1, 1)
+
+
+class FaceAreaNorm(nn.Module):
+    """BatchNorm'd face_area * dt / V̄ scaling (reference
+    ``normalize_face_area``, normalisation.py:325-344)."""
+
+    def __init__(self):
+        super().__init__()
+        self.masked_batch_norm = MaskedBatchNorm()
+
+    def forward(self, graph):
+        return self.masked_batch_norm(graph.face_area.reshape(-1, 1)
+                                      * _vol_dt_coeff(graph))
+
+
+class FvgnIntegrator(nn.Module):
+    """Normalized-space momentum flux balance (reference ``FvgnA.Integrator``,
+    Fvgn.py:214-255): acc = -Phi_A - Phi_P/rho + Phi_D with BatchNorm'd
+    area*dt/V̄ face weights. ``edge_output`` = [u_f, v_f, p_f, D_x, D_y].
+    Returns (acc, {"norm_face_area": ...})."""
+
+    def __init__(self, rho: float = 1.0):
+        super().__init__()
+        self.rho = rho
+        self.face_area_norm = FaceAreaNorm()
+
+    def forward(self, edge_output, graph):
+        face_area = self.face_area_norm(graph)                # (F, 1)
+        unv = graph.cell_normal                               # (C, 3, 2)
+        uv = edge_output[:, :2]
+        p = edge_output[:, 2:3]
+        flux_d = edge_output[:, 3:]
+        uu_vu = torch.cat([uv[:, 0:1] * uv, uv[:, 1:2] * uv], dim=-1)  # (F, 4)
+        g = gather3(torch.cat([face_area, uu_vu, flux_d, p], dim=1),
+                    graph)                                    # (C, 3, 8)
+        e, uu, d, pf = g[..., 0:1], g[..., 1:5], g[..., 5:7], g[..., 7:8]
+        # advective: per local face, [uu uv; vu vv] . n, times the area
+        a = torch.einsum("cfkd,cfd->cfk", uu.reshape(-1, 3, 2, 2), unv)
+        phi_a = torch.sum(a * e, dim=1)                       # (C, 2)
+        phi_d = torch.sum(d, dim=1)
+        phi_p = torch.sum(pf * unv * e, dim=1)
+        acc = -phi_a - phi_p / self.rho + phi_d
+        acc = torch.where(graph.cell_mask[:, None], acc, torch.zeros_like(acc))
+        return acc, {"norm_face_area": face_area}
 
 
 class LearnedScaleDenorm(nn.Module):

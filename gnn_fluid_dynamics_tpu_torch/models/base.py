@@ -49,13 +49,22 @@ class FluidModel:
         self.device = resolve_device(device)
         self.arch = ArchConfig(hidden=config.hidden_width, mp_num=config.mp_num,
                                aggregation=config.aggregation,
-                               compute_dtype=config.compute_dtype)
+                               compute_dtype=config.compute_dtype,
+                               share_blocks=self.share_blocks(),
+                               step_scalar=self.step_scalar())
         self.nmap = self.normalisation_map()
         self.stats = None
         if stats is not None:
             self.stats = norm.stats_to_tensors(stats, self.device)
         generator = torch.Generator().manual_seed(seed)
         self.module = self.build_module(generator).to(self.device).eval()
+
+    # ---- architecture hooks -------------------------------------------------
+    def share_blocks(self) -> bool:
+        return False
+
+    def step_scalar(self) -> bool:
+        return False
 
     def build_module(self, generator: torch.Generator) -> torch.nn.Module:
         raise NotImplementedError

@@ -25,10 +25,15 @@ from gnn_fluid_dynamics_tpu_torch.ops import fvm
 
 class FluxA(FvgnA):
     """Joint velocity+flux prediction (Flux.py:28-206): the features and the
-    normalization map FluxD inherits. FluxA's own integrator (BatchNorm'd
-    face weights) is not ported yet."""
+    normalization map FluxD inherits. FluxA's own module (the flux
+    integrator with BatchNorm'd face weights) is not ported yet, so FluxA
+    itself cannot be built."""
 
     name = "FluxA"
+
+    def build_module(self, generator: torch.Generator) -> nn.Module:
+        raise NotImplementedError(
+            "FluxA's own module (FluxIntegrator) is not ported yet; FluxD is")
 
     def normalisation_map(self) -> norm.NormalizationMap:
         nmap = super().normalisation_map()

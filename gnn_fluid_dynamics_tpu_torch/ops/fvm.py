@@ -1,4 +1,4 @@
-"""Finite-volume numerics used by the FluxD rollout (counterpart of
+"""Finite-volume numerics used by the rollouts (counterpart of
 ``ops/fvm.py``). The owner/neighbour sign bookkeeping is the precomputed
 ``cell_face_sign`` table, so each conversion is a plain gather."""
 
@@ -11,6 +11,19 @@ def divergence_from_cell_flux(cell_flux: torch.Tensor) -> torch.Tensor:
     """Sum of per-cell signed local fluxes (reference ``fvm.py:13-19``).
     cell_flux: (C, 3) -> (C, 1)."""
     return torch.sum(cell_flux, dim=1, keepdim=True)
+
+
+def divergence_from_uf(face_velocity: torch.Tensor, cell_normal: torch.Tensor,
+                       face_area: torch.Tensor, face_index: torch.Tensor
+                       ) -> torch.Tensor:
+    """Divergence of a face-velocity field: sum_k (u_{f_k} . n_k) A_{f_k}
+    over each cell's 3 faces with outward cell normals (reference
+    ``fvm.py:26-37``). face_velocity: (F, 2), cell_normal: (C, 3, 2),
+    face_area: (F, 1) or (F,), face_index: (3, C) -> (C, 1)."""
+    area = face_area.reshape(-1)
+    uf = face_velocity[face_index.T]                # (C, 3, 2)
+    af = area[face_index.T][..., None]              # (C, 3, 1)
+    return torch.sum(uf * cell_normal * af, dim=(1, 2))[:, None]
 
 
 def face_flux_to_cell_flux(face_flux: torch.Tensor, face_index: torch.Tensor,

@@ -9,7 +9,12 @@ name   wrapper                  plain version                        source
 K1     :func:`fused_face_block`  :func:`fused_face_block_ref`        ``csrc/face_block.cu``
 K2     :func:`fused_cell_block`  :func:`fused_cell_block_ref`        ``csrc/cell_block.cu``
 K3     :func:`edges_to_vertices` :func:`edges_to_vertices_ref`       ``csrc/edge_vertex.cu``
+K4     :func:`gather_face_cells` :func:`gather_face_cells_ref`       ``csrc/face_gather.cu``
+K5     :func:`vertices_to_cells` :func:`vertices_to_cells_ref`       ``csrc/vertex_cell.cu``
 =====  =======================  ===================================  ==========================
+
+K1-K3 carry the fused GN block; K3, K5 and K4 carry the unfused one, whose
+MLPs run outside the kernels (a block with a step scalar, as in FvgnF).
 
 A wrapper given tensors on the CPU returns its plain version; given CUDA
 tensors it launches its kernel or raises. Each launch adds one to the
@@ -44,7 +49,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 SOURCES = {"face_block": "face_block.cu", "cell_block": "cell_block.cu",
-           "edge_vertex": "edge_vertex.cu"}
+           "edge_vertex": "edge_vertex.cu", "face_gather": "face_gather.cu",
+           "vertex_cell": "vertex_cell.cu"}
 HEADERS = ("gn_block.cuh",)
 H = 128          # the latent width the kernels are built for
 LN_EPS = 1e-5
@@ -55,9 +61,10 @@ _ARGTYPES = {
     "gfd_face_block": [_I] + [_P] * 4 + [_I] + [_P] * 11,
     "gfd_cell_block": [_I] + [_P] * 5 + [_I] + [_P] * 11,
     "gfd_edge_vertex": [_I] + [_P] * 3 + [_I] + [_P] * 2,
+    "gfd_face_gather": [_I] + [_P] * 3 + [_I] + [_P] * 3,
+    "gfd_vertex_cell": [_I] + [_P] * 4 + [_I] + [_P] * 2,
 }
-_ENTRY = {"face_block": "gfd_face_block", "cell_block": "gfd_cell_block",
-          "edge_vertex": "gfd_edge_vertex"}
+_ENTRY = {name: "gfd_" + name for name in SOURCES}
 
 _libs: dict = {}
 _lock = threading.Lock()
@@ -239,6 +246,23 @@ def edges_to_vertices_ref(edge_attr, graph):
     return out.to(edge_attr.dtype)
 
 
+def gather_face_cells_ref(cell_attr, graph):
+    """Plain version of K4: the owner and neighbour rows of the cell latents
+    per face, (C, H) -> two (F, H) in the latents' dtype."""
+    return (cell_attr[graph.cell_edge_index[0]],
+            cell_attr[graph.cell_edge_index[1]])
+
+
+def vertices_to_cells_ref(vtx, graph):
+    """Plain version of K5: each cell's 3 rows of K3's (V, H/2) vertex sums,
+    summed in f32 and rounded to their dtype, then divided by 3 in f32
+    (``pallas_agg.py::aggregate_vertices_to_cells_pallas``). -> (C, H/2)
+    f32."""
+    vf = graph.vertex_face
+    v = vtx.float()
+    return (v[vf[0]] + v[vf[1]] + v[vf[2]]).to(vtx.dtype).float() / 3.0
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
@@ -299,6 +323,40 @@ def edges_to_vertices(edge_attr, graph):
     return out
 
 
+def gather_face_cells(cell_attr, graph):
+    """K4: the owner/neighbour gather. See :func:`gather_face_cells_ref`."""
+    if cell_attr.device.type == "cpu":
+        return gather_face_cells_ref(cell_attr, graph)
+    dev = cell_attr.device
+    nf, nc = graph.num_faces, graph.num_cells
+    _check(cell_attr, "cell_attr", dev, torch.bfloat16, (nc, H))
+    _check(graph.cell_edge_index, "cell_edge_index", dev, torch.int32, (2, nf))
+    own = torch.empty((nf, H), dtype=torch.bfloat16, device=dev)
+    nbr = torch.empty_like(own)
+    _launch("face_gather", dev, _ptr(cell_attr), _ptr(graph.cell_edge_index[0]),
+            _ptr(graph.cell_edge_index[1]), nf, _ptr(own), _ptr(nbr))
+    gather_face_cells.launches += 1
+    return own, nbr
+
+
+def vertices_to_cells(vtx, graph):
+    """K5: the 3-vertex cell mean. See :func:`vertices_to_cells_ref`."""
+    if vtx.device.type == "cpu":
+        return vertices_to_cells_ref(vtx, graph)
+    dev = vtx.device
+    nc, nv = graph.num_cells, graph.num_vertices
+    _check(vtx, "vtx", dev, torch.bfloat16, (nv, H // 2))
+    _check(graph.vertex_face, "vertex_face", dev, torch.int32, (3, nc))
+    out = torch.empty((nc, H // 2), dtype=torch.float32, device=dev)
+    vf = graph.vertex_face
+    _launch("vertex_cell", dev, _ptr(vtx), _ptr(vf[0]), _ptr(vf[1]),
+            _ptr(vf[2]), nc, _ptr(out))
+    vertices_to_cells.launches += 1
+    return out
+
+
 fused_face_block.launches = 0
 fused_cell_block.launches = 0
 edges_to_vertices.launches = 0
+gather_face_cells.launches = 0
+vertices_to_cells.launches = 0

@@ -5,7 +5,7 @@ Python loop over steps under ``torch.inference_mode``: forward -> state
 derivation -> error metrics -> feature feedback. Error metrics match the
 reference's ``_error_accumulate`` (rollout.py:121-148): per-graph relative
 MSE of cell velocity and pressure against ground truth, and the divergence of
-the predicted cell flux.
+the predicted cell flux or face velocity.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ import torch
 
 from gnn_fluid_dynamics_tpu_torch.models.losses import (mse_per_graph,
                                                         rel_mse_per_graph)
+from gnn_fluid_dynamics_tpu_torch.models.transforms import interior_face_mask
 from gnn_fluid_dynamics_tpu_torch.ops import fvm
 
 SAVABLE_FIELDS = ("cell_velocity", "cell_pressure", "cell_flux",
@@ -31,13 +32,22 @@ class RolloutConfig:
     save_fields: bool = False      # keep every step's predicted fields
 
 
-def _divergence_metric(solutions: Dict, graph) -> torch.Tensor:
-    """Divergence of the predicted signed cell flux (the reference's first
-    choice, rollout.py:133-148 — the one FluxD exposes)."""
-    if "cell_flux" not in solutions:
-        raise NotImplementedError(
-            "only models that predict a cell flux are ported")
-    div = fvm.divergence_from_cell_flux(solutions["cell_flux"])
+def _divergence_metric(solutions: Dict, feats: Dict, graph) -> torch.Tensor:
+    """The divergence estimate the outputs allow (reference
+    rollout.py:133-148): of the predicted signed cell flux (FluxD); else of
+    the predicted face velocity with the INFLOW faces clamped to their BC
+    targets (FvgnA/FvgnF); else zero. The JAX package's MLS estimate from
+    the cell velocity comes with ``ops/mls.py``."""
+    if "cell_flux" in solutions:
+        div = fvm.divergence_from_cell_flux(solutions["cell_flux"])
+    elif "face_velocity" in solutions:
+        bc = ~interior_face_mask(graph.face_type)
+        uf = torch.where(bc[:, None], feats["face_y"][:, 0:2],
+                         solutions["face_velocity"])
+        div = fvm.divergence_from_uf(uf, graph.cell_normal, graph.face_area,
+                                     graph.face_index)
+    else:
+        div = torch.zeros_like(graph.cell_volume)
     return torch.where(graph.cell_mask[:, None], div, torch.zeros_like(div))
 
 
@@ -85,7 +95,7 @@ def rollout_scan(model, graph, feats0: Dict[str, torch.Tensor],
                 ys.setdefault("pressure_error", []).append(rel_mse_per_graph(
                     sol["cell_pressure"], gt_cell_pressure[i], graph.cell_mask,
                     graph.cell_batch, num_graphs))
-                div = _divergence_metric(sol, graph)
+                div = _divergence_metric(sol, feats, graph)
                 ys.setdefault("divergence_error", []).append(mse_per_graph(
                     div, torch.zeros_like(div), graph.cell_mask,
                     graph.cell_batch, num_graphs))

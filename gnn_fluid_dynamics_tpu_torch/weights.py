@@ -1,16 +1,20 @@
-"""Weights from the JAX package: a Flax param tree onto the port's modules.
+"""Weights from the JAX package: Flax variables onto the port's modules.
 
-The JAX package's params (``variables["params"]``, as nested dicts of numpy
-arrays) map onto the state dict of the port's model module, e.g. FluxD's:
+The JAX package's variables (``{"params": ..., "batch_stats": ...}``, as
+nested dicts of numpy arrays) map onto the state dict of the port's model
+module, e.g. FluxD's and FvgnF's:
 
-==================================================  ===============================================
-Flax path                                           torch state-dict key
-==================================================  ===============================================
-``EncodeProcessDecode_0/Encoder_0/face_mlp/Dense_0``  ``epd.encoder.face_mlp.dense0``
-``EncodeProcessDecode_0/GNBlock_3/CellBlock_0/MLP_0``  ``epd.blocks.3.cell_block.mlp``
-``.../LayerNorm_0/scale``                           ``.../layer_norm.weight``
-``velocity_scale_x/scale``                          ``velocity_scale_x.scale``
-==================================================  ===============================================
+==========================================================  ================================================================
+Flax path                                                   torch state-dict key
+==========================================================  ================================================================
+``EncodeProcessDecode_0/Encoder_0/face_mlp/Dense_0``          ``epd.encoder.face_mlp.dense0``
+``EncodeProcessDecode_0/GNBlock_3/CellBlock_0/MLP_0``          ``epd.blocks.3.cell_block.mlp``
+``.../LayerNorm_0/scale``                                   ``.../layer_norm.weight``
+``velocity_scale_x/scale``                                  ``velocity_scale_x.scale``
+``integrator/face_area_norm/MaskedBatchNorm_0/BatchNorm_0``  ``integrator.face_area_norm.masked_batch_norm.batch_norm``
+``.../BatchNorm_0/{scale,bias}`` (params)                   ``.../batch_norm.{weight,bias}``
+``.../BatchNorm_0/{mean,var}`` (batch_stats)                ``.../batch_norm.{running_mean,running_var}``
+==========================================================  ================================================================
 
 A Flax ``Dense`` kernel is (in, out); a torch ``Linear.weight`` is (out, in).
 The fused kernels take their own split of ``W0`` (``MLP.kernel_weights``), so
@@ -34,7 +38,11 @@ _NAMES = (
     (re.compile(r"MLP_0$"), "mlp"),
     (re.compile(r"Dense_(\d+)$"), r"dense\1"),
     (re.compile(r"LayerNorm_0$"), "layer_norm"),
+    (re.compile(r"MaskedBatchNorm_0$"), "masked_batch_norm"),
+    (re.compile(r"BatchNorm_0$"), "batch_norm"),
 )
+_COLLECTIONS = {"params", "batch_stats"}
+_STAT_KEYS = {"mean": "running_mean", "var": "running_var"}
 
 
 def _module_name(flax_name: str) -> str:
@@ -44,26 +52,37 @@ def _module_name(flax_name: str) -> str:
     return flax_name
 
 
-def params_from_flax(params: Dict) -> Dict[str, torch.Tensor]:
-    """State dict (f32 CPU tensors) of the port's module for the Flax param
-    tree ``params`` (either ``variables`` or ``variables["params"]``)."""
-    if set(params) == {"params"}:
-        params = params["params"]
+def _leaf_name(name: str, parent: str, collection: str) -> str:
+    if collection == "batch_stats":
+        return _STAT_KEYS[name]
+    if name == "kernel":
+        return "weight"
+    if name == "scale" and parent in ("LayerNorm_0", "BatchNorm_0"):
+        return "weight"
+    return name
+
+
+def params_from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
+    """State dict (f32 CPU tensors) of the port's module for the Flax
+    ``variables``: a dict of collections (``params`` and, where the model
+    has BatchNorms, ``batch_stats``), or a bare param tree."""
+    if variables and set(variables) <= _COLLECTIONS and "params" in variables:
+        collections = variables
+    else:
+        collections = {"params": variables}
     out: Dict[str, torch.Tensor] = {}
 
-    def walk(tree, prefix, parent):
+    def walk(tree, prefix, parent, collection):
         for name, value in tree.items():
             if isinstance(value, dict):
-                walk(value, prefix + _module_name(name) + ".", name)
+                walk(value, prefix + _module_name(name) + ".", name, collection)
                 continue
             arr = np.asarray(value, dtype=np.float32)
             if name == "kernel":
-                key, arr = "weight", arr.T
-            elif name == "scale" and parent.startswith("LayerNorm"):
-                key = "weight"
-            else:
-                key = name
-            out[prefix + key] = torch.from_numpy(np.array(arr))
+                arr = arr.T
+            key = prefix + _leaf_name(name, parent, collection)
+            out[key] = torch.from_numpy(np.array(arr))
 
-    walk(params, "", "")
+    for collection, tree in collections.items():
+        walk(tree, "", "", collection)
     return out

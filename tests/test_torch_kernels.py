@@ -1,6 +1,8 @@
 """The plain versions of the port's GN-block kernels (the CPU path of
 ``ops/kernels.py``) against the JAX package's Pallas kernels in interpret
-mode, and against its segment reference semantics in f32.
+mode, and against its segment reference semantics in f32: the fused block's
+K1-K3 and the unfused block's K4 (owner/neighbour gather) and K5 (3-vertex
+mean).
 
 Inputs and weights come from a numpy seed; the weights reach the port through
 ``params_from_flax``. Tolerances:
@@ -9,7 +11,9 @@ Inputs and weights come from a numpy seed; the weights reach the port through
   to f32 summation order);
 * bf16, against the Pallas kernels: 2**-7 relative plus 2**-7 absolute — one
   bf16 rounding step (8 bits of mantissa) where an f32 sum taken in another
-  order lands on the other side of a rounding boundary.
+  order lands on the other side of a rounding boundary;
+* K4, against its Pallas kernel: exact. A gather copies rows, and the TPU's
+  one-hot product (one nonzero per row, f32 accumulation) copies them too.
 """
 
 import jax.numpy as jnp
@@ -173,6 +177,65 @@ def test_fused_cell_block_bf16_matches_pallas(graphs, dual_out):
         np.testing.assert_allclose(_np(a)[live], _np(b)[live], **BF16_TOL)
 
 
+# ---- K4: owner/neighbour gather ----------------------------------------------
+
+def test_gather_face_cells_matches_pallas_exactly(graphs):
+    gj, gt = graphs
+    rng = np.random.default_rng(7)
+    cj, ct = _latents(rng, gt.num_cells, "bfloat16")
+    want = pallas_agg.gather_face_cells_pallas(cj, gj)
+    got = kernels.gather_face_cells(ct, gt)        # CPU tensors: plain version
+    live = gt.face_mask.numpy()
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16 and a.shape == (gt.num_faces, H)
+        np.testing.assert_array_equal(_np(a)[live], _np(b)[live])
+
+
+# ---- K5: 3-vertex cell mean -------------------------------------------------
+
+def test_vertices_to_cells_f32_matches_segment_reference(graphs):
+    """f32 latents: K3 then K5 is the JAX package's segment twice-message-
+    passing aggregation."""
+    gj, gt = graphs
+    rng = np.random.default_rng(8)
+    ej, et = _latents(rng, gt.num_faces, "float32")
+    want = jax_aggregate_twice_mp(ej, gj, "segment")
+    got = kernels.vertices_to_cells(kernels.edges_to_vertices(et, gt), gt)
+    assert got.dtype == torch.float32 and got.shape == (gt.num_cells, H // 2)
+    np.testing.assert_allclose(_np(got), _np(want), **F32_TOL)
+
+
+def test_vertices_to_cells_bf16_matches_pallas(graphs):
+    """bf16 latents: K3 then K5 against the Pallas edge->vertex sum and
+    3-vertex sum with its f32 division by 3, on live cells (a padded cell
+    sums the pad vertex once there, three times here)."""
+    gj, gt = graphs
+    rng = np.random.default_rng(9)
+    ej, et = _latents(rng, gt.num_faces, "bfloat16")
+    want = pallas_agg.aggregate_vertices_to_cells_pallas(
+        pallas_agg.aggregate_edges_to_vertices_pallas(ej, gj), gj)
+    got = kernels.vertices_to_cells(kernels.edges_to_vertices(et, gt), gt)
+    assert got.dtype == torch.float32 and got.shape == (gt.num_cells, H // 2)
+    live = gt.cell_mask.numpy()
+    np.testing.assert_allclose(_np(got)[live], _np(want)[live], **BF16_TOL)
+
+
+def test_vertices_to_cells_rounds_the_sum_before_dividing(graphs):
+    """K5 rounds the 3-vertex f32 sum to bf16, then divides by 3 in f32 (the
+    TPU kernel's output dtype, then its wrapper's epilogue); K2's mean
+    rounds once, after the division."""
+    _, gt = graphs
+    rng = np.random.default_rng(10)
+    vtx = torch.from_numpy(rng.normal(size=(gt.num_vertices, H // 2)).astype(
+        np.float32)).to(torch.bfloat16)
+    vf = gt.vertex_face.long()
+    s = vtx.float()[vf[0]] + vtx.float()[vf[1]] + vtx.float()[vf[2]]
+    got = kernels.vertices_to_cells(vtx, gt)
+    torch.testing.assert_close(got, s.to(torch.bfloat16).float() / 3.0,
+                               rtol=0, atol=0)
+    assert not torch.equal(got, (s / 3.0).to(torch.bfloat16).float())
+
+
 # ---- wrappers ---------------------------------------------------------------
 
 def test_cpu_tensors_take_the_plain_version_and_launch_nothing(graphs):
@@ -200,6 +263,65 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing(graphs):
                                   kernels.fused_cell_block,
                                   kernels.edges_to_vertices)]
     assert after == before
+
+
+def test_cpu_tensors_take_the_plain_version_unfused(graphs):
+    _, gt = graphs
+    rng = np.random.default_rng(11)
+    _, ct = _latents(rng, gt.num_cells, "bfloat16")
+    _, et = _latents(rng, gt.num_faces, "bfloat16")
+    before = (kernels.gather_face_cells.launches,
+              kernels.vertices_to_cells.launches)
+    vtx = kernels.edges_to_vertices(et, gt)
+    torch.testing.assert_close(kernels.vertices_to_cells(vtx, gt),
+                               kernels.vertices_to_cells_ref(vtx, gt),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(kernels.gather_face_cells(ct, gt),
+                               kernels.gather_face_cells_ref(ct, gt),
+                               rtol=0, atol=0)
+    assert (kernels.gather_face_cells.launches,
+            kernels.vertices_to_cells.launches) == before
+
+
+@pytest.mark.parametrize("kernel", ["K4", "K5"])
+def test_other_devices_never_take_the_plain_version(graphs, kernel):
+    """A tensor off the CPU goes to the kernel's argument checks, which
+    refuse what the kernel does not take; nothing falls back."""
+    _, gt = graphs
+    if kernel == "K4":
+        x = torch.empty((gt.num_cells, H), dtype=torch.float32, device="meta")
+        call = kernels.gather_face_cells
+    else:
+        x = torch.empty((gt.num_vertices, H // 2), dtype=torch.float32,
+                        device="meta")
+        call = kernels.vertices_to_cells
+    before = call.launches
+    with pytest.raises(ValueError, match="dtype"):
+        call(x, gt)
+    with pytest.raises(ValueError, match="is on cpu"):
+        call(x.to(torch.bfloat16), gt)
+    assert call.launches == before
+
+
+def test_padded_rows_do_not_touch_live_rows_unfused(graphs):
+    """The unfused block's kernels: changing every padded latent leaves the
+    live outputs of K3, K5 and K4 unchanged."""
+    _, gt = graphs
+    rng = np.random.default_rng(12)
+    _, ct = _latents(rng, gt.num_cells, "bfloat16")
+    _, et = _latents(rng, gt.num_faces, "bfloat16")
+    cm, fm = gt.cell_mask, gt.face_mask
+    assert not cm.all() and not fm.all()
+    ct2, et2 = ct.clone(), et.clone()
+    ct2[~cm] = 7.0
+    et2[~fm] = -5.0
+
+    def run(c, e):
+        mean = kernels.vertices_to_cells(kernels.edges_to_vertices(e, gt), gt)
+        return (mean, *kernels.gather_face_cells(c, gt))
+
+    for x, y, m in zip(run(ct, et), run(ct2, et2), (cm, fm, fm)):
+        torch.testing.assert_close(x[m], y[m], rtol=0, atol=0)
 
 
 def test_padded_rows_do_not_touch_live_rows(graphs):
