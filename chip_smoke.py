@@ -1,30 +1,41 @@
 """Drive the PyTorch/CUDA port on one card: build the GN-block kernels, hold
-each against its plain PyTorch version, run the FluxD and FvgnF rollouts at
-their shipped width through them, and report each kernel's time beside its
-bound.
+each against its plain PyTorch version, run the FluxD and FvgnF rollouts and
+the trainer's validation rollout of FluxD at their shipped width through
+them, and report each kernel's time beside its bound.
 
     python3 chip_smoke.py
 
 Phases (each prints one flushed line; any failure exits non-zero):
 
 1. device and build: the card's name and power limit, the kernels' build time;
-2. kernel vs plain: K1-K5 at the slice's shapes on seeded inputs;
-3. the two paths, each on the RCM-ordered cylinder mesh of ``bench.py``
-   (3,462 cells, 5,361 faces, 1,899 vertices) at hidden 128, 15 GN block
-   applications and bf16, with seeded weights and statistics from the
-   synthetic channel flow:
+2. kernel vs plain: K1-K5 at the FluxD/FvgnF shapes and K6/K7 on the
+   FluxD-valid batch's own tables (int8, and once more cast to bf16), on
+   seeded inputs;
+3. the three paths at hidden 128, 15 GN block applications and bf16, with
+   seeded weights and statistics from the synthetic channel flow:
 
-   * FluxD, 15 fused GN blocks: K3 -> K2 -> K1 per block;
-   * FvgnF, one shared GN block applied 15 times with a step scalar, so
-     unfused: K3 -> K5 -> cell MLP, K4 -> face MLP per application; its
-     integrator's BatchNorm at Flax's init (mean 0, var 1).
+   * FluxD, on the RCM-ordered cylinder mesh of ``bench.py`` (3,462 cells,
+     5,361 faces, 1,899 vertices), 15 fused GN blocks: K3 -> K2 -> K1 per
+     block;
+   * FvgnF, on the same mesh, one shared GN block applied 15 times with a
+     step scalar, so unfused: K3 -> K5 -> cell MLP, K4 -> face MLP per
+     application; its integrator's BatchNorm at Flax's init (mean 0, var 1);
+   * FluxD-valid, the rollout half of the trainer's validation: two
+     RCM-ordered 9,700-point cylinder meshes (``bench.py``'s production
+     point) in one ``MeshDataset`` with int8 banded tables, padded to one
+     shape and batched on the table route, so every block is unfused and
+     reads the tables: K6 (es/er) -> K7 (vc) -> cell MLP, K6 (cf) -> face
+     MLP; each table application is one launch for the whole batch.
 
    Each of the first 5 steps of a path is held against the same model's
-   plain path on the card, on the same inputs; a 5-step rollout with the
-   error metrics must stay finite; then a 100-step rollout is timed with
+   plain path on the card, on the same inputs (FluxD-valid's also against
+   its own batch on the index route, fused K1-K3, on live rows); a 5-step
+   rollout with the error metrics must stay finite (for FluxD-valid:
+   ``validate`` on both routes, whose errors must agree); then a 100-step rollout is timed with
    every launch counter set to 0 just before it and read just after, and
-   each kernel must have launched 15 times per step on its path and never
-   on the other; last a device profile of 10 steps;
+   each kernel must have launched as often per step as its path runs it
+   (15, K6 30) and never on another path; last a device profile of 10
+   steps;
 4. the ``kernels`` line: per kernel its time per launch, launches, bound,
    plain time and library time.
 
@@ -35,6 +46,7 @@ exits non-zero and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -44,9 +56,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from gnn_fluid_dynamics_tpu_torch.data.pipeline import (MeshDataset, Trajectory,
+                                                        rollout_batch)
 from gnn_fluid_dynamics_tpu_torch.data.synthetic import (channel_flow_trajectory,
                                                          make_geometry)
-from gnn_fluid_dynamics_tpu_torch.graph import from_geometry
+from gnn_fluid_dynamics_tpu_torch.graph import from_geometry, to_static_bands
 from gnn_fluid_dynamics_tpu_torch.models.arch import MLP
 from gnn_fluid_dynamics_tpu_torch.models.base import ModelConfig, feature_masks
 from gnn_fluid_dynamics_tpu_torch.models.flux import FluxD
@@ -57,12 +71,16 @@ from gnn_fluid_dynamics_tpu_torch.ops.reorder import rcm_reorder_geometry
 from gnn_fluid_dynamics_tpu_torch.rollout.engine import (SAVABLE_FIELDS,
                                                          RolloutConfig,
                                                          rollout_scan)
+from gnn_fluid_dynamics_tpu_torch.training.validate import (validate,
+                                                            validation_errors)
 
 H = kernels.H
 MP_NUM = 15
 STEPS = 100            # timed rollout steps
 CHECK_STEPS = 5        # steps held against the plain path
 TIMING_ITERS = 50      # launches per timed batch
+VALID_POINTS = 9700    # FluxD-valid: bench.py's production mesh size
+VALID_SEEDS = (0, 1)   # one mesh per seed, batched
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
@@ -104,13 +122,28 @@ KERNELS = {
         source="gnn_fluid_dynamics_tpu_torch/csrc/vertex_cell.cu",
         replaces="gnn_fluid_dynamics_tpu/ops/pallas_agg.py:289 "
                  "(_rowidx3_kernel; banded_rowidx3_pallas :322)"),
+    "K6_table_dual": dict(
+        wrapper=kernels.table_dual,
+        source="gnn_fluid_dynamics_tpu_torch/csrc/table_dual.cu",
+        replaces="gnn_fluid_dynamics_tpu/ops/pallas_agg.py:58 "
+                 "(_dual_kernel; banded_dual_pallas :102, pallas_call :128)"),
+    "K7_table_single": dict(
+        wrapper=kernels.table_single,
+        source="gnn_fluid_dynamics_tpu_torch/csrc/table_single.cu",
+        replaces="gnn_fluid_dynamics_tpu/ops/pallas_agg.py:353 "
+                 "(_single_kernel; banded_single_pallas :380, pallas_call :397)"),
 }
-# the main paths and the kernels each must launch MP_NUM times per step
+# the main paths: model class, and the launches per step of each kernel the
+# path runs (every other kernel: none)
 PATHS = {
-    "FluxD": (FluxD, ("K1_fused_face_block", "K2_fused_cell_block",
-                      "K3_edges_to_vertices")),
-    "FvgnF": (FvgnF, ("K3_edges_to_vertices", "K4_gather_face_cells",
-                      "K5_vertices_to_cells")),
+    "FluxD": (FluxD, {"K1_fused_face_block": MP_NUM,
+                      "K2_fused_cell_block": MP_NUM,
+                      "K3_edges_to_vertices": MP_NUM}),
+    "FvgnF": (FvgnF, {"K3_edges_to_vertices": MP_NUM,
+                      "K4_gather_face_cells": MP_NUM,
+                      "K5_vertices_to_cells": MP_NUM}),
+    "FluxD-valid": (FluxD, {"K6_table_dual": 2 * MP_NUM,
+                            "K7_table_single": MP_NUM}),
 }
 
 
@@ -156,6 +189,54 @@ def bench_mesh(device):
     return graph, fields
 
 
+def valid_data(device):
+    """The FluxD-valid dataset and its validation batch: one trajectory of
+    CHECK_STEPS + 2 channel-flow steps per seed, int8 banded tables, one
+    graph on the table route (``Trainer.validate``'s
+    ``to_static_bands(..., derive_idx=False)``)."""
+    trajs = []
+    for seed in VALID_SEEDS:
+        geom = rcm_reorder_geometry(make_geometry(
+            "cylinder", n_points=VALID_POINTS, seed=seed))
+        fields = channel_flow_trajectory(geom, num_timesteps=CHECK_STEPS + 2,
+                                         dt=0.01)
+        trajs.append(Trajectory(mesh_id=f"cyl{seed}", geom=geom, fields=fields))
+    ds = MeshDataset(trajs, with_banded=True, banded_dtype="int8",
+                     pad_multiple=128, device=device)
+    graph = to_static_bands(ds.get_batch(rollout_batch(ds)), derive_idx=False)
+    return ds, graph
+
+
+# K6's two forms on the table route, and K7's one: (tables, source rows'
+# graph count, combine_roll)
+TABLE_FORMS = {
+    ("K6_table_dual", "es_roll"): (("es_onehot", "er_onehot"), "num_faces", True),
+    ("K6_table_dual", "cf"): (("cf_row_onehot", "cf_col_onehot"), "num_cells",
+                              False),
+    ("K7_table_single", "vc"): (("vc_onehot",), "num_vertices", None),
+}
+
+
+def table_form_bound(vg, form, tables) -> tuple:
+    """(bytes, operations) of one table application at this batch's shapes:
+    each table, the source and the offsets read once, the outputs written
+    once; the products counted for this data's nonzero weights only (a
+    multiply and an add per channel), plus K6's one add of the roll and
+    K7's division."""
+    (name, _), (keys, count, roll) = form, TABLE_FORMS[form]
+    T, tile, band = tables[0].shape
+    rows = T * tile
+    width = H // 2 if name == "K7_table_single" else H
+    nnz = sum(int((t != 0).sum()) for t in tables)
+    nbytes = (sum(t.numel() * t.element_size() for t in tables)
+              + getattr(vg, count) * width * 2 + T * 4)
+    if name == "K7_table_single":
+        return nbytes + rows * (H // 2) * 4, 2 * nnz * (H // 2) + rows * (H // 2)
+    if roll:
+        return nbytes + rows * (H // 2) * 2, 2 * nnz * (H // 2) + rows * (H // 2)
+    return nbytes + 2 * rows * H * 2, 2 * nnz * H
+
+
 def bounds(graph) -> dict:
     """Least time (ms) for each kernel's work at these shapes: the larger of
     its bytes (each input read once, each output written once) over the
@@ -177,10 +258,7 @@ def bounds(graph) -> dict:
     k5_bytes = V * (H // 2) * 2 + 3 * C * 4 + C * (H // 2) * 4
     k5_flops = 3 * C * (H // 2)                       # 2 adds + 1 division
 
-    def bound(nbytes, flops, peak):
-        t_b, t_o = nbytes / PEAK_BYTES, flops / peak
-        return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations",
-                nbytes, flops)
+    bound = _bound
     return {"K1_fused_face_block": bound(k1_bytes, k1_flops, PEAK_BF16_FLOPS),
             "K2_fused_cell_block": bound(k2_bytes, k2_flops, PEAK_BF16_FLOPS),
             "K3_edges_to_vertices": bound(k3_bytes, k3_flops, PEAK_F32_FLOPS),
@@ -188,9 +266,101 @@ def bounds(graph) -> dict:
             "K5_vertices_to_cells": bound(k5_bytes, k5_flops, PEAK_F32_FLOPS)}
 
 
+def _bound(nbytes, flops, peak):
+    t_b, t_o = nbytes / PEAK_BYTES, flops / peak
+    return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations",
+            nbytes, flops)
+
+
+def _compare(name, got, want, exact) -> float:
+    """Max abs error of the kernel's outputs against the plain version's;
+    fails on a non-finite output or a difference beyond the tolerance."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    rtol, atol = (0.0, 0.0) if exact else (KERNEL_RTOL, KERNEL_ATOL)
+    err = 0.0
+    for a, b in zip(got, want):
+        a, b = a.float(), b.float()
+        if not torch.isfinite(a).all():
+            fail(f"{name}: non-finite output")
+        err = max(err, float((a - b).abs().max()))
+        if not torch.allclose(a, b, rtol=rtol, atol=atol):
+            fail(f"{name}: kernel differs from its plain version "
+                 f"(max abs err {err:.3g}, rtol {rtol}, atol {atol})")
+    return err
+
+
+def table_phase(vg) -> dict:
+    """K6 (es/er with the roll, cf without) and K7 (vc) on the FluxD-valid
+    batch's own tables, int8 as the path runs them and once more cast to
+    bf16, each on seeded bf16 sources, held against its plain version (the
+    cf form exactly), then timed beside it and beside one ``torch.bmm`` of
+    the table (cast to bf16) by the stacked bands, both made outside the
+    timed window. A kernel's top-level numbers are per launch on the int8
+    tables the path runs: K6's the mean of its two forms, each launched once
+    per block."""
+    dev = vg.device
+    rng = np.random.default_rng(1)
+    srcs = {n: torch.from_numpy(rng.normal(size=(n, H)).astype(np.float32)).to(
+        dev, torch.bfloat16) for n in {vg.num_faces, vg.num_cells,
+                                       vg.num_vertices}}
+    results = {}
+    for form, (keys, count, roll) in TABLE_FORMS.items():
+        name, fname = form
+        src = srcs[getattr(vg, count)]
+        off = getattr(vg, keys[0].split("_")[0] + "_off")
+        if name == "K7_table_single":
+            src = src[:, :H // 2].contiguous()
+        for tdt_name, tdt in (("int8", torch.int8), ("bf16", torch.bfloat16)):
+            tables = tuple(getattr(vg, k).to(tdt) for k in keys)
+            if name == "K7_table_single":
+                run = functools.partial(kernels.table_single, *tables, off, src)
+                ref = functools.partial(kernels.table_single_ref, *tables, off,
+                                        src)
+            else:
+                run = functools.partial(kernels.table_dual, *tables, off, src,
+                                        roll)
+                ref = functools.partial(kernels.table_dual_ref, *tables, off,
+                                        src, roll)
+            err = _compare(f"{name} {fname} {tdt_name}", run(), ref(),
+                           exact=fname == "cf")
+            # the library yardstick: the tables as one bf16 (T, rows, B)
+            # batch, times the bands (T, B, W), stacked beforehand
+            oh = torch.cat([t.to(torch.bfloat16) for t in tables], dim=1)
+            idx = off.long()[:, None] + torch.arange(oh.shape[2], device=dev)
+            bands = src[idx]
+            nbytes, flops = table_form_bound(vg, form, tables)
+            results[(name, fname, tdt_name)] = {
+                "max_abs_err": err, "ms": gpu_ms(run), "plain_ms": gpu_ms(ref),
+                "library_ms": gpu_ms(lambda: torch.bmm(oh, bands)),
+                "bound": _bound(nbytes, flops, PEAK_F32_FLOPS)}
+            del oh, bands
+    out = {}
+    for name in ("K6_table_dual", "K7_table_single"):
+        forms = {f"{f}_{d}": r for (n, f, d), r in results.items() if n == name}
+        main = [r for (n, _, d), r in results.items()
+                if n == name and d == "int8"]
+        n = len(main)
+        nbytes = sum(r["bound"][2] for r in main) / n
+        flops = sum(r["bound"][3] for r in main) / n
+        out[name] = {
+            "max_abs_err": max(r["max_abs_err"] for r in forms.values()),
+            "ms": sum(r["ms"] for r in main) / n,
+            "plain_ms": sum(r["plain_ms"] for r in main) / n,
+            "library_ms": sum(r["library_ms"] for r in main) / n,
+            "bound": _bound(nbytes, flops, PEAK_F32_FLOPS),
+            "forms": {f: {"max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                          "plain_ms": r["plain_ms"],
+                          "library_ms": r["library_ms"],
+                          "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+                          "bytes": r["bound"][2], "flops": r["bound"][3]}
+                      for f, r in forms.items()}}
+    return out
+
+
 def kernel_phase(graph) -> dict:
-    """Each kernel on seeded inputs at the slice's shapes, held against its
-    plain version on the same inputs, then timed beside it."""
+    """Each of K1-K5 on seeded inputs at the slice's shapes, held against
+    its plain version on the same inputs, then timed beside it."""
     dev = graph.device
     rng = np.random.default_rng(0)
 
@@ -220,23 +390,11 @@ def kernel_phase(graph) -> dict:
             lambda: kernels.gather_face_cells(cells, graph),
             lambda: kernels.gather_face_cells_ref(cells, graph)),
     }
-    exact = {"K4_gather_face_cells"}
     results = {}
     for name, (run, ref) in cases.items():
         got, want = run(), ref()
         torch.cuda.synchronize()
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        rtol, atol = (0.0, 0.0) if name in exact else (KERNEL_RTOL, KERNEL_ATOL)
-        err = 0.0
-        for a, b in zip(got, want):
-            a, b = a.float(), b.float()
-            if not torch.isfinite(a).all():
-                fail(f"{name}: non-finite output")
-            err = max(err, float((a - b).abs().max()))
-            if not torch.allclose(a, b, rtol=rtol, atol=atol):
-                fail(f"{name}: kernel differs from its plain version "
-                     f"(max abs err {err:.3g}, rtol {rtol}, atol {atol})")
+        err = _compare(name, got, want, exact=name == "K4_gather_face_cells")
         results[name] = {"max_abs_err": err, "ms": gpu_ms(run),
                          "plain_ms": gpu_ms(ref)}
     # one PyTorch call computing each kernel's function where there is one;
@@ -262,40 +420,124 @@ def kernel_phase(graph) -> dict:
     return results
 
 
-def check_against_plain(kern, plain, graph, feats) -> dict:
+def check_against_plain(kern, plain, graph, feats, index_graph=None) -> dict:
     """The kernel and the plain route of the same model, step by step on the
     same inputs: each step's predicted fields from both, then the plain
     route's state fed back. (Free-running, the two would drift apart: with
     random weights the model amplifies any difference step over step.)
-    Returns the largest difference of each field relative to its largest
-    magnitude."""
+    Returns, per comparison, the largest difference of each field relative
+    to its largest magnitude.
+
+    With ``index_graph``, the same batch on the index route (fused K1-K3),
+    the kernel route runs there too, a second witness: the index route
+    against the plain route, and the table route against the index route on
+    live rows (``cell_mask``/``face_mask``; a padded cell takes its pad
+    vertex three times on the table route and once on the index route).
+    The table route against the plain route is also read on live rows."""
     worst = {}
+
+    def note(name, key, a, b, mask=None):
+        if mask is not None:
+            a, b = a[mask], b[mask]
+        rel = float((a - b).abs().max() / b.abs().max())
+        worst.setdefault(name, {})
+        worst[name][key] = max(worst[name].get(key, 0.0), rel)
+
     with torch.inference_mode():
         for _ in range(CHECK_STEPS):
             sol_p = plain.derive_state(plain.forward(graph, feats), feats, graph)
             sol_k = kern.derive_state(kern.forward(graph, feats), feats, graph)
+            sol_i = None if index_graph is None else kern.derive_state(
+                kern.forward(index_graph, feats), feats, index_graph)
             for key in SAVABLE_FIELDS:
                 if key not in sol_p:
                     continue
                 a, b = sol_k[key].float(), sol_p[key].float()
                 if not torch.isfinite(a).all():
                     fail(f"kernel route: non-finite {key}")
-                rel = float((a - b).abs().max() / b.abs().max())
-                worst[key] = max(worst.get(key, 0.0), rel)
+                note("kernel_vs_plain", key, a, b)
+                if sol_i is None:
+                    continue
+                c = sol_i[key].float()
+                if not torch.isfinite(c).all():
+                    fail(f"index route: non-finite {key}")
+                live = graph.cell_mask if key.startswith("cell") else graph.face_mask
+                note("kernel_vs_plain_live", key, a, b, live)
+                note("index_vs_plain", key, c, b)
+                note("table_vs_index_live", key, a, c, live)
             feats = plain.update_features(sol_p, feats, graph)
-    for key, rel in worst.items():
-        if rel > STEP_TOL:
-            fail(f"kernel vs plain route, {key}: {rel:.3g} > {STEP_TOL}")
+    for name, fields in worst.items():
+        for key, rel in fields.items():
+            if rel > STEP_TOL:
+                fail(f"{name}, {key}: {rel:.3g} > {STEP_TOL}")
     return worst
 
 
-def slice_phase(path: str, graph, fields, device_line: str) -> dict:
+def rollout_errors_check(fields):
+    """FluxD and FvgnF: a CHECK_STEPS-step rollout of the kernel route
+    against the channel flow, with the error metrics and every saved field
+    finite."""
+    def check(path, kern, plain, graph, feats):
+        dev = graph.device
+        gv = torch.from_numpy(fields["cell_velocity"][1:CHECK_STEPS + 1]).to(dev)
+        gp = torch.from_numpy(fields["cell_pressure"][1:CHECK_STEPS + 1]).to(dev)
+        errors, saved = rollout_scan(kern, graph, feats, gv, gp, RolloutConfig(
+            num_steps=CHECK_STEPS, compute_error=True, save_fields=True))
+        for key, val in {**errors, **saved}.items():
+            if not torch.isfinite(val).all():
+                fail(f"{path} rollout: non-finite {key}")
+    return check
+
+
+def validate_check(ds):
+    """FluxD-valid: ``validate(model, ds, CHECK_STEPS)`` on both routes, the
+    trainer's validation run free for CHECK_STEPS steps; every error finite,
+    and the two routes' ``total_mean_error`` and each trajectory's mean
+    velocity and pressure errors within STEP_TOL of each other (relative).
+    With random weights the pressure error is near 1 and swamps the total;
+    the velocity error is the one a wrong kernel would move. Phase 3a, step
+    by step on every field, is the kernels' sharper gate."""
+    def check(path, kern, plain, graph, feats):
+        out = {}
+        for route, model in (("kernel", kern), ("plain", plain)):
+            flat = validate(model, ds, CHECK_STEPS)
+            errors = validation_errors(model, ds, CHECK_STEPS)
+            if not all(np.isfinite(v) for v in flat.values()):
+                fail(f"{path} validate on the {route} route: non-finite "
+                     f"{flat}")
+            out[route] = {
+                "total_mean_error": flat["total_mean_error"],
+                "per_sim_mean": {
+                    sid: {k: float(errors[k][:, i].mean())
+                          for k in ("velocity_error", "pressure_error")}
+                    for i, sid in enumerate(ds.sim_ids())}}
+        pairs = {"total_mean_error": tuple(
+            out[r]["total_mean_error"] for r in ("kernel", "plain"))}
+        for sid in ds.sim_ids():
+            for k in ("velocity_error", "pressure_error"):
+                pairs[f"{sid}/{k}"] = tuple(out[r]["per_sim_mean"][sid][k]
+                                            for r in ("kernel", "plain"))
+        rel = {name: abs(k - p) / abs(p) for name, (k, p) in pairs.items()}
+        for name, r in rel.items():
+            if r > STEP_TOL:
+                fail(f"{path} validate: {name} {pairs[name][0]} (kernel) vs "
+                     f"{pairs[name][1]} (plain), {r:.3g} > {STEP_TOL}")
+        say(f"phase 3a' {path} validate(model, ds, {CHECK_STEPS}) on both "
+            "routes: ok, relative differences "
+            + json.dumps({k: round(v, 6) for k, v in rel.items()}) + " "
+            + json.dumps(out))
+    return check
+
+
+def slice_phase(path: str, graph, errors_check, device_line: str,
+                index_graph=None) -> dict:
     """One path's rollout through the kernels: first held against the plain
-    route, then timed with the launch counters read around it."""
-    cls, expected = PATHS[path]
+    route (and, with ``index_graph``, against the index route of the same
+    batch), then timed with the launch counters read around it."""
+    cls, per_step = PATHS[path]
     dev = graph.device
-    cfg = ModelConfig(name=path, hidden_width=H, mp_num=MP_NUM,
-                      compute_dtype="bfloat16")
+    cfg = ModelConfig(name=cls.name, hidden_width=H, mp_num=MP_NUM,
+                      aggregation="pallas", compute_dtype="bfloat16")
     kern = cls(cfg, device=dev, seed=0)
     plain = cls(dataclasses.replace(cfg, aggregation="segment"), device=dev,
                 seed=0)
@@ -307,16 +549,12 @@ def slice_phase(path: str, graph, fields, device_line: str) -> dict:
     plain.set_stats(stats)
     plain.module.load_state_dict(kern.module.state_dict())
 
-    worst = check_against_plain(kern, plain, graph, feats)
+    worst = check_against_plain(kern, plain, graph, feats, index_graph)
     say(f"phase 3a {path} kernel vs plain route, {CHECK_STEPS} steps on the "
-        "same inputs: ok " + json.dumps({k: round(v, 6) for k, v in worst.items()}))
-    gv = torch.from_numpy(fields["cell_velocity"][1:CHECK_STEPS + 1]).to(dev)
-    gp = torch.from_numpy(fields["cell_pressure"][1:CHECK_STEPS + 1]).to(dev)
-    errors, saved = rollout_scan(kern, graph, feats, gv, gp, RolloutConfig(
-        num_steps=CHECK_STEPS, compute_error=True, save_fields=True))
-    for key, val in {**errors, **saved}.items():
-        if not torch.isfinite(val).all():
-            fail(f"{path} rollout: non-finite {key}")
+        "same inputs: ok " + json.dumps(
+            {n: {k: round(v, 6) for k, v in f.items()}
+             for n, f in worst.items()}))
+    errors_check(path, kern, plain, graph, feats)
 
     # timed: plain, kernel (the main path, counters read around it), kernel,
     # plain — both routes in turns on the same card
@@ -331,7 +569,7 @@ def slice_phase(path: str, graph, fields, device_line: str) -> dict:
     walls["kernel"].append(timed_rollout(kern, graph, feats))
     walls["plain"].append(timed_rollout(plain, graph, feats))
     for name, n in launches.items():
-        want = MP_NUM * STEPS if name in expected else 0
+        want = per_step.get(name, 0) * STEPS
         if n != want:
             fail(f"{path}: {name} launched {n} times in {STEPS} steps, "
                  f"expected {want}")
@@ -393,8 +631,10 @@ def device_profile(model, graph, feats, steps: int = 10):
             e.time_range.end - e.time_range.start)
     busy = sum(per_name.values())
     top = sorted(per_name.items(), key=lambda kv: -kv[1])[:8]
-    ours = {n.split("(")[0]: t for n, t in per_name.items()
-            if n.startswith("gfd::")}
+    # this package's kernels: "gfd::name(...)", or "void gfd::name<...>(...)"
+    # for a template
+    ours = {n.split("(")[0].removeprefix("void "): t
+            for n, t in per_name.items() if "gfd::" in n.split("(")[0]}
     return {"busy_share": busy / wall_us,
             "device_ms_per_step": busy / steps / 1e3,
             "wall_ms_per_step": wall_us / steps / 1e3,
@@ -416,17 +656,36 @@ def main() -> int:
         f"(nvcc, sm_90a, {kernels.BUILD_DIR})")
 
     graph, fields = bench_mesh(dev)
+    t0 = time.perf_counter()
+    ds, vgraph = valid_data(dev)
+    say(f"phase 1 FluxD-valid data: {len(VALID_SEEDS)} meshes of "
+        f"{VALID_POINTS} points, batch of {vgraph.num_cells} cells "
+        f"{vgraph.num_faces} faces {vgraph.num_vertices} vertices, int8 "
+        "tables es/er " + "x".join(map(str, vgraph.es_onehot.shape))
+        + ", vc " + "x".join(map(str, vgraph.vc_onehot.shape))
+        + ", cf " + "x".join(map(str, vgraph.cf_row_onehot.shape))
+        + f", built in {time.perf_counter() - t0:.2f} s")
     per_kernel = kernel_phase(graph)
+    per_kernel.update(table_phase(vgraph))
     say("phase 2 kernel vs plain: ok " + json.dumps(
         {k: round(v["max_abs_err"], 6) for k, v in per_kernel.items()}))
+    for name in ("K6_table_dual", "K7_table_single"):
+        say(f"phase 2 {name} by form: " + json.dumps(per_kernel[name]["forms"]))
 
-    paths = {path: slice_phase(path, graph, fields, line) for path in PATHS}
+    checks = {"FluxD": rollout_errors_check(fields),
+              "FvgnF": rollout_errors_check(fields),
+              "FluxD-valid": validate_check(ds)}
+    paths = {path: (slice_phase(path, vgraph, checks[path], line,
+                                to_static_bands(vgraph, derive_idx=True))
+                    if path == "FluxD-valid" else
+                    slice_phase(path, graph, checks[path], line))
+             for path in PATHS}
 
     bnd = bounds(graph)
     rows = []
     for name, spec in KERNELS.items():
         r = per_kernel[name]
-        b_ms, b_by, nbytes, flops = bnd[name]
+        b_ms, b_by, nbytes, flops = r["bound"] if "bound" in r else bnd[name]
         by_path = {path: p["launches"][name] for path, p in paths.items()}
         rows.append({
             "name": name, "route": "cuda", "source": spec["source"],
@@ -436,6 +695,10 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": r.get("library_ms"), "bytes": nbytes, "flops": flops,
+            **({"forms": r["forms"],
+                "unit": "per launch, the mean of " + ", ".join(
+                    f for f in r["forms"] if f.endswith("int8"))}
+               if "forms" in r else {}),
         })
     say(f"phase 4 card {line}; " + "; ".join(
         f"{path} {p['steps_per_s']:.1f} steps/s, {p['ms_per_step']:.4f} ms/step"

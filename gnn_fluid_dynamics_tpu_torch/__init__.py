@@ -6,9 +6,10 @@ port never imports JAX or the JAX package; the numpy-only modules it needs
 (mesh generation, connectivity, reordering) are kept as copies.
 
 Entry points run on the card unless the caller passes ``device="cpu"``; a
-missing card raises instead of falling back. The three fused GN-block kernels
-of the rollout are hand-written CUDA C++ under ``csrc/``, built with ``nvcc``
-at first use (:mod:`gnn_fluid_dynamics_tpu_torch.ops.kernels`).
+missing card raises instead of falling back. The GN-block kernels (the
+counterparts of the JAX package's seven Pallas kernels) are hand-written CUDA
+C++ under ``csrc/``, built with ``nvcc`` at first use
+(:mod:`gnn_fluid_dynamics_tpu_torch.ops.kernels`).
 """
 
 from __future__ import annotations

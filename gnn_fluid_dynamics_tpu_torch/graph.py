@@ -15,23 +15,38 @@ Padded elements point at the *last* (padded) slot of their target axis and are
 zeroed by the masks, so gathers stay in-bounds and sums accumulate into a
 discarded slot.
 
-The JAX package's banded one-hot tables exist only to avoid row gathers on the
-TPU; the port does not build them. It builds instead, once on the host, the
-index vectors the GN-block kernels read: the owner/neighbour rows of
+Every graph carries, built once on the host, the index vectors the
+index-route kernels (K1-K5) read: the owner/neighbour rows of
 ``cell_edge_index``, the vertex rows of ``vertex_face``, and a per-vertex CSR
 of edge half-rows (``vertex_inc_ptr``/``vertex_inc_row``) for the edge->vertex
 sum.
+
+With ``with_banded`` a graph also carries the banded one-hot tables of
+:mod:`gnn_fluid_dynamics_tpu_torch.ops.banded` that the dense-table kernels
+K6/K7 read (``es``/``er``, ``vc``, ``cf`` row/col). The JAX package tells a
+graph whose GN blocks read those tables by the absence of its index vectors;
+the port's graphs always have them, so the choice is the explicit marker
+``table_route``: :func:`from_geometry` with ``with_banded`` sets it,
+:func:`to_static_bands` with ``derive_idx`` clears it, and a graph without
+tables never has it. The JAX package's ``hv`` and ``fc3`` tables feed only
+its XLA banded backend; the port gathers in f32 by index there and does not
+build them.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
 from gnn_fluid_dynamics_tpu_torch import resolve_device
+from gnn_fluid_dynamics_tpu_torch.ops.banded import (build_banded_tables,
+                                                     pad_band_width)
+
+BANDED_DTYPES = {"int8": torch.int8, "bfloat16": torch.bfloat16,
+                 "float32": torch.float32}
 
 
 @dataclasses.dataclass
@@ -79,6 +94,23 @@ class MeshGraph:
     face_velocity: torch.Tensor = None   # (F, W, 2)
     face_pressure: torch.Tensor = None   # (F, W, 1)
     face_flux: torch.Tensor = None       # (F, W, 1)
+    # --- banded one-hot tables (ops/banded.py), read by K6/K7: per tile t
+    # of 128 target rows, columns [0, B) are the source rows
+    # [*_off[t], *_off[t] + B) of the tile's own graph ---
+    es_onehot: torch.Tensor = None       # (Tv, 128, Bes) edge -> vertex, send
+    er_onehot: torch.Tensor = None       # (Tv, 128, Bes) edge -> vertex, recv
+    vc_onehot: torch.Tensor = None       # (Tc, 128, Bvc) vertex -> cell
+    cf_row_onehot: torch.Tensor = None   # (Tf, 128, Bcf) cell -> face, owner
+    cf_col_onehot: torch.Tensor = None   # (Tf, 128, Bcf) cell -> face, neighbour
+    # per tile, the first source row of its band: a row of the graph's own
+    # source, and in a batch a row of the batched source (batch_graphs adds
+    # each graph's first row once), so one kernel launch applies a table to
+    # the whole batch
+    es_off: torch.Tensor = None          # (Tv,) int32
+    vc_off: torch.Tensor = None          # (Tc,)
+    cf_off: torch.Tensor = None          # (Tf,)
+    # the GN blocks read the tables (K6/K7) instead of the index vectors
+    table_route: bool = False
 
     @property
     def num_cells(self) -> int:
@@ -121,6 +153,11 @@ def from_geometry(
     dt: float = 0.01,
     reynolds: float = 0.0,
     pad_multiple: int = 0,
+    pad_to: Optional[Dict[str, int]] = None,
+    with_banded: bool = False,
+    banded_dtype="float32",
+    band_pad: Optional[Dict[str, int]] = None,
+    banded_tables=None,
     device="cuda",
 ) -> MeshGraph:
     """Build a single-graph MeshGraph from a numpy geometry dict.
@@ -130,8 +167,14 @@ def from_geometry(
     etc.; they are transposed to element-major ``(C, W, ...)``.
 
     Padding: if ``pad_multiple > 0``, each element axis is padded up to the
-    next multiple. Float arrays are f32. The tensors are placed on
+    next multiple; ``pad_to`` gives exact sizes ``{"cell": C', "face": F',
+    "vertex": V'}`` instead. Float arrays are f32. The tensors are placed on
     ``device`` (raises without a card unless ``device="cpu"``).
+
+    ``with_banded`` adds the banded tables (``banded_tables``, or built from
+    ``geom``) in ``banded_dtype`` (``"int8"``, ``"bfloat16"`` or
+    ``"float32"``), each band width widened to ``band_pad[group]`` where
+    given, and puts the graph on the table route.
     """
     dev = resolve_device(device)
     fields = fields or {}
@@ -139,11 +182,16 @@ def from_geometry(
     F = int(geom["face_pos"].shape[0])
     V = int(geom["vertex_pos"].shape[0])
 
-    if pad_multiple:
+    if pad_to is not None:
+        Cp, Fp, Vp = pad_to["cell"], pad_to["face"], pad_to["vertex"]
+    elif pad_multiple:
         Cp, Fp, Vp = (_round_up(C, pad_multiple), _round_up(F, pad_multiple),
                       _round_up(V, pad_multiple))
     else:
         Cp, Fp, Vp = C, F, V
+    if Cp < C or Fp < F or Vp < V:
+        raise ValueError(f"pad_to {(Cp, Fp, Vp)} is below the mesh's "
+                         f"{(C, F, V)}")
 
     def padf(x, n, axis=0, value=0.0):
         x = np.asarray(x)
@@ -202,6 +250,10 @@ def from_geometry(
 
     inc_ptr, inc_row = vertex_incidence_csr(vertex_edge_index, Vp)
     ft = np.asarray(geom["face_type"]).reshape(-1, 1)
+    tables = {}
+    if with_banded:
+        tables = _banded_fields(geom, (Cp, Fp, Vp), banded_dtype, band_pad,
+                                banded_tables, dev)
     return MeshGraph(
         cell_pos=f32(padf(geom["cell_pos"], Cp)),
         cell_volume=f32(padf(np.asarray(geom["cell_volume"]).reshape(-1, 1), Cp)),
@@ -234,4 +286,188 @@ def from_geometry(
         face_velocity=field_arr("face_velocity", F, Fp),
         face_pressure=field_arr("face_pressure", F, Fp),
         face_flux=field_arr("face_flux", F, Fp),
+        **tables,
     )
+
+
+# table group -> (one-hot fields, which padded count is its source count)
+_GROUPS = (("es", ("es_onehot", "er_onehot"), "face"),
+           ("vc", ("vc_onehot",), "vertex"),
+           ("cf", ("cf_row_onehot", "cf_col_onehot"), "cell"))
+
+
+def _check_bands(group: str, off: np.ndarray, B: int, S: int) -> None:
+    """Every band lies inside its graph's S source rows: the kernels read
+    source rows by band offset without bounds checks."""
+    if len(off) and (int(np.min(off)) < 0 or int(np.max(off)) + B > S):
+        raise ValueError(f"{group} bands run past the {S} source rows "
+                         f"(largest offset {int(np.max(off))}, width {B})")
+
+
+def _banded_fields(geom, pads, banded_dtype, band_pad, banded_tables,
+                   dev) -> dict:
+    Cp, Fp, Vp = pads
+    if Cp % 128 or Fp % 128 or Vp % 128:
+        raise ValueError("banded tables need 128-divisible padding")
+    dtype = BANDED_DTYPES.get(banded_dtype, banded_dtype)
+    if dtype not in BANDED_DTYPES.values():
+        raise ValueError(f"banded_dtype {banded_dtype!r} is not one of "
+                         f"{tuple(BANDED_DTYPES)}")
+    tables = banded_tables or banded_tables_for(
+        geom, {"cell": Cp, "face": Fp, "vertex": Vp})
+    sources = {"cell": Cp, "face": Fp, "vertex": Vp}
+    bp = band_pad or {}
+    out = {}
+    for group, keys, src in _GROUPS:
+        off = tuple(getattr(tables, f"{group}_offsets"))
+        B = bp.get(group, getattr(tables, keys[0]).shape[2])
+        _check_bands(group, np.asarray(off), B, sources[src])
+        for key in keys:
+            oh = pad_band_width(getattr(tables, key), B)
+            out[key] = torch.from_numpy(np.ascontiguousarray(oh)).to(dtype).to(dev)
+        out[f"{group}_off"] = torch.tensor(off, dtype=torch.int32, device=dev)
+    out["table_route"] = True
+    return out
+
+
+def banded_tables_for(geom: Dict[str, np.ndarray], pad_to: Dict[str, int]):
+    """Banded tables for ``geom`` padded to ``pad_to`` sizes, with the padding
+    convention of :func:`from_geometry` (padded entries point at the last
+    slot), so the band widths match what the padded graph needs."""
+    C = geom["cell_pos"].shape[0]
+    F = geom["face_pos"].shape[0]
+    V = geom["vertex_pos"].shape[0]
+    Cp, Fp, Vp = pad_to["cell"], pad_to["face"], pad_to["vertex"]
+
+    def padi(x, n, value):
+        x = np.asarray(x)
+        if x.shape[1] == n:
+            return x
+        return np.pad(x, ((0, 0), (0, n - x.shape[1])),
+                      constant_values=value)
+
+    padded_geom = {
+        "vertex_pos": np.zeros((Vp, 2)),
+        "cell_pos": np.zeros((Cp, 2)),
+        "vertex_edge_index": padi(geom["vertex_edge_index"], Fp,
+                                  Vp - 1 if Vp > V else 0),
+        "vertex_face": padi(geom["vertex_face"], Cp,
+                            Vp - 1 if Vp > V else 0),
+        "cell_edge_index": padi(geom["cell_edge_index"], Fp,
+                                Cp - 1 if Cp > C else 0),
+    }
+    return build_banded_tables(padded_geom)
+
+
+def to_static_bands(graph: MeshGraph, derive_idx: bool = True) -> MeshGraph:
+    """Choose the route of a graph with tables: with ``derive_idx`` it goes
+    on the index route (the JAX package derives its index vectors here; the
+    port's graphs always have them), without it it stays where it is (the
+    trainer's validation graph stays on the table route). The JAX package
+    also bakes the band offsets into static specs here for its compiler;
+    the port's kernels read them from ``*_off``. A graph without tables is
+    returned as it is."""
+    if derive_idx and graph.table_route:
+        return dataclasses.replace(graph, table_route=False)
+    return graph
+
+
+FIELD_KEYS = ("cell_velocity", "cell_pressure", "face_velocity",
+              "face_pressure", "face_flux")
+
+
+def batch_graphs(graphs: Sequence[MeshGraph]) -> MeshGraph:
+    """Concatenate same-shape MeshGraphs into one batched graph.
+
+    Element arrays concatenate, index arrays are offset by the element counts
+    before them, ``cell_batch``/``face_batch`` record graph membership, and
+    ``dt``/``reynolds`` become (n,) vectors. Banded tables are widened to the
+    batch's widest band (:func:`_widen_band`) and their tiles concatenated;
+    ``*_off`` gains each graph's first source row.
+    """
+    if not graphs:
+        raise ValueError("no graphs to batch")
+    if len(graphs) == 1:
+        return graphs[0]
+    g0 = graphs[0]
+    C, F, V = g0.num_cells, g0.num_faces, g0.num_vertices
+    for g in graphs:
+        if (g.num_cells, g.num_faces, g.num_vertices) != (C, F, V):
+            raise ValueError("batch_graphs needs graphs of one padded shape")
+        if g.table_route != g0.table_route:
+            raise ValueError("batch_graphs needs graphs on one route")
+    n = len(graphs)
+    dev = g0.device
+
+    def cat(key, per=None, axis=0):
+        vals = [getattr(g, key) for g in graphs]
+        if per is not None:
+            vals = [v + i * per for i, v in enumerate(vals)]
+        return torch.cat(vals, dim=axis)
+
+    kwargs = dict(
+        cell_pos=cat("cell_pos"),
+        cell_volume=cat("cell_volume"),
+        cell_normal=cat("cell_normal"),
+        cell_edge_index=cat("cell_edge_index", C, axis=1),
+        cell_face_sign=cat("cell_face_sign"),
+        face_pos=cat("face_pos"),
+        face_area=cat("face_area"),
+        face_normal=cat("face_normal"),
+        face_type=cat("face_type"),
+        face_index=cat("face_index", F, axis=1),
+        owner_local_slot=cat("owner_local_slot"),
+        vertex_pos=cat("vertex_pos"),
+        vertex_edge_index=cat("vertex_edge_index", V, axis=1),
+        vertex_face=cat("vertex_face", V, axis=1),
+        cell_mask=cat("cell_mask"),
+        face_mask=cat("face_mask"),
+        vertex_mask=cat("vertex_mask"),
+        face_boundary_mask=cat("face_boundary_mask"),
+        cell_batch=torch.repeat_interleave(
+            torch.arange(n, dtype=torch.int32, device=dev), C),
+        face_batch=torch.repeat_interleave(
+            torch.arange(n, dtype=torch.int32, device=dev), F),
+        # each graph's CSR holds all of its 2F half-rows, in its own vertex
+        # order: the batched CSR chains them
+        vertex_inc_ptr=torch.cat([g0.vertex_inc_ptr] + [
+            g.vertex_inc_ptr[1:] + i * 2 * F for i, g in enumerate(graphs)
+            if i > 0]),
+        vertex_inc_row=cat("vertex_inc_row", 2 * F),
+        num_graphs=n,
+        dt=torch.stack([g.dt.reshape(()) for g in graphs]),
+        reynolds=torch.stack([g.reynolds.reshape(()) for g in graphs]),
+        table_route=g0.table_route,
+    )
+    for key in FIELD_KEYS:
+        kwargs[key] = None if getattr(g0, key) is None else cat(key)
+    sources = {"cell": C, "face": F, "vertex": V}
+    for group, keys, src in (_GROUPS if g0.es_onehot is not None else ()):
+        S = sources[src]
+        B = max(getattr(g, keys[0]).shape[2] for g in graphs)
+        offs, tables = [], {key: [] for key in keys}
+        for i, g in enumerate(graphs):
+            off = getattr(g, f"{group}_off")
+            for key in keys:
+                oh, new_off = _widen_band(getattr(g, key), off, B, S)
+                tables[key].append(oh)
+            _check_bands(group, new_off.cpu().numpy(), B, S)
+            offs.append(new_off + i * S)
+        for key in keys:
+            kwargs[key] = torch.cat(tables[key])
+        kwargs[f"{group}_off"] = torch.cat(offs)
+    return MeshGraph(**kwargs)
+
+
+def _widen_band(oh: torch.Tensor, off: torch.Tensor, B: int, S: int):
+    """A table widened to band width ``B``, and its offsets: a tile whose
+    wider band would run past the S source rows starts lower, its columns
+    shifted right by as much, so that each tile still reads the same rows."""
+    T, tile, Bg = oh.shape
+    if Bg == B:
+        return oh, off
+    new_off = torch.clamp(off, max=S - B)
+    cols = (off - new_off).long()[:, None, None] + torch.arange(
+        Bg, device=oh.device)
+    return oh.new_zeros(T, tile, B).scatter_(2, cols.expand(T, tile, Bg),
+                                             oh), new_off

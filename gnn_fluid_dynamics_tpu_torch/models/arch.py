@@ -10,12 +10,17 @@ The GN blocks take one of two routes, as in the JAX package:
 
 * the **kernel** route, through the CUDA kernels of
   :mod:`gnn_fluid_dynamics_tpu_torch.ops.kernels` on the card (their plain
-  versions on the CPU). A block without a step scalar is **fused**: per
-  block the edge->vertex sum (K3), the fused cell block (K2) and the fused
-  face block (K1), with bf16 latents between them. A block with a step
-  scalar (FvgnF) is **unfused**: K3 then the 3-vertex mean (K5) before the
-  cell MLP, the owner/neighbour gather (K4) before the face MLP, the MLPs
-  as :class:`MLP` modules and the residuals outside;
+  versions on the CPU). A block without a step scalar on a graph on the
+  index route is **fused**: per block the edge->vertex sum (K3), the fused
+  cell block (K2) and the fused face block (K1), with bf16 latents between
+  them. Any other block is **unfused**, its MLPs run as :class:`MLP` modules
+  and its residuals outside the kernels: on the index route (a block with a
+  step scalar, as in FvgnF) K3 then the 3-vertex mean (K5) before the cell
+  MLP and the owner/neighbour gather (K4) before the face MLP; on a graph on
+  the table route (``MeshGraph.table_route``, the trainer's validation
+  graph) the dense-table kernels instead: K6 on the es/er tables then K7 on
+  vc before the cell MLP, K6 on the cf tables before the face MLP
+  (``_fused_block_ok``, ``aggregate_twice_mp``, ``gather_face_cells``);
 * the **plain** route: segment aggregation, row gathers and the
   :class:`MLP` modules in the configured compute dtype.
 """
@@ -31,7 +36,7 @@ from torch import nn
 from gnn_fluid_dynamics_tpu_torch.ops import kernels
 from gnn_fluid_dynamics_tpu_torch.ops import segment as seg_ops
 
-AGGREGATIONS = ("segment", "pallas", "auto")
+AGGREGATIONS = ("segment", "pallas", "auto", "banded", "gather")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,7 +45,12 @@ class ArchConfig:
     mp_num: int = 15
     # "segment": the plain route; "pallas": the kernel route (the name of
     # the JAX package's Pallas backend); "auto": the kernel route when the
-    # latents are on the card at the kernels' width, else plain
+    # latents are on the card at the kernels' width, else plain. "banded"
+    # and "gather", the JAX package's XLA banded and incidence-gather
+    # backends (the shipped configs' names), reach no kernel there and take
+    # the plain route here. The physics gathers (gather3, the cell flux,
+    # the feedback's face velocity change) stay f32 index gathers on every
+    # route, where the JAX package's bf16 banded tables round them to bf16.
     aggregation: str = "auto"
     compute_dtype: str = "float32"   # "bfloat16" runs the MLP stack in bf16
     share_blocks: bool = False       # FvgnF: one GN block applied mp_num times
@@ -57,13 +67,30 @@ class ArchConfig:
         return torch.bfloat16 if self.compute_dtype == "bfloat16" else torch.float32
 
 
-def kernel_route(cfg: ArchConfig, latent: torch.Tensor) -> bool:
+def kernel_route(cfg: ArchConfig, latent: torch.Tensor,
+                 train: bool = False) -> bool:
     """Whether the GN blocks take the kernel route for latents ``latent``
-    (``_resolve_aggregation``)."""
+    (``_resolve_aggregation``). The kernels run rollouts only: with
+    ``train`` the kernel route is refused, as the JAX package downgrades
+    ``"pallas"`` to its differentiable XLA path."""
+    if train:
+        return False
     if cfg.aggregation == "pallas":
         return True
     return (cfg.aggregation == "auto" and latent.is_cuda
             and cfg.hidden == kernels.H)
+
+
+def block_route(cfg: ArchConfig, graph, latent: torch.Tensor, extra=None,
+                train: bool = False) -> str:
+    """``"fused"``, ``"unfused"`` or ``"plain"`` for one GN block application
+    (``_fused_block_ok``): fused only on the kernel route, without a step
+    scalar, on a graph on the index route."""
+    if not kernel_route(cfg, latent, train):
+        return "plain"
+    if extra is None and not graph.table_route:
+        return "fused"
+    return "unfused"
 
 
 def _init_dense(layer: nn.Linear, generator: torch.Generator) -> None:
@@ -136,15 +163,43 @@ class MLP(nn.Module):
         return self._kernel_cache[1]
 
 
-def aggregate_twice_mp(edge_attr: torch.Tensor, graph) -> torch.Tensor:
+def aggregate_twice_mp(edge_attr: torch.Tensor, graph,
+                       use_kernels: bool = False) -> torch.Tensor:
     """The reference's 'twice message passing': forward/reverse halves of the
     edge latents summed onto vertices, then each cell's 3-vertex mean
-    (``Fvgn.py:305-321``). Returns (C, H/2)."""
+    (``Fvgn.py:305-321``). Returns (C, H/2) f32. With ``use_kernels`` the
+    unfused block's kernels on bf16 latents: K6 (es/er) then K7 (vc) on a
+    graph on the table route, K3 then K5 on the index route."""
+    if use_kernels:
+        e = edge_attr.to(torch.bfloat16)
+        if graph.table_route:
+            vtx = kernels.table_dual(graph.es_onehot, graph.er_onehot,
+                                     graph.es_off, e, combine_roll=True)
+            return kernels.table_single(graph.vc_onehot, graph.vc_off, vtx)
+        return kernels.vertices_to_cells(kernels.edges_to_vertices(e, graph),
+                                         graph)
     h2 = edge_attr.shape[-1] // 2
     vtx = seg_ops.aggregate_edges_to_vertices_scatter(
         edge_attr[:, :h2], edge_attr[:, h2:], graph.vertex_edge_index,
         graph.num_vertices)
     return seg_ops.gather_vertices_to_cells(vtx, graph.vertex_face)
+
+
+def gather_face_cells(cell_attr: torch.Tensor, graph,
+                      use_kernels: bool = False):
+    """(x[owner], x[neighbour]) per face, (F, H) each. With ``use_kernels``
+    from the bf16 latents through K6 (cf tables) on a graph on the table
+    route or K4 on the index route, cast to f32 as the JAX wrapper does."""
+    if not use_kernels:
+        return (cell_attr[graph.cell_edge_index[0]],
+                cell_attr[graph.cell_edge_index[1]])
+    c = cell_attr.to(torch.bfloat16)
+    if graph.table_route:
+        own, nbr = kernels.table_dual(graph.cf_row_onehot, graph.cf_col_onehot,
+                                      graph.cf_off, c)
+    else:
+        own, nbr = kernels.gather_face_cells(c, graph)
+    return own.float(), nbr.float()
 
 
 def _with_extra(parts: list, extra, rows: int) -> torch.Tensor:
@@ -166,16 +221,13 @@ class CellBlock(nn.Module):
                        generator=generator)
 
     def forward(self, cell_attr, edge_attr, graph, extra=None,
-                use_kernels: bool = False, dual_out: bool = False):
-        if use_kernels:
+                route: str = "plain", dual_out: bool = False):
+        if route == "fused":
             vtx = kernels.edges_to_vertices(edge_attr.to(torch.bfloat16), graph)
-            if extra is None:
-                return kernels.fused_cell_block(
-                    cell_attr.to(torch.bfloat16), vtx, graph,
-                    self.mlp.kernel_weights(), dual_out=dual_out)
-            cell_agg = kernels.vertices_to_cells(vtx, graph)
-        else:
-            cell_agg = aggregate_twice_mp(edge_attr, graph)
+            return kernels.fused_cell_block(
+                cell_attr.to(torch.bfloat16), vtx, graph,
+                self.mlp.kernel_weights(), dual_out=dual_out)
+        cell_agg = aggregate_twice_mp(edge_attr, graph, route == "unfused")
         return self.mlp(_with_extra([cell_attr, cell_agg], extra,
                                     cell_attr.shape[0]))
 
@@ -190,27 +242,20 @@ class FaceBlock(nn.Module):
                        cfg.hidden, dtype=cfg.dtype, generator=generator)
 
     def forward(self, cell_attr, edge_attr, graph, extra=None,
-                use_kernels: bool = False, dual_out: bool = False):
-        if use_kernels and extra is None:
+                route: str = "plain", dual_out: bool = False):
+        if route == "fused":
             return kernels.fused_face_block(cell_attr.to(torch.bfloat16),
                                             edge_attr.to(torch.bfloat16),
                                             graph, self.mlp.kernel_weights(),
                                             dual_out=dual_out)
-        if use_kernels:
-            own, nbr = kernels.gather_face_cells(cell_attr.to(torch.bfloat16),
-                                                 graph)
-            own, nbr = own.float(), nbr.float()
-        else:
-            own = cell_attr[graph.cell_edge_index[0]]
-            nbr = cell_attr[graph.cell_edge_index[1]]
+        own, nbr = gather_face_cells(cell_attr, graph, route == "unfused")
         return self.mlp(_with_extra([edge_attr, own, nbr], extra,
                                     edge_attr.shape[0]))
 
 
 class GNBlock(nn.Module):
     """One processor block, FVGN order (cell block, then face block) with
-    residuals (Fvgn.py:274-284). On the kernel route a block without a step
-    scalar is fused (``_fused_block_ok``)."""
+    residuals (Fvgn.py:274-284), on the ``route`` of :func:`block_route`."""
 
     def __init__(self, cfg: ArchConfig, generator: torch.Generator = None):
         super().__init__()
@@ -218,18 +263,16 @@ class GNBlock(nn.Module):
         self.face_block = FaceBlock(cfg, generator)
 
     def forward(self, cell_attr, edge_attr, graph, extra=None,
-                use_kernels: bool = False):
-        if use_kernels and extra is None:
+                route: str = "plain"):
+        if route == "fused":
             # residuals are applied inside the kernels; the face block reads
             # the cell block's RAW (pre-residual) output
             c_raw, c_res = self.cell_block(cell_attr, edge_attr, graph,
-                                           use_kernels=True, dual_out=True)
-            e_res = self.face_block(c_raw, edge_attr, graph, use_kernels=True)
+                                           route=route, dual_out=True)
+            e_res = self.face_block(c_raw, edge_attr, graph, route=route)
             return c_res, e_res
-        new_cell = self.cell_block(cell_attr, edge_attr, graph, extra,
-                                   use_kernels)
-        new_edge = self.face_block(new_cell, edge_attr, graph, extra,
-                                   use_kernels)
+        new_cell = self.cell_block(cell_attr, edge_attr, graph, extra, route)
+        new_edge = self.face_block(new_cell, edge_attr, graph, extra, route)
         return cell_attr + new_cell, edge_attr + new_edge
 
 
@@ -274,13 +317,13 @@ class EncodeProcessDecode(nn.Module):
 
     def forward(self, cell_x, face_x, graph):
         cell_attr, edge_attr = self.encoder(cell_x, face_x)
-        kern = kernel_route(self.cfg, cell_attr)
         for i in range(self.cfg.mp_num):
             block = self.blocks[0 if self.cfg.share_blocks else i]
             extra = (self.step_scalars[i:i + 1] if self.cfg.step_scalar
                      else None)
-            cell_attr, edge_attr = block(cell_attr, edge_attr, graph, extra,
-                                         kern)
+            cell_attr, edge_attr = block(
+                cell_attr, edge_attr, graph, extra,
+                block_route(self.cfg, graph, cell_attr, extra))
         return self.decoder_face(edge_attr)
 
 

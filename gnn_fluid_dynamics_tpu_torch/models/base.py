@@ -24,7 +24,8 @@ class ModelConfig:
     name: str = "FluxD"
     hidden_width: int = 128
     mp_num: int = 15
-    aggregation: str = "auto"         # "segment" | "pallas" | "auto" (arch.py)
+    aggregation: str = "auto"         # arch.py AGGREGATIONS: "segment" |
+    #                                   "pallas" | "auto" | "banded" | "gather"
     num_face_types: int = 5
     compute_dtype: str = "float32"    # "bfloat16" for the MLP stack
     # learned-scale denorm initialization (FluxD): None = the reference's

@@ -11,10 +11,17 @@ K2     :func:`fused_cell_block`  :func:`fused_cell_block_ref`        ``csrc/cell
 K3     :func:`edges_to_vertices` :func:`edges_to_vertices_ref`       ``csrc/edge_vertex.cu``
 K4     :func:`gather_face_cells` :func:`gather_face_cells_ref`       ``csrc/face_gather.cu``
 K5     :func:`vertices_to_cells` :func:`vertices_to_cells_ref`       ``csrc/vertex_cell.cu``
+K6     :func:`table_dual`        :func:`table_dual_ref`              ``csrc/table_dual.cu``
+K7     :func:`table_single`      :func:`table_single_ref`            ``csrc/table_single.cu``
 =====  =======================  ===================================  ==========================
 
 K1-K3 carry the fused GN block; K3, K5 and K4 carry the unfused one, whose
-MLPs run outside the kernels (a block with a step scalar, as in FvgnF).
+MLPs run outside the kernels (a block with a step scalar, as in FvgnF). K1-K5
+read the graph's index vectors. K6 and K7 read its banded one-hot tables
+instead (a graph on the table route, :mod:`gnn_fluid_dynamics_tpu_torch.graph`):
+per block K6 on the es/er tables and K7 on vc in place of K3 and K5, and K6 on
+the cf tables in place of K4. Each launches once per table application to a
+whole batch of graphs.
 
 A wrapper given tensors on the CPU returns its plain version; given CUDA
 tensors it launches its kernel or raises. Each launch adds one to the
@@ -50,8 +57,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 SOURCES = {"face_block": "face_block.cu", "cell_block": "cell_block.cu",
            "edge_vertex": "edge_vertex.cu", "face_gather": "face_gather.cu",
-           "vertex_cell": "vertex_cell.cu"}
-HEADERS = ("gn_block.cuh",)
+           "vertex_cell": "vertex_cell.cu", "table_dual": "table_dual.cu",
+           "table_single": "table_single.cu"}
+HEADERS = ("gn_block.cuh", "table.cuh")
 H = 128          # the latent width the kernels are built for
 LN_EPS = 1e-5
 
@@ -63,7 +71,12 @@ _ARGTYPES = {
     "gfd_edge_vertex": [_I] + [_P] * 3 + [_I] + [_P] * 2,
     "gfd_face_gather": [_I] + [_P] * 3 + [_I] + [_P] * 3,
     "gfd_vertex_cell": [_I] + [_P] * 4 + [_I] + [_P] * 2,
+    "gfd_table_dual": [_I] + [_P] * 4 + [_I] * 4 + [_P] * 3,
+    "gfd_table_single": [_I] + [_P] * 3 + [_I] * 3 + [_P] * 2,
 }
+TABLE_TILE = 128  # target rows per table tile
+# the table dtypes K6/K7 read, by the code their C entry points take
+TABLE_DTYPES = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
 _ENTRY = {name: "gfd_" + name for name in SOURCES}
 
 _libs: dict = {}
@@ -263,6 +276,42 @@ def vertices_to_cells_ref(vtx, graph):
     return (v[vf[0]] + v[vf[1]] + v[vf[2]]).to(vtx.dtype).float() / 3.0
 
 
+def _table_bands(src: torch.Tensor, src_off: torch.Tensor, band: int):
+    """(T, B, W) f32: each tile's band of source rows."""
+    idx = src_off.long()[:, None] + torch.arange(band, device=src.device)
+    return src.float()[idx]
+
+
+def _table_apply(oh: torch.Tensor, bands: torch.Tensor) -> torch.Tensor:
+    """One f32 einsum of the table, its weights rounded to bf16 first, with
+    the bands: (T, 128, B) x (T, B, W) -> (T * 128, W) f32."""
+    w = oh.to(torch.bfloat16).float()
+    return torch.einsum("tib,tbh->tih", w, bands).reshape(-1, bands.shape[2])
+
+
+def table_dual_ref(oh_a, oh_b, src_off, src, combine_roll: bool = False):
+    """Plain version of K6: both tables applied to each tile's band of the
+    bf16 (S, H) source (``src_off`` the bands' first rows in ``src``), in
+    f32, each stored in ``src``'s dtype. With ``combine_roll`` only the
+    vertex sum ``A[:, :H/2] + B[:, H/2:]``, rounded once: (T*128, H/2);
+    else (A, B), two (T*128, H)."""
+    bands = _table_bands(src, src_off, oh_a.shape[2])
+    a, b = _table_apply(oh_a, bands), _table_apply(oh_b, bands)
+    if combine_roll:
+        h2 = src.shape[1] // 2
+        return (a[:, :h2] + b[:, h2:]).to(src.dtype)
+    return a.to(src.dtype), b.to(src.dtype)
+
+
+def table_single_ref(oh, src_off, src):
+    """Plain version of K7: the table applied to each tile's band of the
+    bf16 (S, H/2) vertex sums in f32, rounded to ``src``'s dtype, then
+    divided by 3 in f32 (``aggregate_vertices_to_cells_pallas``'s
+    epilogue). -> (T*128, H/2) f32."""
+    s = _table_apply(oh, _table_bands(src, src_off, oh.shape[2]))
+    return s.to(src.dtype).float() / 3.0
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
@@ -355,8 +404,68 @@ def vertices_to_cells(vtx, graph):
     return out
 
 
+def _check_table(oh, what, dev, like=None) -> None:
+    """A (T, 128, B) table, B a multiple of 128, in one of the table dtypes
+    (or ``like``'s dtype and shape)."""
+    if oh.dtype not in TABLE_DTYPES:
+        raise ValueError(f"{what} has dtype {oh.dtype}, expected one of "
+                         f"{tuple(TABLE_DTYPES)}")
+    if oh.ndim != 3 or oh.shape[1] != TABLE_TILE or oh.shape[2] % 128:
+        raise ValueError(f"{what} has shape {tuple(oh.shape)}, expected "
+                         f"(T, {TABLE_TILE}, a multiple of 128)")
+    like = oh if like is None else like
+    _check(oh, what, dev, like.dtype, like.shape)
+
+
+def table_dual(oh_a, oh_b, src_off, src, combine_roll: bool = False):
+    """K6: the dense-table dual apply. See :func:`table_dual_ref`. The
+    bands must lie inside ``src`` (``off + B <= S``, checked where the graph
+    is built); the kernel reads source rows without bounds checks."""
+    if src.device.type == "cpu":
+        return table_dual_ref(oh_a, oh_b, src_off, src, combine_roll)
+    dev = src.device
+    _check_table(oh_a, "oh_a", dev)
+    _check_table(oh_b, "oh_b", dev, like=oh_a)
+    T, _, band = oh_a.shape
+    _check(src_off, "src_off", dev, torch.int32, (T,))
+    _check(src, "src", dev, torch.bfloat16, (src.shape[0], H))
+    rows = T * TABLE_TILE
+    if combine_roll:
+        out_a = torch.empty((rows, H // 2), dtype=torch.bfloat16, device=dev)
+        out_b = None
+    else:
+        out_a = torch.empty((rows, H), dtype=torch.bfloat16, device=dev)
+        out_b = torch.empty_like(out_a)
+    _launch("table_dual", dev, _ptr(oh_a), _ptr(oh_b), _ptr(src_off),
+            _ptr(src), rows, band, TABLE_DTYPES[oh_a.dtype], int(combine_roll),
+            _ptr(out_a), _ptr(out_b))
+    table_dual.launches += 1
+    return out_a if combine_roll else (out_a, out_b)
+
+
+def table_single(oh, src_off, src):
+    """K7: the dense-table single apply with the 1/3 epilogue. See
+    :func:`table_single_ref`; the bands must lie inside ``src``, as for
+    :func:`table_dual`."""
+    if src.device.type == "cpu":
+        return table_single_ref(oh, src_off, src)
+    dev = src.device
+    _check_table(oh, "oh", dev)
+    T, _, band = oh.shape
+    _check(src_off, "src_off", dev, torch.int32, (T,))
+    _check(src, "src", dev, torch.bfloat16, (src.shape[0], H // 2))
+    rows = T * TABLE_TILE
+    out = torch.empty((rows, H // 2), dtype=torch.float32, device=dev)
+    _launch("table_single", dev, _ptr(oh), _ptr(src_off), _ptr(src), rows,
+            band, TABLE_DTYPES[oh.dtype], _ptr(out))
+    table_single.launches += 1
+    return out
+
+
 fused_face_block.launches = 0
 fused_cell_block.launches = 0
 edges_to_vertices.launches = 0
 gather_face_cells.launches = 0
 vertices_to_cells.launches = 0
+table_dual.launches = 0
+table_single.launches = 0

@@ -111,10 +111,12 @@ def rollout_scan(model, graph, feats0: Dict[str, torch.Tensor],
     return errors, fields
 
 
-def error_summary(errors: Dict[str, torch.Tensor]
+def error_summary(errors: Dict[str, torch.Tensor], sim_ids=None
                   ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """Scalar stats + per-trajectory evolution arrays (reference
-    ``_error_save``, rollout.py:167-223)."""
+    ``_error_save``, rollout.py:167-223): each error's ``evo_all`` (the mean
+    over the graphs per step) and, given the graphs' ``sim_ids``, one
+    ``evo_<id>`` per graph."""
     host = {name: arr.detach().cpu().numpy() for name, arr in errors.items()}
     out_scalar, out_evo = {}, {}
     for name, a in host.items():                  # (T, B)
@@ -126,7 +128,11 @@ def error_summary(errors: Dict[str, torch.Tensor]
             "variance_mean_all": float(sim_means.var()),
             "mean_variance_all": float(sim_vars.mean()),
         }
-        out_evo[name] = {"evo_all": a.mean(axis=1).tolist()}
+        evo = {"evo_all": a.mean(axis=1).tolist()}
+        if sim_ids is not None:
+            for i, sid in enumerate(sim_ids):
+                evo[f"evo_{sid}"] = a[:, i].tolist()
+        out_evo[name] = evo
     if "velocity_error" in host and "pressure_error" in host:
         out_scalar["total_mean_error"] = float(
             (host["velocity_error"] + host["pressure_error"]).mean())

@@ -24,6 +24,7 @@ the state dict holds each matrix whole.
 from __future__ import annotations
 
 import re
+from collections.abc import Mapping
 from typing import Dict
 
 import numpy as np
@@ -64,8 +65,10 @@ def _leaf_name(name: str, parent: str, collection: str) -> str:
 
 def params_from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
     """State dict (f32 CPU tensors) of the port's module for the Flax
-    ``variables``: a dict of collections (``params`` and, where the model
-    has BatchNorms, ``batch_stats``), or a bare param tree."""
+    ``variables``: a mapping of collections (``params`` and, where the model
+    has BatchNorms, ``batch_stats``), or a bare param tree. Any
+    :class:`~collections.abc.Mapping` is a subtree, so Flax's ``FrozenDict``
+    (not a ``dict``) is taken as a plain dict is."""
     if variables and set(variables) <= _COLLECTIONS and "params" in variables:
         collections = variables
     else:
@@ -74,7 +77,7 @@ def params_from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
 
     def walk(tree, prefix, parent, collection):
         for name, value in tree.items():
-            if isinstance(value, dict):
+            if isinstance(value, Mapping):
                 walk(value, prefix + _module_name(name) + ".", name, collection)
                 continue
             arr = np.asarray(value, dtype=np.float32)

@@ -361,3 +361,185 @@ def test_kernel_weights_split_matches_dense_layers():
     with torch.no_grad():
         mlp.dense0.weight.mul_(2.0)
     assert mlp.kernel_weights(torch.float32) is not w      # in-place change seen
+
+
+# ---- K6/K7: the dense-table kernels ----------------------------------------
+# Held against the JAX package's dense-table Pallas kernels on a batch of two
+# meshes on the table route (the wrappers loop over the graphs, the port
+# launches once per batch). The roll form and K7 sum in f32 in another order
+# and round once: within one bf16 step. The cf form copies rows (one weight
+# of 1 per row): exact.
+
+@pytest.fixture(scope="module")
+def table_graphs():
+    from gnn_fluid_dynamics_tpu.data.pipeline import MeshDataset as JaxDataset
+    from gnn_fluid_dynamics_tpu.data.pipeline import Trajectory as JaxTrajectory
+    from gnn_fluid_dynamics_tpu_torch.data.pipeline import (MeshDataset,
+                                                            Trajectory,
+                                                            rollout_batch)
+    from gnn_fluid_dynamics_tpu_torch.graph import \
+        to_static_bands as torch_to_static_bands
+    geoms = [rcm_reorder_geometry(make_geometry("cylinder", n_points=n, seed=s))
+             for n, s in ((300, 0), (320, 1))]
+    out = {}
+    for dtype in ("int8", "bfloat16"):
+        def trajs(cls):
+            return [cls(mesh_id=f"sim{i}", geom=g, fields={
+                "cell_velocity": np.zeros((2, g["cell_pos"].shape[0], 2))})
+                for i, g in enumerate(geoms)]
+        dj = JaxDataset(trajs(JaxTrajectory), with_banded=True,
+                        banded_dtype=dtype)
+        dt = MeshDataset(trajs(Trajectory), with_banded=True,
+                         banded_dtype=dtype, device="cpu")
+        samples = rollout_batch(dt)
+        out[dtype] = (to_static_bands(dj.get_batch(samples), derive_idx=False),
+                      torch_to_static_bands(dt.get_batch(samples),
+                                            derive_idx=False))
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
+def test_table_dual_roll_matches_pallas(table_graphs, dtype):
+    gj, gt = table_graphs[dtype]
+    assert gj.es_tgt is None and gt.table_route and gt.num_graphs == 2
+    rng = np.random.default_rng(13)
+    ej, et = _latents(rng, gt.num_faces, "bfloat16")
+    want = pallas_agg.aggregate_edges_to_vertices_pallas(ej, gj)[:, :H // 2]
+    got = kernels.table_dual(gt.es_onehot, gt.er_onehot, gt.es_off, et,
+                             combine_roll=True)
+    assert got.dtype == torch.bfloat16 and got.shape == (gt.num_vertices, H // 2)
+    np.testing.assert_allclose(_np(got), _np(want), **BF16_TOL)
+    # the vertex sums K3 computes from the index vectors
+    np.testing.assert_allclose(_np(got), _np(kernels.edges_to_vertices(et, gt)),
+                               **BF16_TOL)
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
+def test_table_dual_cf_matches_pallas_exactly(table_graphs, dtype):
+    gj, gt = table_graphs[dtype]
+    rng = np.random.default_rng(14)
+    cj, ct = _latents(rng, gt.num_cells, "bfloat16")
+    want = pallas_agg.gather_face_cells_pallas(cj, gj)
+    got = kernels.table_dual(gt.cf_row_onehot, gt.cf_col_onehot,
+                             gt.cf_off, ct)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16 and a.shape == (gt.num_faces, H)
+        np.testing.assert_array_equal(_np(a), _np(b))
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
+def test_table_single_matches_pallas(table_graphs, dtype):
+    """K7 with its 1/3 epilogue against the Pallas wrapper on every row:
+    padded cells store a weight of 3 on the pad vertex, which both
+    multiply."""
+    gj, gt = table_graphs[dtype]
+    assert int(gt.vc_onehot.max()) == 3
+    rng = np.random.default_rng(15)
+    vj, vt = _latents(rng, gt.num_vertices, "bfloat16")
+    want = pallas_agg.aggregate_vertices_to_cells_pallas(vj, gj)
+    got = kernels.table_single(gt.vc_onehot, gt.vc_off,
+                               vt[:, :H // 2].contiguous())
+    assert got.dtype == torch.float32 and got.shape == (gt.num_cells, H // 2)
+    np.testing.assert_allclose(_np(got), _np(want), **BF16_TOL)
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
+def test_tables_with_other_weights_match_pallas(dtype):
+    """Random tables with weights in -3..3 (not a mesh's 0/1): K6 and K7
+    multiply by the stored weight, as the TPU's one-hot product does."""
+    rng = np.random.default_rng(16)
+    T, B, S = 3, 256, 512
+    oh = [np.where(rng.random((T, 128, B)) < 0.02,
+                   rng.integers(-3, 4, (T, 128, B)), 0) for _ in range(3)]
+    off = np.array([0, 128, 256], np.int32)
+    jdt, tdt = DTYPE_PAIRS[dtype]
+    ohj = [jnp.asarray(o, jdt) for o in oh]
+    oht = [torch.from_numpy(o).to(tdt) for o in oh]
+    sj, st = _latents(rng, S, "bfloat16")
+    want_a, want_b = pallas_agg.banded_dual_pallas(ohj[0], ohj[1],
+                                                   jnp.asarray(off), sj)
+    got_a, got_b = kernels.table_dual(oht[0], oht[1], torch.from_numpy(off), st)
+    np.testing.assert_allclose(_np(got_a), _np(want_a), **BF16_TOL)
+    np.testing.assert_allclose(_np(got_b), _np(want_b), **BF16_TOL)
+    want = pallas_agg.banded_dual_pallas(ohj[0], ohj[1], jnp.asarray(off), sj,
+                                         combine_roll=H // 2)[:, :H // 2]
+    got = kernels.table_dual(oht[0], oht[1], torch.from_numpy(off), st,
+                             combine_roll=True)
+    np.testing.assert_allclose(_np(got), _np(want), **BF16_TOL)
+    want = pallas_agg.banded_single_pallas(ohj[2], jnp.asarray(off), sj)
+    want = _np(want)[:, :H // 2] / 3.0
+    got = kernels.table_single(oht[2], torch.from_numpy(off),
+                               st[:, :H // 2].contiguous())
+    np.testing.assert_allclose(_np(got), want, **BF16_TOL)
+
+
+DTYPE_PAIRS = {"int8": (jnp.int8, torch.int8),
+               "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def test_table_weights_round_to_bf16_first():
+    """An f32 table's weights are rounded to bf16 before the product, as the
+    TPU kernel's ``oh.astype(band.dtype)`` does: (1 + 2**-9) * -1 + 1 * 1
+    sums to 0 with the weight rounded (to 1.0) and to -2**-9 without."""
+    oh = torch.zeros((1, 128, 128))
+    oh[0, 0, 5] = 1.0 + 2.0 ** -9
+    oh[0, 0, 6] = 1.0
+    src = torch.zeros((128, H), dtype=torch.bfloat16)
+    src[5], src[6] = -1.0, 1.0
+    off = torch.zeros(1, dtype=torch.int32)
+    a, _ = kernels.table_dual(oh, oh, off, src)
+    assert float(a[0, 0]) == 0.0
+    s = kernels.table_single(oh, off, src[:, :H // 2].contiguous())
+    assert float(s[0, 0]) == 0.0
+    assert float((oh[0, 0, 5] * src[5, 0].float()) + src[6, 0].float()) != 0.0
+
+
+def test_cpu_tensors_take_the_plain_version_tables(table_graphs):
+    _, gt = table_graphs["int8"]
+    rng = np.random.default_rng(17)
+    _, et = _latents(rng, gt.num_faces, "bfloat16")
+    _, ct = _latents(rng, gt.num_cells, "bfloat16")
+    before = (kernels.table_dual.launches, kernels.table_single.launches)
+    vtx = kernels.table_dual(gt.es_onehot, gt.er_onehot, gt.es_off, et,
+                             combine_roll=True)
+    torch.testing.assert_close(vtx, kernels.table_dual_ref(
+        gt.es_onehot, gt.er_onehot, gt.es_off, et, True), rtol=0, atol=0)
+    torch.testing.assert_close(
+        kernels.table_single(gt.vc_onehot, gt.vc_off, vtx),
+        kernels.table_single_ref(gt.vc_onehot, gt.vc_off, vtx),
+        rtol=0, atol=0)
+    torch.testing.assert_close(
+        kernels.table_dual(gt.cf_row_onehot, gt.cf_col_onehot, gt.cf_off,
+                           ct),
+        kernels.table_dual_ref(gt.cf_row_onehot, gt.cf_col_onehot,
+                               gt.cf_off, ct), rtol=0, atol=0)
+    assert (kernels.table_dual.launches,
+            kernels.table_single.launches) == before
+
+
+@pytest.mark.parametrize("kernel", ["K6", "K7"])
+def test_other_devices_never_take_the_plain_version_tables(table_graphs,
+                                                           kernel):
+    """Off the CPU the tables and sources go to the kernel's argument
+    checks, which refuse what the kernel does not take; nothing falls
+    back."""
+    _, gt = table_graphs["int8"]
+    meta = torch.device("meta")
+    if kernel == "K6":
+        call = kernels.table_dual
+        src = torch.empty((gt.num_faces, H), dtype=torch.bfloat16, device=meta)
+        args = (gt.es_onehot, gt.er_onehot, gt.es_off)
+    else:
+        call = kernels.table_single
+        src = torch.empty((gt.num_vertices, H // 2), dtype=torch.bfloat16,
+                          device=meta)
+        args = (gt.vc_onehot, gt.vc_off)
+    before = call.launches
+    with pytest.raises(ValueError, match="dtype"):
+        call(*(a.to(meta) for a in args[:-1]), args[-1].to(meta), src.float())
+    with pytest.raises(ValueError, match="dtype"):
+        call(args[0].to(meta, torch.int32),
+             *(a.to(meta) for a in args[1:]), src)
+    with pytest.raises(ValueError, match="is on cpu"):
+        call(*args, src)
+    assert call.launches == before
