@@ -8,9 +8,12 @@ them, and report each kernel's time beside its bound.
 Phases (each prints one flushed line; any failure exits non-zero):
 
 1. device and build: the card's name and power limit, the kernels' build time;
-2. kernel vs plain: K1-K5 at the FluxD/FvgnF shapes and K6/K7 on the
-   FluxD-valid batch's own tables (int8, and once more cast to bf16), on
-   seeded inputs;
+2. kernel vs plain: K1-K5 at the FluxD/FvgnF shapes (K1 also with its dual
+   output, both outputs also at the FluxD-valid batch's faces on its index
+   route, and each also read against an f64 evaluation) and
+   K6/K7 on the FluxD-valid batch's own tables (int8, and once more cast to
+   bf16; K7 also on the tables widened to a band of 384), on seeded inputs;
+   K7 and its library call timed also with L2 flushed between launches;
 3. the three paths at hidden 128, 15 GN block applications and bf16, with
    seeded weights and statistics from the synthetic channel flow:
 
@@ -60,7 +63,8 @@ from gnn_fluid_dynamics_tpu_torch.data.pipeline import (MeshDataset, Trajectory,
                                                         rollout_batch)
 from gnn_fluid_dynamics_tpu_torch.data.synthetic import (channel_flow_trajectory,
                                                          make_geometry)
-from gnn_fluid_dynamics_tpu_torch.graph import from_geometry, to_static_bands
+from gnn_fluid_dynamics_tpu_torch.graph import (widen_band, from_geometry,
+                                                to_static_bands)
 from gnn_fluid_dynamics_tpu_torch.models.arch import MLP
 from gnn_fluid_dynamics_tpu_torch.models.base import ModelConfig, feature_masks
 from gnn_fluid_dynamics_tpu_torch.models.flux import FluxD
@@ -79,6 +83,7 @@ MP_NUM = 15
 STEPS = 100            # timed rollout steps
 CHECK_STEPS = 5        # steps held against the plain path
 TIMING_ITERS = 50      # launches per timed batch
+FLUSH_BYTES = 128 << 20  # written between launches to flush the 50 MB L2
 VALID_POINTS = 9700    # FluxD-valid: bench.py's production mesh size
 VALID_SEEDS = (0, 1)   # one mesh per seed, batched
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
@@ -180,6 +185,19 @@ def gpu_ms(fn, iters: int = TIMING_ITERS) -> float:
     return start.elapsed_time(end) / iters
 
 
+def gpu_ms_flushed(fn, iters: int = TIMING_ITERS) -> float:
+    """Device time per call of ``fn`` with the L2 cache flushed before each
+    call: a FLUSH_BYTES buffer is written between calls, and that write's
+    own time, timed alone the same way, is subtracted."""
+    buf = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+
+    def flushed():
+        buf.zero_()
+        fn()
+
+    return gpu_ms(flushed, iters) - gpu_ms(buf.zero_, iters)
+
+
 def bench_mesh(device):
     geom = rcm_reorder_geometry(make_geometry("cylinder", n_points=2400, seed=0))
     fields = channel_flow_trajectory(geom, num_timesteps=CHECK_STEPS + 2,
@@ -214,7 +232,11 @@ TABLE_FORMS = {
     ("K6_table_dual", "cf"): (("cf_row_onehot", "cf_col_onehot"), "num_cells",
                               False),
     ("K7_table_single", "vc"): (("vc_onehot",), "num_vertices", None),
+    ("K7_table_single", "vc384"): (("vc_onehot",), "num_vertices", None),
 }
+# forms run on tables widened to another band than the batch's (not on the
+# path: held and timed only)
+WIDENED = {("K7_table_single", "vc384"): 384}
 
 
 def table_form_bound(vg, form, tables) -> tuple:
@@ -296,7 +318,9 @@ def table_phase(vg) -> dict:
     bf16, each on seeded bf16 sources, held against its plain version (the
     cf form exactly), then timed beside it and beside one ``torch.bmm`` of
     the table (cast to bf16) by the stacked bands, both made outside the
-    timed window. A kernel's top-level numbers are per launch on the int8
+    timed window. K7 also runs on the tables widened to a band of 384, and
+    K7 and its ``torch.bmm`` are timed also with L2 flushed between
+    launches. A kernel's top-level numbers are per launch on the int8
     tables the path runs: K6's the mean of its two forms, each launched once
     per block."""
     dev = vg.device
@@ -304,6 +328,9 @@ def table_phase(vg) -> dict:
     srcs = {n: torch.from_numpy(rng.normal(size=(n, H)).astype(np.float32)).to(
         dev, torch.bfloat16) for n in {vg.num_faces, vg.num_cells,
                                        vg.num_vertices}}
+    if int(vg.vc_onehot.max()) != 3:
+        fail("the FluxD-valid batch's vc tables hold no weight of 3 (a "
+             "padded cell): K7's weights are not held")
     results = {}
     for form, (keys, count, roll) in TABLE_FORMS.items():
         name, fname = form
@@ -313,6 +340,11 @@ def table_phase(vg) -> dict:
             src = src[:, :H // 2].contiguous()
         for tdt_name, tdt in (("int8", torch.int8), ("bf16", torch.bfloat16)):
             tables = tuple(getattr(vg, k).to(tdt) for k in keys)
+            if form in WIDENED:
+                widened = [widen_band(t, off, WIDENED[form], src.shape[0])
+                           for t in tables]
+                tables = tuple(t for t, _ in widened)
+                off = widened[0][1]
             if name == "K7_table_single":
                 run = functools.partial(kernels.table_single, *tables, off, src)
                 ref = functools.partial(kernels.table_single_ref, *tables, off,
@@ -330,16 +362,20 @@ def table_phase(vg) -> dict:
             idx = off.long()[:, None] + torch.arange(oh.shape[2], device=dev)
             bands = src[idx]
             nbytes, flops = table_form_bound(vg, form, tables)
-            results[(name, fname, tdt_name)] = {
+            lib = functools.partial(torch.bmm, oh, bands)
+            results[(name, fname, tdt_name)] = r = {
                 "max_abs_err": err, "ms": gpu_ms(run), "plain_ms": gpu_ms(ref),
-                "library_ms": gpu_ms(lambda: torch.bmm(oh, bands)),
+                "library_ms": gpu_ms(lib),
                 "bound": _bound(nbytes, flops, PEAK_F32_FLOPS)}
-            del oh, bands
+            if name == "K7_table_single":
+                r["ms_l2_flushed"] = gpu_ms_flushed(run)
+                r["library_ms_l2_flushed"] = gpu_ms_flushed(lib)
+            del oh, bands, lib
     out = {}
     for name in ("K6_table_dual", "K7_table_single"):
         forms = {f"{f}_{d}": r for (n, f, d), r in results.items() if n == name}
-        main = [r for (n, _, d), r in results.items()
-                if n == name and d == "int8"]
+        main = [r for (n, f, d), r in results.items()
+                if n == name and d == "int8" and (n, f) not in WIDENED]
         n = len(main)
         nbytes = sum(r["bound"][2] for r in main) / n
         flops = sum(r["bound"][3] for r in main) / n
@@ -349,18 +385,21 @@ def table_phase(vg) -> dict:
             "plain_ms": sum(r["plain_ms"] for r in main) / n,
             "library_ms": sum(r["library_ms"] for r in main) / n,
             "bound": _bound(nbytes, flops, PEAK_F32_FLOPS),
-            "forms": {f: {"max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                          "plain_ms": r["plain_ms"],
-                          "library_ms": r["library_ms"],
+            "forms": {f: {**{k: v for k, v in r.items() if k != "bound"},
                           "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
                           "bytes": r["bound"][2], "flops": r["bound"][3]}
-                      for f, r in forms.items()}}
+                      for f, r in forms.items()},
+            "unit": "per launch, the mean of " + ", ".join(
+                f"{f}_int8" for (n, f) in TABLE_FORMS
+                if n == name and (n, f) not in WIDENED)}
     return out
 
 
-def kernel_phase(graph) -> dict:
+def kernel_phase(graph, index_graph) -> dict:
     """Each of K1-K5 on seeded inputs at the slice's shapes, held against
-    its plain version on the same inputs, then timed beside it."""
+    its plain version on the same inputs, then timed beside it. K1 also
+    with its dual output, and both ways at ``index_graph``'s faces (the
+    FluxD-valid batch on its index route): its ``forms``."""
     dev = graph.device
     rng = np.random.default_rng(0)
 
@@ -369,7 +408,7 @@ def kernel_phase(graph) -> dict:
             dev, torch.bfloat16)
 
     gen = torch.Generator().manual_seed(0)
-    w_face = MLP(3 * H, H, H, generator=gen).to(dev).kernel_weights()
+    w_face = MLP(3 * H, H, H, generator=gen).to(dev).kernel_weights(packed=True)
     w_cell = MLP(H + H // 2, H, H, generator=gen).to(dev).kernel_weights()
     cells, edges = latents(graph.num_cells), latents(graph.num_faces)
     vtx = kernels.edges_to_vertices_ref(edges, graph)
@@ -417,7 +456,105 @@ def kernel_phase(graph) -> dict:
     }
     for name, call in library.items():
         results[name]["library_ms"] = gpu_ms(call)
+    results["K1_fused_face_block"].update(
+        k1_forms(graph, index_graph, w_face, results["K1_fused_face_block"],
+                 latents, cells, edges))
     return results
+
+
+def k1_exact(c, e, g, w) -> tuple:
+    """K1's function in f64 with the plain version's bf16 rounding points
+    (the hidden activations before each product): (raw, res), unrounded."""
+    m = w.mlp
+    own, nbr = g.cell_edge_index[0].long(), g.cell_edge_index[1].long()
+    h = (torch.cat([e, c[own], c[nbr]], 1).double() @ m.w0.double()
+         + m.b0.double())
+    for wk, bk in ((m.w1, m.b1), (m.w2, m.b2)):
+        h = F.silu(h).to(torch.bfloat16).double() @ wk.double() + bk.double()
+    mu = h.mean(1, keepdim=True)
+    var = (h * h).mean(1, keepdim=True) - mu * mu
+    hn = ((h - mu) / torch.sqrt(var + kernels.LN_EPS) * m.ln_g.double()
+          + m.ln_b.double())
+    return hn, e.double() + hn
+
+
+def bf16_step(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 values at each |x| (8 significant bits)."""
+    _, exp = torch.frexp(x)
+    return torch.where(x == 0, torch.zeros_like(x),
+                       torch.ldexp(torch.ones_like(x), exp - 8))
+
+
+def _compare_k1(name, got, want, exact) -> tuple:
+    """K1's outputs against the plain version's, as ``_compare``, and both
+    against K1's f64 evaluation ``exact``: an element beyond KERNEL_RTOL /
+    KERNEL_ATOL of the plain version passes only where the kernel is no
+    further from the f64 value than the plain version's largest distance
+    from it plus one bf16 step at that value. Two f32 evaluations round a
+    hidden bf16 activation differently now and then, and LayerNorm
+    amplifies it in rows of small variance; the f64 evaluation says which
+    of them is off. Returns (max abs err, readings per output)."""
+    err, readings = 0.0, {}
+    for out, a, b, x in zip(("raw", "res") if len(got) == 2 else ("res",),
+                            got, want, exact):
+        a, b = a.double(), b.double()
+        if not torch.isfinite(a).all():
+            fail(f"{name}: non-finite {out}")
+        err = max(err, float((a - b).abs().max()))
+        beyond = ~torch.isclose(a, b, rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
+        plain_err = float((b - x).abs().max())
+        kern_err = (a - x).abs()
+        readings[out] = {"n_beyond_plain": int(beyond.sum()),
+                         "max_err_vs_f64": float(kern_err.max()),
+                         "plain_max_err_vs_f64": plain_err}
+        off = beyond & (kern_err > plain_err + bf16_step(x))
+        if off.any():
+            fail(f"{name} {out}: {int(off.sum())} elements beyond "
+                 f"{KERNEL_RTOL} of the plain version and further from the "
+                 f"f64 evaluation than the plain version ({plain_err:.3g}) "
+                 f"plus one bf16 step; readings {json.dumps(readings)}")
+    return err, readings
+
+
+def k1_forms(graph, index_graph, w, single, latents, cells, edges) -> dict:
+    """K1's forms: single-output at the FluxD mesh on ``cells``/``edges``
+    (the path's, timed as ``single``), dual-output there, and single- and
+    dual-output at ``index_graph``'s faces; each held against its plain
+    version and its f64 evaluation (``_compare_k1``), timed beside the plain
+    version, with its bound."""
+    big_c, big_e = latents(index_graph.num_cells), latents(index_graph.num_faces)
+    small_c, small_e = latents(graph.num_cells), latents(graph.num_faces)
+    cases = {
+        f"single_{graph.num_faces}": (graph, cells, edges, False),
+        f"dual_{graph.num_faces}": (graph, small_c, small_e, True),
+        f"single_{index_graph.num_faces}": (index_graph, big_c, big_e, False),
+        f"dual_{index_graph.num_faces}": (index_graph, big_c, big_e, True),
+    }
+    forms = {}
+    for fname, (g, c, e, dual) in cases.items():
+        run = functools.partial(kernels.fused_face_block, c, e, g, w, dual)
+        ref = functools.partial(kernels.fused_face_block_ref, c, e, g, w, dual)
+        got, want = run(), ref()
+        got, want = (got, want) if dual else ((got,), (want,))
+        exact = k1_exact(c, e, g, w)
+        err, readings = _compare_k1(f"K1_fused_face_block {fname}", got,
+                                    want, exact if dual else exact[1:])
+        del got, want, exact
+        _, _, nbytes, flops = bounds(g)["K1_fused_face_block"]
+        if dual:
+            nbytes += g.num_faces * H * 2                 # raw written too
+        timed = (single if fname == f"single_{graph.num_faces}" else
+                 {"ms": gpu_ms(run), "plain_ms": gpu_ms(ref)})
+        forms[fname] = {**timed, "max_abs_err": err, "vs_f64": readings,
+                        "bound": _bound(nbytes, flops, PEAK_BF16_FLOPS)}
+    return {
+        "max_abs_err": max(f["max_abs_err"] for f in forms.values()),
+        "forms": {f: {**{k: v for k, v in r.items() if k != "bound"},
+                      "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+                      "bytes": r["bound"][2], "flops": r["bound"][3]}
+                  for f, r in forms.items()},
+        "unit": f"per launch, single_{graph.num_faces} (the FluxD path's "
+                "form)"}
 
 
 def check_against_plain(kern, plain, graph, feats, index_graph=None) -> dict:
@@ -665,18 +802,18 @@ def main() -> int:
         + ", vc " + "x".join(map(str, vgraph.vc_onehot.shape))
         + ", cf " + "x".join(map(str, vgraph.cf_row_onehot.shape))
         + f", built in {time.perf_counter() - t0:.2f} s")
-    per_kernel = kernel_phase(graph)
+    vindex = to_static_bands(vgraph, derive_idx=True)
+    per_kernel = kernel_phase(graph, vindex)
     per_kernel.update(table_phase(vgraph))
     say("phase 2 kernel vs plain: ok " + json.dumps(
         {k: round(v["max_abs_err"], 6) for k, v in per_kernel.items()}))
-    for name in ("K6_table_dual", "K7_table_single"):
+    for name in ("K1_fused_face_block", "K6_table_dual", "K7_table_single"):
         say(f"phase 2 {name} by form: " + json.dumps(per_kernel[name]["forms"]))
 
     checks = {"FluxD": rollout_errors_check(fields),
               "FvgnF": rollout_errors_check(fields),
               "FluxD-valid": validate_check(ds)}
-    paths = {path: (slice_phase(path, vgraph, checks[path], line,
-                                to_static_bands(vgraph, derive_idx=True))
+    paths = {path: (slice_phase(path, vgraph, checks[path], line, vindex)
                     if path == "FluxD-valid" else
                     slice_phase(path, graph, checks[path], line))
              for path in PATHS}
@@ -695,9 +832,7 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": r.get("library_ms"), "bytes": nbytes, "flops": flops,
-            **({"forms": r["forms"],
-                "unit": "per launch, the mean of " + ", ".join(
-                    f for f in r["forms"] if f.endswith("int8"))}
+            **({"forms": r["forms"], "unit": r["unit"]}
                if "forms" in r else {}),
         })
     say(f"phase 4 card {line}; " + "; ".join(

@@ -5,53 +5,79 @@
 // (fused_face_tiles_pallas), wrapped there by fused_face_block_pallas.
 //
 // Per face f: [e_f | x[owner_f] | x[neighbour_f]] -> the MLP + LayerNorm tail
-// of gn_block.cuh; out e_f + raw, and raw itself when raw_out is not null.
+// of gn_wgmma.cuh; out e_f + raw, and raw itself when raw is not null.
 //
 // The TPU kernel rebuilt the owner/neighbour rows as one-hot products over a
 // DMA'd band of cells, because row gathers are slow there. Here each block
-// gathers its 32 faces' rows directly (16-byte loads, the cell latents stay
-// in L2 between blocks), so the only device-memory traffic is the edge
-// latents in, the cell latents once, and the outputs. Bound: operations
-// (0.88 GFLOP per launch at the rollout's 5,361 faces); see gn_block.cuh.
-#include "gn_block.cuh"
+// gathers its tile's 64 rows directly, 16-byte cp.async copies straight into
+// the products' operand layout (the cell latents stay in L2 between blocks),
+// so the only device-memory traffic is the edge latents in, the cell
+// latents once, the weights and the outputs. Bound: bytes, 1.146 us at the
+// FluxD mesh's 5,361 faces (gn_wgmma.cuh). The grid is persistent, at most
+// one block per SM, each loading the weights into shared memory once and
+// walking tiles blockIdx.x, blockIdx.x + gridDim.x, ...: 84 tiles at 5,361
+// faces, 652 at the 41,728 of the validation batch.
+#include "gn_wgmma.cuh"
 
 namespace gfd {
 
 constexpr int K_FACE = 3 * H;
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 1)
 face_block_kernel(const bf16* __restrict__ edge, const bf16* __restrict__ cells,
                   const int* __restrict__ owner, const int* __restrict__ nbr,
-                  int n_faces, MlpWeights w, bf16* __restrict__ raw,
-                  bf16* __restrict__ res) {
-  using S = Smem<K_FACE>;
+                  int n_faces, const bf16* __restrict__ w0,
+                  const bf16* __restrict__ w1, const bf16* __restrict__ w2,
+                  MlpVecs v, bf16* __restrict__ raw, bf16* __restrict__ res) {
+  using L = TileSmem<K_FACE>;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* A = reinterpret_cast<bf16*>(smem);
-  float* hf = reinterpret_cast<float*>(smem + S::a_bytes);
-  bf16* hb = reinterpret_cast<bf16*>(smem + S::a_bytes + S::hf_bytes);
-  const int row0 = blockIdx.x * TILE;
-
-  // gather: 3 parts x 16 chunks of 8 bf16 per row; rows past the end are 0
-  constexpr int CHUNKS = H / 8;
-  for (int i = threadIdx.x; i < TILE * 3 * CHUNKS; i += THREADS) {
-    const int r = i / (3 * CHUNKS), q = i % (3 * CHUNKS);
-    const int part = q / CHUNKS, col = (q % CHUNKS) * 8;
-    const int row = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row < n_faces) {
-      const bf16* src = part == 0 ? edge + (size_t)row * H
-                      : cells + (size_t)(part == 1 ? owner[row] : nbr[row]) * H;
-      val = *reinterpret_cast<const uint4*>(src + col);
-    }
-    *reinterpret_cast<uint4*>(A + r * S::A_LD + part * H + col) = val;
-  }
+  if (threadIdx.x == 0) load_weights<K_FACE>(smem, w0, w1, w2);
+  const MlpVecs vs = load_vecs<K_FACE>(smem, v);
   __syncthreads();
-  mlp_ln_tail<K_FACE>(A, hf, hb, w, row0, n_faces, raw, res);
+  unsigned char* a_tile = smem + L::a_off;
+  const uint32_t a_base = smem_addr(a_tile);
+  const int tiles = (n_faces + ROWS - 1) / ROWS;
+  // gather: 64 rows x 48 chunks of 16 bytes (3 parts of 16 chunks). A warp
+  // takes 8 rows x 4 neighbouring chunks at a time; a thread, 2 rows x 12
+  // chunks, its rows' indices loaded once. Chunk (row r, column block kc)
+  // goes to its 8 x 8 core matrix (gn_wgmma.cuh). Rows past the end are 0.
+  const int r_lo = threadIdx.x & 7, kq = (threadIdx.x >> 3) & 3;
+  const int rg = threadIdx.x >> 5;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int row0 = t * ROWS;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r_lo + 8 * (rg + 4 * h);
+      const int row = row0 + r;
+      const bool live = row < n_faces;
+      const bf16* src[3];
+      if (live) {
+        src[0] = edge + (size_t)row * H;
+        src[1] = cells + (size_t)owner[row] * H;
+        src[2] = cells + (size_t)nbr[row] * H;
+      }
+#pragma unroll
+      for (int kg = 0; kg < K_FACE / 32; ++kg) {
+        const int kc = kq + 4 * kg;
+        const int dst = (kc * (ROWS / 8) + r / 8) * 128 + (r % 8) * 16;
+        if (live)
+          cp_async16(a_base + dst, src[kg / 4] + (kq + 4 * (kg % 4)) * 8);
+        else
+          *reinterpret_cast<uint4*>(a_tile + dst) = make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+    cp_async_wait_all();
+    fence_proxy_async();
+    __syncthreads();
+    mlp_ln_tile<K_FACE>(smem, vs, row0, n_faces, raw, res);
+    __syncthreads();
+  }
 }
 
 }  // namespace gfd
 
 // Launches K1 on `stream`; returns the CUDA error code (0 on success).
+// w0, w1, w2 are the packed weights (ops/kernels.py::pack_weights).
 extern "C" int gfd_face_block(int device, const void* edge, const void* cells,
                               const void* owner, const void* nbr, int n_faces,
                               const void* w0, const void* b0, const void* w1,
@@ -61,17 +87,27 @@ extern "C" int gfd_face_block(int device, const void* edge, const void* cells,
   using namespace gfd;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  constexpr int smem = Smem<K_FACE>::total;
-  err = cudaFuncSetAttribute(face_block_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
+  constexpr int smem = TileSmem<K_FACE>::total;
+  static std::atomic<uint64_t> opted_in{0};
+  err = smem_opt_in_once((const void*)face_block_kernel, device, smem,
+                         opted_in);
   if (err != cudaSuccess) return err;
   if (n_faces == 0) return cudaSuccess;
-  const MlpWeights w{(const bf16*)w0, (const bf16*)b0, (const bf16*)w1,
-                     (const bf16*)b1, (const bf16*)w2, (const bf16*)b2,
-                     (const bf16*)ln_g, (const bf16*)ln_b};
-  const int blocks = (n_faces + TILE - 1) / TILE;
+  static std::atomic<int> sm_count[64];  // 0 until read
+  int sms = sm_count[device].load();
+  if (sms == 0) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+    sm_count[device].store(sms);
+  }
+  const MlpVecs v{(const bf16*)b0, (const bf16*)b1, (const bf16*)b2,
+                  (const bf16*)ln_g, (const bf16*)ln_b};
+  const int tiles = (n_faces + ROWS - 1) / ROWS;
+  const int blocks = tiles < sms ? tiles : sms;
   face_block_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
       (const bf16*)edge, (const bf16*)cells, (const int*)owner,
-      (const int*)nbr, n_faces, w, (bf16*)raw, (bf16*)res);
+      (const int*)nbr, n_faces, (const bf16*)w0, (const bf16*)w1,
+      (const bf16*)w2, v, (bf16*)raw, (bf16*)res);
   return cudaGetLastError();
 }

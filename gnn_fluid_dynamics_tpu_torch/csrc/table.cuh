@@ -1,12 +1,12 @@
-// Shared body of the dense-table kernels K6 (table_dual.cu) and K7
-// (table_single.cu): one warp per target row of a (T, 128, B) banded table,
-// the row's nonzero weights found by __ballot_sync over 16-byte loads of the
-// table, and each nonzero's source row read by all 32 lanes and accumulated,
-// weight times row, in f32 registers.
+// Body of the dense-table dual apply K6 (table_dual.cu): one warp per
+// target row of a pair of (T, 128, B) banded tables, the row's nonzero
+// weights found by __ballot_sync over 16-byte loads of the tables, and each
+// nonzero's source row read by all 32 lanes and accumulated, weight times
+// row, in f32 registers.
 //
 // The nonzeros of one ballot round are drained BATCH at a time: their
 // source rows are all loaded before any is accumulated, so a warp keeps up
-// to BATCH loads in flight (8 in K6; 2 in K7, whose rows hold at most 3).
+// to BATCH loads in flight (8 in K6).
 // A row with many nonzeros sets the launch's tail: the pad vertex of the
 // es/er tables receives every padded face (up to 127 per mesh in each
 // table), and one load at a time put ~250 L2 round trips in a row on one
@@ -118,9 +118,9 @@ __device__ __forceinline__ void drain(const bf16* __restrict__ src,
   }
 }
 
-// Walks one table row (or a pair sharing a band) of `band` entries of type
-// T in 16-byte loads, applying every ballot round's nonzeros.
-template <typename T, int PAIRS, bool DUAL, int BATCH>
+// Walks a pair of table rows sharing a band, `band` entries of type T each,
+// in 16-byte loads, applying every ballot round's nonzeros.
+template <typename T, int PAIRS, int BATCH>
 __device__ __forceinline__ void apply_rows(
     const T* __restrict__ ta, const T* __restrict__ tb, int band,
     const bf16* __restrict__ src, int row_stride, size_t base, int lane,
@@ -131,7 +131,7 @@ __device__ __forceinline__ void apply_rows(
     uint4 va = make_uint4(0, 0, 0, 0), vb = va;
     if (col < band) {
       va = *reinterpret_cast<const uint4*>(ta + col);
-      if constexpr (DUAL) vb = *reinterpret_cast<const uint4*>(tb + col);
+      vb = *reinterpret_cast<const uint4*>(tb + col);
     }
     // the entry positions j holding a nonzero in any lane: only those get a
     // ballot round
@@ -141,7 +141,7 @@ __device__ __forceinline__ void apply_rows(
 #pragma unroll
     for (int j = 0; j < PER; ++j) {
       const bool nz = table_weight(ea[j]) != 0.0f ||
-                      (DUAL && table_weight(eb[j]) != 0.0f);
+                      table_weight(eb[j]) != 0.0f;
       any |= (unsigned)nz << j;
     }
     any = __reduce_or_sync(FULL_MASK, any);
@@ -149,14 +149,13 @@ __device__ __forceinline__ void apply_rows(
       const int j = __ffs(any) - 1;
       any &= any - 1;
       const float wa = chunk_entry(va, j, T());
-      const float wb = DUAL ? chunk_entry(vb, j, T()) : 0.0f;
+      const float wb = chunk_entry(vb, j, T());
       const unsigned ma = __ballot_sync(FULL_MASK, wa != 0.0f);
-      const unsigned mb = DUAL ? __ballot_sync(FULL_MASK, wb != 0.0f) : 0u;
+      const unsigned mb = __ballot_sync(FULL_MASK, wb != 0.0f);
       drain<PAIRS, BATCH>(src, row_stride, base + c0 + j, PER, lane, ma, wa,
                           off_a, acc_a);
-      if constexpr (DUAL)
-        drain<PAIRS, BATCH>(src, row_stride, base + c0 + j, PER, lane, mb, wb,
-                            off_b, acc_b);
+      drain<PAIRS, BATCH>(src, row_stride, base + c0 + j, PER, lane, mb, wb,
+                          off_b, acc_b);
     }
   }
 }

@@ -64,7 +64,7 @@ table_dual_kernel(const T* __restrict__ oh_a, const T* __restrict__ oh_b,
   const int lane = threadIdx.x % 32;
   if (row < 0) return;
   float acc_a[2 * PAIRS] = {}, acc_b[2 * PAIRS] = {};
-  apply_rows<T, PAIRS, true, 8>(oh_a + (size_t)row * band,
+  apply_rows<T, PAIRS, 8>(oh_a + (size_t)row * band,
                                 oh_b + (size_t)row * band, band, src, H,
                                 (size_t)src_off[row / TABLE_TILE], lane, 0,
                                 acc_a, ROLL ? HALF : 0, acc_b);

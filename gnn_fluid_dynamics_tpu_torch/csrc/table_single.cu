@@ -9,82 +9,347 @@
 // Per tile t of 128 cells, with the tile's band of B vertex rows starting
 // at src_off[t] (already a row of the batched source), each cell's row is
 //
-//   s = oh[t] @ src[src_off[t] : src_off[t] + B]        (f32 accumulation)
+//   s = bf16(oh[t]) @ src[src_off[t] : src_off[t] + B]   (f32 accumulation)
 //   out = f32(bf16(s)) / 3
 //
-// with every table weight first rounded to bf16, as the TPU kernel's
-// oh.astype(band.dtype) does. The source is K6's bf16 (V, 64) vertex sum
-// (the lanes the TPU wrapper keeps, pallas_agg.py:471). The TPU kernel
-// stores bf16(s); its wrapper casts that to f32 and divides by 3
-// (pallas_agg.py:471-473). This kernel stores the f32 mean, so the cast and
-// division cost no launches of their own, with the wrapper's rounding
-// points. The weights are not always 1: vc stores 3 on a padded cell whose
-// three vertices are all the pad vertex, so the kernel multiplies by the
-// stored weight. Zero weights are skipped, not multiplied: a dense product
-// gives 0 * NaN = NaN where this kernel gives 0, so the two agree on finite
-// sources, which is what the rollout feeds.
+// every table weight rounded to bf16 first, as the TPU kernel's
+// oh.astype(band.dtype) does (int8 weights are exact in bf16; vc stores 3
+// on a padded cell, whose three vertices are all the pad vertex). The
+// source is K6's bf16 (V, 64) vertex sum (the lanes the TPU wrapper keeps,
+// pallas_agg.py:471). The TPU kernel stores bf16(s) and its wrapper casts
+// that to f32 and divides by 3 (pallas_agg.py:471-473); this kernel stores
+// the f32 mean, with the wrapper's rounding points. The product is dense,
+// as on the TPU: a zero weight times a NaN source gives NaN.
 //
-// Bound: bytes (10.5 MB of int8 vc tables, 1.8 MB of vertex rows and
-// 7.0 MB of f32 means at the validation batch of two 13,696-cell meshes).
-// Design, simple first (table.cuh): one warp per cell, 8 cells per block;
-// the warp reads the row's table entries with 16-byte loads, finds the
-// nonzeros with __ballot_sync, and all 32 lanes read each referenced vertex
-// row (128 B), two at a time, and accumulate two channels each in f32.
-#include "table.cuh"
+// Bound: bytes. At the validation batch of two 9,700-point meshes (214
+// tiles, B = 256, int8) a launch reads 7.0 MB of tables and 1.8 MB of
+// vertex rows and writes 7.0 MB of f32 means: 4.7 us at 3.35 TB/s. The
+// dense product is 0.9 GFLOP, under 1 us on the tensor cores.
+//
+// Design: one block of 8 warps per tile (128 cells), warp w taking cells
+// 16w..16w+15 and all 64 channels (8 n-tiles of mma.sync m16n8k16, bf16 x
+// bf16 -> f32): the tile's 8 warps share one copy of its band (measured
+// faster than two 64-cell blocks, which load it twice; PERF.md §6).
+// * The band (B rows of 128 bytes) goes to shared memory whole, as boxes of
+//   128 rows by bulk tensor copies (one tensor map per source buffer, made
+//   on the host and kept), each box on its own mbarrier, all issued by one
+//   thread at the start; the product starts on a box as soon as it lands.
+//   The copies apply the 128-byte swizzle (a row's 16-byte chunk c lands at
+//   c ^ (row % 8)), so the 8 rows one ldmatrix reads sit on 8 different
+//   bank groups: a plain contiguous band, 128-byte rows, would put them all
+//   on one.
+// * The table is read once and each entry used once, so it goes straight
+//   from device memory into registers, a chunk of 128 columns ahead of the
+//   product. The order of the 16 k positions of each mma step is permuted
+//   so that a lane's four entries of a row are four neighbouring columns
+//   (one 4-, 8- or 16-byte load for int8, bf16, f32), with the band rows
+//   for ldmatrix permuted to match (row_in_step below); the permutation
+//   keeps the 8 rows of each ldmatrix on 8 different rows mod 8.
+// * mma.sync rather than wgmma: the product is far below the card's
+//   operations-per-byte line, and mma.sync takes the table fragments from
+//   registers in this permuted order.
+// * The epilogue rounds, divides and pairs neighbouring lanes' values by one
+//   shuffle, so each lane stores 16 bytes.
+#include <cuda.h>
+#include <cuda_bf16.h>
+
+#include <mutex>
+
+#include "async_copy.cuh"
 
 namespace gfd {
 
-constexpr int HALF = 64;             // the vertex sums' width
+typedef __nv_bfloat16 bf16;
 
+constexpr int TABLE_TILE = 128;  // cells per table tile
+constexpr int ROWS = TABLE_TILE;  // cells per block: a whole tile
+constexpr int HALF = 64;         // the vertex sums' width
+constexpr int BOX = 128;         // band rows per tensor copy and per chunk
+constexpr int MAX_BOXES = 14;    // bands up to 1,792 rows
+constexpr int THREADS = ROWS / 16 * 32;  // a warp per 16 cells
+constexpr int BAR_BYTES = 8 * 16;
+
+// Shared memory for a band of `band` rows: the barriers, then the band,
+// aligned to 1,024 bytes as the 128-byte swizzle requires.
+inline int smem_bytes(int band) { return BAR_BYTES + 1024 + band * HALF * 2; }
+
+// A lane's four table entries of one row for one mma step: 4 neighbouring
+// columns, as one load.
 template <typename T>
-__global__ void __launch_bounds__(TABLE_WARPS * 32)
-table_single_kernel(const T* __restrict__ oh, const int* __restrict__ src_off,
-                    const bf16* __restrict__ src, int n_rows, int band,
-                    float* __restrict__ out) {
-  // rows from the last: a graph's heaviest row (its pad slot) starts first
-  const int row = n_rows - 1 - (blockIdx.x * TABLE_WARPS + threadIdx.x / 32);
-  const int lane = threadIdx.x % 32;
-  if (row < 0) return;
-  float acc[2] = {};
-  apply_rows<T, 1, false, 2>(oh + (size_t)row * band, nullptr, band, src,
-                             HALF, (size_t)src_off[row / TABLE_TILE], lane, 0,
-                             acc, 0, acc);
-  const float2 r = __bfloat1622float2(__floats2bfloat162_rn(acc[0], acc[1]));
-  reinterpret_cast<float2*>(out + (size_t)row * HALF)[lane] =
-      make_float2(r.x / 3.0f, r.y / 3.0f);
+struct Word;
+template <>
+struct Word<int8_t> {
+  typedef uint32_t type;
+};
+template <>
+struct Word<bf16> {
+  typedef uint2 type;
+};
+template <>
+struct Word<float> {
+  typedef uint4 type;
+};
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Entries (0, 1) and (2, 3) of a word as bf16 pairs, each weight rounded to
+// bf16 (exact for int8 and bf16).
+__device__ __forceinline__ void split(uint32_t w, uint32_t& lo, uint32_t& hi) {
+  lo = pack_bf16((float)(int8_t)(w & 0xff), (float)(int8_t)((w >> 8) & 0xff));
+  hi = pack_bf16((float)(int8_t)((w >> 16) & 0xff), (float)(int8_t)(w >> 24));
+}
+__device__ __forceinline__ void split(uint2 w, uint32_t& lo, uint32_t& hi) {
+  lo = w.x;
+  hi = w.y;
+}
+__device__ __forceinline__ void split(uint4 w, uint32_t& lo, uint32_t& hi) {
+  lo = pack_bf16(__uint_as_float(w.x), __uint_as_float(w.y));
+  hi = pack_bf16(__uint_as_float(w.z), __uint_as_float(w.w));
+}
+
+// The words of one 128-column chunk for this thread's two rows.
+template <typename T>
+__device__ __forceinline__ void load_words(typename Word<T>::type (*w)[8],
+                                           const T* r0, const T* r1, int k0) {
+  typedef typename Word<T>::type W;
+#pragma unroll
+  for (int s = 0; s < 8; ++s) {
+    w[0][s] = *reinterpret_cast<const W*>(r0 + k0 + 16 * s);
+    w[1][s] = *reinterpret_cast<const W*>(r1 + k0 + 16 * s);
+  }
 }
 
 template <typename T>
-cudaError_t launch_table_single(const void* oh, const void* src_off,
-                                const void* src, int n_rows, int band,
+__global__ void __launch_bounds__(THREADS)
+table_single_kernel(const T* __restrict__ oh, const int* __restrict__ src_off,
+                    const __grid_constant__ CUtensorMap band_map, int band,
+                    float* __restrict__ out) {
+  typedef typename Word<T>::type W;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t bars = smem_addr(smem);
+  const uint32_t band_base = (bars + BAR_BYTES + 1023) & ~1023u;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, q = lane % 4;  // fragment row group, column pair
+  const size_t row0 = (size_t)blockIdx.x * ROWS;
+  const int boxes = band / BOX;
+
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < boxes; ++b) mbar_init(bars + 8 * b, 1);
+    fence_barrier_init();
+    const int off = src_off[row0 / TABLE_TILE];
+    for (int b = 0; b < boxes; ++b) {
+      mbar_expect_tx(bars + 8 * b, BOX * HALF * 2);
+      tensor_copy_2d(band_base + b * BOX * HALF * 2, &band_map, 0,
+                     off + b * BOX, bars + 8 * b);
+    }
+  }
+
+  // this lane's entries: columns 16s + 4q .. + 3 of each 16-column step;
+  // for q < 2 entries (0, 1) are k positions (2q, 2q + 1) of the step and
+  // entries (2, 3) positions (2q + 8, 2q + 9); for q >= 2 the other way
+  const T* r0 = oh + (row0 + 16 * warp + g) * band + 4 * q;
+  const T* r1 = r0 + 8 * (size_t)band;
+  // ldmatrix.trans: lane l gives a row of block l / 8 (k positions 0-7 or
+  // 8-15, channels n or n + 8): the band row holding that k position
+  const int hi_k = (lane >> 3) & 1, hi_n = lane >> 4;
+  const int pr = (lane & 7) >> 1;
+  const int row_in_step =
+      4 * pr + (lane & 1) + ((pr >= 2) != (hi_k == 1) ? 2 : 0);
+  const uint32_t lane_row = band_base + row_in_step * HALF * 2;
+  const int swz = row_in_step & 7;
+
+  W cur[2][8], nxt[2][8];
+  load_words<T>(cur, r0, r1, 0);
+  __syncthreads();  // the barriers are initialised
+  float acc[8][4] = {};
+  for (int c = 0; c < boxes; ++c) {
+    if (c + 1 < boxes) load_words<T>(nxt, r0, r1, (c + 1) * BOX);
+    mbar_wait(bars + 8 * c, 0);
+#pragma unroll
+    for (int s = 0; s < 8; ++s) {
+      uint32_t lo0, hi0, lo1, hi1;
+      split(cur[0][s], lo0, hi0);
+      split(cur[1][s], lo1, hi1);
+      const bool swap = q >= 2;
+      const uint32_t a0 = swap ? hi0 : lo0, a2 = swap ? lo0 : hi0;
+      const uint32_t a1 = swap ? hi1 : lo1, a3 = swap ? lo1 : hi1;
+      const uint32_t row_addr = lane_row + (c * BOX + 16 * s) * HALF * 2;
+#pragma unroll
+      for (int n = 0; n < HALF; n += 16) {
+        uint32_t b0, b1, b2, b3;
+        const uint32_t addr = row_addr + (((n / 8 + hi_n) ^ swz) << 4);
+        asm volatile(
+            "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+            "[%4];"
+            : "=r"(b0), "=r"(b1), "=r"(b2), "=r"(b3)
+            : "r"(addr));
+        float* d0 = acc[n / 8];
+        float* d1 = acc[n / 8 + 1];
+        asm volatile(
+            "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+            "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+            "{%0, %1, %2, %3};"
+            : "+f"(d0[0]), "+f"(d0[1]), "+f"(d0[2]), "+f"(d0[3])
+            : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+        asm volatile(
+            "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+            "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+            "{%0, %1, %2, %3};"
+            : "+f"(d1[0]), "+f"(d1[1]), "+f"(d1[2]), "+f"(d1[3])
+            : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b2), "r"(b3));
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int s = 0; s < 8; ++s) cur[r][s] = nxt[r][s];
+  }
+
+  // epilogue: f32(bf16(s)) / 3. acc[j][0..1] is row g, channels 8j + 2q
+  // (+1), acc[j][2..3] row g + 8. Lanes q and q ^ 1 swap one pair per two
+  // n-tiles, so each holds 4 neighbouring channels: 16-byte stores.
+  float* base = out + (row0 + warp * 16 + g) * HALF;
+#pragma unroll
+  for (int j = 0; j < 8; j += 2) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v[2][2];
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          v[u][e] = __bfloat162float(__float2bfloat16(acc[j + u][2 * h + e])) /
+                    3.0f;
+      const bool even = (q & 1) == 0;
+      const float sx = even ? v[1][0] : v[0][0];
+      const float sy = even ? v[1][1] : v[0][1];
+      const float rx = __shfl_xor_sync(0xffffffffu, sx, 1);
+      const float ry = __shfl_xor_sync(0xffffffffu, sy, 1);
+      const float4 o = even ? make_float4(v[0][0], v[0][1], rx, ry)
+                            : make_float4(rx, ry, v[1][0], v[1][1]);
+      const int col = even ? 8 * j + 2 * q : 8 * (j + 1) + 2 * (q - 1);
+      *reinterpret_cast<float4*>(base + h * 8 * HALF + col) = o;
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up through the runtime's entry-point
+// table, so that the library needs no link against libcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The band's tensor map for a source (device, address, rows), made once and
+// kept: a rollout applies the table to the same source buffers step after
+// step. A few sources are kept, the oldest replaced first.
+struct BandMap {
+  int device;
+  const void* src;
+  int rows;
+  CUtensorMap map;
+};
+
+inline cudaError_t band_map(int device, const void* src, int rows,
+                            CUtensorMap* out) {
+  constexpr int KEEP = 8;
+  static std::mutex lock;
+  static BandMap kept[KEEP];
+  static int n_kept = 0, oldest = 0;
+  std::lock_guard<std::mutex> guard(lock);
+  for (int i = 0; i < n_kept; ++i)
+    if (kept[i].device == device && kept[i].src == src && kept[i].rows == rows) {
+      *out = kept[i].map;
+      return cudaSuccess;
+    }
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  BandMap m{device, src, rows, {}};
+  const cuuint64_t dims[2] = {HALF, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {HALF * 2};
+  const cuuint32_t box[2] = {HALF, BOX};
+  const cuuint32_t unit[2] = {1, 1};
+  if (encode(&m.map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(src),
+             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  const int slot = n_kept < KEEP ? n_kept++ : (oldest++ % KEEP);
+  kept[slot] = m;
+  *out = m.map;
+  return cudaSuccess;
+}
+
+template <typename T>
+cudaError_t launch_table_single(int device, const void* oh, const void* src_off,
+                                const CUtensorMap& map, int n_rows, int band,
                                 void* out, cudaStream_t stream) {
-  const int blocks = (n_rows + TABLE_WARPS - 1) / TABLE_WARPS;
-  table_single_kernel<T><<<blocks, TABLE_WARPS * 32, 0, stream>>>(
-      (const T*)oh, (const int*)src_off, (const bf16*)src, n_rows, band,
-      (float*)out);
+  // opted in once per device at the largest band's size
+  static std::atomic<uint64_t> opted_in{0};
+  cudaError_t err =
+      smem_opt_in_once((const void*)table_single_kernel<T>, device,
+                       smem_bytes(MAX_BOXES * BOX), opted_in);
+  if (err != cudaSuccess) return err;
+  table_single_kernel<T><<<n_rows / ROWS, THREADS, smem_bytes(band), stream>>>(
+      (const T*)oh, (const int*)src_off, map, band, (float*)out);
   return cudaGetLastError();
 }
 
 }  // namespace gfd
 
+// Name of a CUDA error code returned by one of the entry points.
+extern "C" const char* gfd_error_name(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
 // Launches K7 on `stream`; returns the CUDA error code (0 on success).
 // table_dtype: 0 int8, 1 bf16, 2 f32. n_rows = tiles * 128; band is a
-// multiple of 128; src is (S, 64) bf16, out (n_rows, 64) f32.
+// multiple of 128, at most 1,792; src is (src_rows, 64) bf16, out
+// (n_rows, 64) f32.
 extern "C" int gfd_table_single(int device, const void* oh, const void* src_off,
-                                const void* src, int n_rows, int band,
-                                int table_dtype, void* out, void* stream) {
+                                const void* src, int src_rows, int n_rows,
+                                int band, int table_dtype, void* out,
+                                void* stream) {
   using namespace gfd;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
+  if (n_rows % TABLE_TILE || band % BOX || band <= 0 ||
+      band > MAX_BOXES * BOX || src_rows < band)
+    return cudaErrorInvalidValue;
+  if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
   if (n_rows == 0) return cudaSuccess;
+  CUtensorMap map;
+  err = band_map(device, src, src_rows, &map);
+  if (err != cudaSuccess) return err;
   cudaStream_t s = (cudaStream_t)stream;
   switch (table_dtype) {
     case 0:
-      return launch_table_single<int8_t>(oh, src_off, src, n_rows, band, out, s);
+      return launch_table_single<int8_t>(device, oh, src_off, map, n_rows,
+                                         band, out, s);
     case 1:
-      return launch_table_single<bf16>(oh, src_off, src, n_rows, band, out, s);
+      return launch_table_single<bf16>(device, oh, src_off, map, n_rows, band,
+                                       out, s);
     case 2:
-      return launch_table_single<float>(oh, src_off, src, n_rows, band, out, s);
+      return launch_table_single<float>(device, oh, src_off, map, n_rows, band,
+                                        out, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -382,7 +382,7 @@ def batch_graphs(graphs: Sequence[MeshGraph]) -> MeshGraph:
     Element arrays concatenate, index arrays are offset by the element counts
     before them, ``cell_batch``/``face_batch`` record graph membership, and
     ``dt``/``reynolds`` become (n,) vectors. Banded tables are widened to the
-    batch's widest band (:func:`_widen_band`) and their tiles concatenated;
+    batch's widest band (:func:`widen_band`) and their tiles concatenated;
     ``*_off`` gains each graph's first source row.
     """
     if not graphs:
@@ -449,7 +449,7 @@ def batch_graphs(graphs: Sequence[MeshGraph]) -> MeshGraph:
         for i, g in enumerate(graphs):
             off = getattr(g, f"{group}_off")
             for key in keys:
-                oh, new_off = _widen_band(getattr(g, key), off, B, S)
+                oh, new_off = widen_band(getattr(g, key), off, B, S)
                 tables[key].append(oh)
             _check_bands(group, new_off.cpu().numpy(), B, S)
             offs.append(new_off + i * S)
@@ -459,7 +459,7 @@ def batch_graphs(graphs: Sequence[MeshGraph]) -> MeshGraph:
     return MeshGraph(**kwargs)
 
 
-def _widen_band(oh: torch.Tensor, off: torch.Tensor, B: int, S: int):
+def widen_band(oh: torch.Tensor, off: torch.Tensor, B: int, S: int):
     """A table widened to band width ``B``, and its offsets: a tile whose
     wider band would run past the S source rows starts lower, its columns
     shifted right by as much, so that each tile still reads the same rows."""

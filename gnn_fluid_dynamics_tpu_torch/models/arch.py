@@ -146,20 +146,22 @@ class MLP(nn.Module):
             h = _flax_layer_norm(h, self.layer_norm)
         return h.float()
 
-    def kernel_weights(self, dtype=torch.bfloat16) -> kernels.BlockWeights:
+    def kernel_weights(self, dtype=torch.bfloat16, packed: bool = False):
         """This MLP as the fused blocks take it: matrices (inputs, outputs),
         every tensor in ``dtype`` (the kernels take bf16; the plain versions
-        any float dtype). Cached until a parameter is replaced or changed in
-        place."""
+        any float dtype). With ``packed``, K1's ``FaceWeights``: the same
+        with the matrices packed as K1 reads them (``kernels.face_weights``).
+        Cached until a parameter is replaced or changed in place, so the
+        packing runs once per set of weights."""
         params = (self.dense0.weight, self.dense0.bias, self.dense1.weight,
                   self.dense1.bias, self.dense2.weight, self.dense2.bias,
                   self.layer_norm.weight, self.layer_norm.bias)
-        key = (dtype,) + tuple((p.data_ptr(), p._version) for p in params)
+        key = (dtype, packed) + tuple((p.data_ptr(), p._version) for p in params)
         if self._kernel_cache is None or self._kernel_cache[0] != key:
             w = kernels.BlockWeights(*(
                 (p.detach().t() if p.ndim == 2 else p.detach()).to(dtype).contiguous()
                 for p in params))
-            self._kernel_cache = (key, w)
+            self._kernel_cache = (key, kernels.face_weights(w) if packed else w)
         return self._kernel_cache[1]
 
 
@@ -246,7 +248,8 @@ class FaceBlock(nn.Module):
         if route == "fused":
             return kernels.fused_face_block(cell_attr.to(torch.bfloat16),
                                             edge_attr.to(torch.bfloat16),
-                                            graph, self.mlp.kernel_weights(),
+                                            graph,
+                                            self.mlp.kernel_weights(packed=True),
                                             dual_out=dual_out)
         own, nbr = gather_face_cells(cell_attr, graph, route == "unfused")
         return self.mlp(_with_extra([edge_attr, own, nbr], extra,

@@ -59,7 +59,7 @@ SOURCES = {"face_block": "face_block.cu", "cell_block": "cell_block.cu",
            "edge_vertex": "edge_vertex.cu", "face_gather": "face_gather.cu",
            "vertex_cell": "vertex_cell.cu", "table_dual": "table_dual.cu",
            "table_single": "table_single.cu"}
-HEADERS = ("gn_block.cuh", "table.cuh")
+HEADERS = ("async_copy.cuh", "gn_block.cuh", "gn_wgmma.cuh", "table.cuh")
 H = 128          # the latent width the kernels are built for
 LN_EPS = 1e-5
 
@@ -72,9 +72,10 @@ _ARGTYPES = {
     "gfd_face_gather": [_I] + [_P] * 3 + [_I] + [_P] * 3,
     "gfd_vertex_cell": [_I] + [_P] * 4 + [_I] + [_P] * 2,
     "gfd_table_dual": [_I] + [_P] * 4 + [_I] * 4 + [_P] * 3,
-    "gfd_table_single": [_I] + [_P] * 3 + [_I] * 3 + [_P] * 2,
+    "gfd_table_single": [_I] + [_P] * 3 + [_I] * 4 + [_P] * 2,
 }
 TABLE_TILE = 128  # target rows per table tile
+TABLE_SINGLE_MAX_BAND = 1792  # K7 holds its whole band in shared memory
 # the table dtypes K6/K7 read, by the code their C entry points take
 TABLE_DTYPES = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
 _ENTRY = {name: "gfd_" + name for name in SOURCES}
@@ -96,6 +97,37 @@ class BlockWeights(NamedTuple):
     b2: torch.Tensor
     ln_g: torch.Tensor
     ln_b: torch.Tensor
+
+
+class FaceWeights(NamedTuple):
+    """K1's weights: ``mlp``, which its plain version reads, and ``packed``,
+    ``mlp``'s three matrices in the layout K1 copies into shared memory.
+    Made by :func:`face_weights` from ``mlp``, so the two never disagree."""
+    mlp: BlockWeights
+    packed: torch.Tensor
+
+
+def _core_matrices(w: torch.Tensor) -> torch.Tensor:
+    """A (K, N) matrix as the products' K-major operand of N rows: 8 x 8
+    blocks, element (k, n) at ((k // 8) * (N // 8) + n // 8) * 64 + (n % 8)
+    * 8 + k % 8 (``csrc/gn_wgmma.cuh``). Flat."""
+    K, N = w.shape
+    return w.reshape(K // 8, 8, N // 8, 8).permute(0, 2, 3, 1).reshape(-1)
+
+
+def pack_weights(w0: torch.Tensor, w1: torch.Tensor,
+                 w2: torch.Tensor) -> torch.Tensor:
+    """W0, W1 and W2 ((K0, H), (H, H), (H, H), inputs x outputs) in the
+    layout K1 copies into shared memory as it stands, one after the other in
+    one flat tensor."""
+    return torch.cat([_core_matrices(w) for w in (w0, w1, w2)]).contiguous()
+
+
+def face_weights(w: BlockWeights) -> FaceWeights:
+    """K1's weights from the face MLP's: ``w`` and its matrices packed
+    (:func:`pack_weights`). Made once per set of weights
+    (``MLP.kernel_weights(packed=True)`` caches it), never per launch."""
+    return FaceWeights(w, pack_weights(w.w0, w.w1, w.w2))
 
 
 # ---------------------------------------------------------------------------
@@ -201,6 +233,25 @@ def _check_weights(w: BlockWeights, k0: int, device) -> None:
         _check(t, field, device, torch.bfloat16, shapes.get(field, (H,)))
 
 
+def _check_bands(src_off: torch.Tensor, band: int, rows: int) -> None:
+    """Every band inside the source: 0 <= off and off + band <= rows (the
+    kernels read source rows without bounds checks). The offsets are read
+    back once, and again only after they change in place or are checked
+    against another band or row count: a rollout passes the same offsets
+    every step. (An inference tensor keeps no version count, so its
+    offsets are read back on every call.)"""
+    if src_off.numel() == 0:
+        return
+    key = (None if src_off.is_inference() else src_off._version, band, rows)
+    if key[0] is not None and getattr(src_off, "_bands_checked", None) == key:
+        return
+    lo, hi = (int(v) for v in torch.aminmax(src_off))
+    if lo < 0 or hi + band > rows:
+        raise ValueError(f"src_off runs from {lo} to {hi}: bands of {band} "
+                         f"rows must lie inside the {rows} source rows")
+    src_off._bands_checked = key
+
+
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
@@ -221,11 +272,13 @@ def _mlp_ln_tail_ref(base: torch.Tensor, h0: torch.Tensor, w: BlockWeights):
     return hn.to(wdt), (base.float() + hn).to(wdt)
 
 
-def fused_face_block_ref(cell_attr, edge_attr, graph, w: BlockWeights,
-                         dual_out: bool = False):
+def fused_face_block_ref(cell_attr, edge_attr, graph, w, dual_out: bool = False):
     """Plain version of K1: the face block's MLP on ``[e | x[owner] |
-    x[neighbour]]``, LayerNorm and residual. Returns the residualed edge
-    latents, or (raw, residualed) with ``dual_out``."""
+    x[neighbour]]``, LayerNorm and residual, with the weights ``w`` (a
+    :class:`BlockWeights`, or K1's :class:`FaceWeights`). Returns the
+    residualed edge latents, or (raw, residualed) with ``dual_out``."""
+    if isinstance(w, FaceWeights):
+        w = w.mlp
     own, nbr = graph.cell_edge_index[0], graph.cell_edge_index[1]
     x = torch.cat([edge_attr, cell_attr[own], cell_attr[nbr]], dim=1)
     h0 = x.float() @ w.w0.float() + w.b0.float()
@@ -316,9 +369,9 @@ def table_single_ref(oh, src_off, src):
 # wrappers
 # ---------------------------------------------------------------------------
 
-def fused_face_block(cell_attr, edge_attr, graph, w: BlockWeights,
-                     dual_out: bool = False):
-    """K1: the fused face block. See :func:`fused_face_block_ref`."""
+def fused_face_block(cell_attr, edge_attr, graph, w, dual_out: bool = False):
+    """K1: the fused face block. See :func:`fused_face_block_ref`. On the
+    card ``w`` must be K1's :class:`FaceWeights` (:func:`face_weights`)."""
     if edge_attr.device.type == "cpu":
         return fused_face_block_ref(cell_attr, edge_attr, graph, w, dual_out)
     dev = edge_attr.device
@@ -326,12 +379,23 @@ def fused_face_block(cell_attr, edge_attr, graph, w: BlockWeights,
     _check(edge_attr, "edge_attr", dev, torch.bfloat16, (nf, H))
     _check(cell_attr, "cell_attr", dev, torch.bfloat16, (nc, H))
     _check(graph.cell_edge_index, "cell_edge_index", dev, torch.int32, (2, nf))
-    _check_weights(w, 3 * H, dev)
+    if not isinstance(w, FaceWeights):
+        raise ValueError("K1 reads its weights packed: pass face_weights(w) "
+                         "(MLP.kernel_weights(packed=True))")
+    # what the kernel reads: the packed matrices and the five vectors
+    _check(w.packed, "packed", dev, torch.bfloat16, ((3 * H + 2 * H) * H,))
+    m = w.mlp
+    for field in ("b0", "b1", "b2", "ln_g", "ln_b"):
+        _check(getattr(m, field), field, dev, torch.bfloat16, (H,))
     res = torch.empty_like(edge_attr)
     raw = torch.empty_like(edge_attr) if dual_out else None
+    p0 = w.packed.data_ptr()
+    p1 = p0 + 3 * H * H * 2                            # bf16 bytes
+    p2 = p1 + H * H * 2
     _launch("face_block", dev, _ptr(edge_attr), _ptr(cell_attr),
             _ptr(graph.cell_edge_index[0]), _ptr(graph.cell_edge_index[1]),
-            nf, *map(_ptr, w), _ptr(raw), _ptr(res))
+            nf, p0, _ptr(m.b0), p1, _ptr(m.b1), p2, _ptr(m.b2), _ptr(m.ln_g),
+            _ptr(m.ln_b), _ptr(raw), _ptr(res))
     fused_face_block.launches += 1
     return (raw, res) if dual_out else res
 
@@ -351,7 +415,8 @@ def fused_cell_block(cell_attr, vtx, graph, w: BlockWeights,
     raw = torch.empty_like(cell_attr) if dual_out else None
     vf = graph.vertex_face
     _launch("cell_block", dev, _ptr(cell_attr), _ptr(vtx), _ptr(vf[0]),
-            _ptr(vf[1]), _ptr(vf[2]), nc, *map(_ptr, w), _ptr(raw), _ptr(res))
+            _ptr(vf[1]), _ptr(vf[2]), nc, *map(_ptr, w), _ptr(raw),
+            _ptr(res))
     fused_cell_block.launches += 1
     return (raw, res) if dual_out else res
 
@@ -405,12 +470,13 @@ def vertices_to_cells(vtx, graph):
 
 
 def _check_table(oh, what, dev, like=None) -> None:
-    """A (T, 128, B) table, B a multiple of 128, in one of the table dtypes
-    (or ``like``'s dtype and shape)."""
+    """A (T, 128, B) table, B a positive multiple of 128, in one of the table
+    dtypes (or ``like``'s dtype and shape)."""
     if oh.dtype not in TABLE_DTYPES:
         raise ValueError(f"{what} has dtype {oh.dtype}, expected one of "
                          f"{tuple(TABLE_DTYPES)}")
-    if oh.ndim != 3 or oh.shape[1] != TABLE_TILE or oh.shape[2] % 128:
+    if (oh.ndim != 3 or oh.shape[1] != TABLE_TILE or oh.shape[2] % 128
+            or oh.shape[2] == 0):
         raise ValueError(f"{what} has shape {tuple(oh.shape)}, expected "
                          f"(T, {TABLE_TILE}, a multiple of 128)")
     like = oh if like is None else like
@@ -419,8 +485,7 @@ def _check_table(oh, what, dev, like=None) -> None:
 
 def table_dual(oh_a, oh_b, src_off, src, combine_roll: bool = False):
     """K6: the dense-table dual apply. See :func:`table_dual_ref`. The
-    bands must lie inside ``src`` (``off + B <= S``, checked where the graph
-    is built); the kernel reads source rows without bounds checks."""
+    bands must lie inside ``src`` (``off + B <= S``, checked)."""
     if src.device.type == "cpu":
         return table_dual_ref(oh_a, oh_b, src_off, src, combine_roll)
     dev = src.device
@@ -429,6 +494,7 @@ def table_dual(oh_a, oh_b, src_off, src, combine_roll: bool = False):
     T, _, band = oh_a.shape
     _check(src_off, "src_off", dev, torch.int32, (T,))
     _check(src, "src", dev, torch.bfloat16, (src.shape[0], H))
+    _check_bands(src_off, band, src.shape[0])
     rows = T * TABLE_TILE
     if combine_roll:
         out_a = torch.empty((rows, H // 2), dtype=torch.bfloat16, device=dev)
@@ -452,12 +518,16 @@ def table_single(oh, src_off, src):
     dev = src.device
     _check_table(oh, "oh", dev)
     T, _, band = oh.shape
+    if band > TABLE_SINGLE_MAX_BAND:
+        raise ValueError(f"oh has band {band}; K7 takes at most "
+                         f"{TABLE_SINGLE_MAX_BAND}")
     _check(src_off, "src_off", dev, torch.int32, (T,))
     _check(src, "src", dev, torch.bfloat16, (src.shape[0], H // 2))
+    _check_bands(src_off, band, src.shape[0])
     rows = T * TABLE_TILE
     out = torch.empty((rows, H // 2), dtype=torch.float32, device=dev)
-    _launch("table_single", dev, _ptr(oh), _ptr(src_off), _ptr(src), rows,
-            band, TABLE_DTYPES[oh.dtype], _ptr(out))
+    _launch("table_single", dev, _ptr(oh), _ptr(src_off), _ptr(src),
+            src.shape[0], rows, band, TABLE_DTYPES[oh.dtype], _ptr(out))
     table_single.launches += 1
     return out
 
