@@ -8,12 +8,15 @@ them, and report each kernel's time beside its bound.
 Phases (each prints one flushed line; any failure exits non-zero):
 
 1. device and build: the card's name and power limit, the kernels' build time;
-2. kernel vs plain: K1-K5 at the FluxD/FvgnF shapes (K1 also with its dual
-   output, both outputs also at the FluxD-valid batch's faces on its index
-   route, and each also read against an f64 evaluation) and
+2. kernel vs plain: K1-K5 at the FluxD/FvgnF shapes (K1 and K2 in four
+   forms, single- and dual-output at the FluxD mesh and at the FluxD-valid
+   batch on its index route, each also read against an f64 evaluation) and
    K6/K7 on the FluxD-valid batch's own tables (int8, and once more cast to
-   bf16; K7 also on the tables widened to a band of 384), on seeded inputs;
-   K7 and its library call timed also with L2 flushed between launches;
+   bf16 and to f32; K6's roll form also on the tables widened to a band of
+   896, K7 on the tables widened to 384), on seeded inputs; K6 and K7 also
+   with a NaN source row that a tile's weights skip, whose NaN must reach
+   the same places as in the plain version; K7 and its library call timed
+   also with L2 flushed between launches;
 3. the three paths at hidden 128, 15 GN block applications and bf16, with
    seeded weights and statistics from the synthetic channel flow:
 
@@ -231,12 +234,18 @@ TABLE_FORMS = {
     ("K6_table_dual", "es_roll"): (("es_onehot", "er_onehot"), "num_faces", True),
     ("K6_table_dual", "cf"): (("cf_row_onehot", "cf_col_onehot"), "num_cells",
                               False),
+    ("K6_table_dual", "es_roll896"): (("es_onehot", "er_onehot"), "num_faces",
+                                      True),
     ("K7_table_single", "vc"): (("vc_onehot",), "num_vertices", None),
     ("K7_table_single", "vc384"): (("vc_onehot",), "num_vertices", None),
 }
+# the table types each form runs on: the path's int8, and the graphs' other
+# two (f32 is the datasets' default)
+TABLE_TYPES = {"int8": torch.int8, "bf16": torch.bfloat16, "f32": torch.float32}
 # forms run on tables widened to another band than the batch's (not on the
 # path: held and timed only)
-WIDENED = {("K7_table_single", "vc384"): 384}
+WIDENED = {("K6_table_dual", "es_roll896"): 896,
+           ("K7_table_single", "vc384"): 384}
 
 
 def table_form_bound(vg, form, tables) -> tuple:
@@ -312,15 +321,53 @@ def _compare(name, got, want, exact) -> float:
     return err
 
 
+def nan_case(what, kern, plain, tables, off, src) -> dict:
+    """A dense product gives 0 x NaN = NaN, as the TPU kernel's one-hot
+    product does: one source row, inside a tile's band where every table
+    row of that tile weighs it 0, set to NaN. The kernel's NaN positions
+    (``kern(src)``) must equal the plain version's (``plain(src)``: every
+    row of each tile whose band holds the row, in the channels it reaches),
+    and its other values must agree with the plain version's as in
+    ``_compare``."""
+    zero = sum((t != 0).sum(1) for t in tables) == 0        # (T, B)
+    tiles = zero.any(1).nonzero()
+    if len(tiles) == 0:
+        fail(f"{what}: no tile has a band row that all its weights skip")
+    t = int(tiles[0])
+    col = int(zero[t].nonzero()[0])
+    row = int(off[t]) + col
+    bad = src.clone()
+    bad[row] = float("nan")
+    got, want = kern(bad), plain(bad)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    n_nan, err = 0, 0.0
+    for a, b in zip(got, want):
+        a, b = a.float(), b.float()
+        if not torch.equal(torch.isnan(a), torch.isnan(b)):
+            fail(f"{what}: NaN at {int(torch.isnan(a).sum())} places where "
+                 f"the plain version has {int(torch.isnan(b).sum())} (source "
+                 f"row {row}, weighed 0 by tile {t})")
+        n_nan += int(torch.isnan(b).sum())
+        live = ~torch.isnan(b)
+        err = max(err, _compare(what + " beside the NaN", a[live], b[live],
+                                exact="cf" in what))
+    if n_nan == 0:
+        fail(f"{what}: the plain version has no NaN from source row {row}")
+    return {"source_row": row, "tile": t, "n_nan": n_nan, "max_abs_err": err}
+
+
 def table_phase(vg) -> dict:
     """K6 (es/er with the roll, cf without) and K7 (vc) on the FluxD-valid
     batch's own tables, int8 as the path runs them and once more cast to
-    bf16, each on seeded bf16 sources, held against its plain version (the
+    bf16 and to f32, each on seeded bf16 sources, held against its plain version (the
     cf form exactly), then timed beside it and beside one ``torch.bmm`` of
     the table (cast to bf16) by the stacked bands, both made outside the
-    timed window. K7 also runs on the tables widened to a band of 384, and
-    K7 and its ``torch.bmm`` are timed also with L2 flushed between
-    launches. A kernel's top-level numbers are per launch on the int8
+    timed window. K6's roll form also runs on the tables widened to a band
+    of 896 and K7 on the tables widened to 384, and K7 and its
+    ``torch.bmm`` are timed also with L2 flushed between launches. Each
+    form on the path's int8 tables also takes a NaN source row
+    (``nan_case``). A kernel's top-level numbers are per launch on the int8
     tables the path runs: K6's the mean of its two forms, each launched once
     per block."""
     dev = vg.device
@@ -338,22 +385,28 @@ def table_phase(vg) -> dict:
         off = getattr(vg, keys[0].split("_")[0] + "_off")
         if name == "K7_table_single":
             src = src[:, :H // 2].contiguous()
-        for tdt_name, tdt in (("int8", torch.int8), ("bf16", torch.bfloat16)):
+        for tdt_name, tdt in TABLE_TYPES.items():
             tables = tuple(getattr(vg, k).to(tdt) for k in keys)
             if form in WIDENED:
                 widened = [widen_band(t, off, WIDENED[form], src.shape[0])
                            for t in tables]
                 tables = tuple(t for t, _ in widened)
                 off = widened[0][1]
+            # the kernel and its plain version as functions of the source
             if name == "K7_table_single":
-                run = functools.partial(kernels.table_single, *tables, off, src)
-                ref = functools.partial(kernels.table_single_ref, *tables, off,
-                                        src)
+                def kern(s, tables=tables, off=off):
+                    return kernels.table_single(*tables, off, s)
+
+                def plain(s, tables=tables, off=off):
+                    return kernels.table_single_ref(*tables, off, s)
             else:
-                run = functools.partial(kernels.table_dual, *tables, off, src,
-                                        roll)
-                ref = functools.partial(kernels.table_dual_ref, *tables, off,
-                                        src, roll)
+                def kern(s, tables=tables, off=off, roll=roll):
+                    return kernels.table_dual(*tables, off, s, roll)
+
+                def plain(s, tables=tables, off=off, roll=roll):
+                    return kernels.table_dual_ref(*tables, off, s, roll)
+            run = functools.partial(kern, src)
+            ref = functools.partial(plain, src)
             err = _compare(f"{name} {fname} {tdt_name}", run(), ref(),
                            exact=fname == "cf")
             # the library yardstick: the tables as one bf16 (T, rows, B)
@@ -371,9 +424,15 @@ def table_phase(vg) -> dict:
                 r["ms_l2_flushed"] = gpu_ms_flushed(run)
                 r["library_ms_l2_flushed"] = gpu_ms_flushed(lib)
             del oh, bands, lib
+            if tdt_name == "int8" and form not in WIDENED:
+                results[(name, fname, "nan")] = nan_case(
+                    f"{name} {fname}", kern, plain, tables, off, src)
     out = {}
     for name in ("K6_table_dual", "K7_table_single"):
-        forms = {f"{f}_{d}": r for (n, f, d), r in results.items() if n == name}
+        forms = {f"{f}_{d}": r for (n, f, d), r in results.items()
+                 if n == name and d != "nan"}
+        nan = {f: r for (n, f, d), r in results.items()
+               if n == name and d == "nan"}
         main = [r for (n, f, d), r in results.items()
                 if n == name and d == "int8" and (n, f) not in WIDENED]
         n = len(main)
@@ -389,6 +448,7 @@ def table_phase(vg) -> dict:
                           "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
                           "bytes": r["bound"][2], "flops": r["bound"][3]}
                       for f, r in forms.items()},
+            "nan_through_zero_weight": nan,
             "unit": "per launch, the mean of " + ", ".join(
                 f"{f}_int8" for (n, f) in TABLE_FORMS
                 if n == name and (n, f) not in WIDENED)}
@@ -397,9 +457,10 @@ def table_phase(vg) -> dict:
 
 def kernel_phase(graph, index_graph) -> dict:
     """Each of K1-K5 on seeded inputs at the slice's shapes, held against
-    its plain version on the same inputs, then timed beside it. K1 also
-    with its dual output, and both ways at ``index_graph``'s faces (the
-    FluxD-valid batch on its index route): its ``forms``."""
+    its plain version on the same inputs, then timed beside it. K1 and K2
+    in four forms each, single- and dual-output at the FluxD mesh and at
+    ``index_graph`` (the FluxD-valid batch on its index route), also held
+    against an f64 evaluation (``block_forms``)."""
     dev = graph.device
     rng = np.random.default_rng(0)
 
@@ -409,19 +470,14 @@ def kernel_phase(graph, index_graph) -> dict:
 
     gen = torch.Generator().manual_seed(0)
     w_face = MLP(3 * H, H, H, generator=gen).to(dev).kernel_weights(packed=True)
-    w_cell = MLP(H + H // 2, H, H, generator=gen).to(dev).kernel_weights()
+    w_cell = MLP(H + H // 2, H, H, generator=gen).to(dev).kernel_weights(
+        packed=True)
     cells, edges = latents(graph.num_cells), latents(graph.num_faces)
     vtx = kernels.edges_to_vertices_ref(edges, graph)
     cases = {
         "K3_edges_to_vertices": (
             lambda: kernels.edges_to_vertices(edges, graph),
             lambda: kernels.edges_to_vertices_ref(edges, graph)),
-        "K2_fused_cell_block": (
-            lambda: kernels.fused_cell_block(cells, vtx, graph, w_cell, True),
-            lambda: kernels.fused_cell_block_ref(cells, vtx, graph, w_cell, True)),
-        "K1_fused_face_block": (
-            lambda: kernels.fused_face_block(cells, edges, graph, w_face),
-            lambda: kernels.fused_face_block_ref(cells, edges, graph, w_face)),
         "K5_vertices_to_cells": (
             lambda: kernels.vertices_to_cells(vtx, graph),
             lambda: kernels.vertices_to_cells_ref(vtx, graph)),
@@ -456,26 +512,45 @@ def kernel_phase(graph, index_graph) -> dict:
     }
     for name, call in library.items():
         results[name]["library_ms"] = gpu_ms(call)
-    results["K1_fused_face_block"].update(
-        k1_forms(graph, index_graph, w_face, results["K1_fused_face_block"],
-                 latents, cells, edges))
+    for name, w in (("K1_fused_face_block", w_face),
+                    ("K2_fused_cell_block", w_cell)):
+        results[name] = block_forms(name, graph, index_graph, w, latents)
     return results
 
 
-def k1_exact(c, e, g, w) -> tuple:
-    """K1's function in f64 with the plain version's bf16 rounding points
-    (the hidden activations before each product): (raw, res), unrounded."""
+# the fused blocks: their wrapper, plain version, the rows they write, and
+# whether the FluxD path runs them with the dual output
+BLOCKS = {
+    "K1_fused_face_block": (kernels.fused_face_block,
+                            kernels.fused_face_block_ref, "num_faces", False),
+    "K2_fused_cell_block": (kernels.fused_cell_block,
+                            kernels.fused_cell_block_ref, "num_cells", True),
+}
+
+
+def block_exact(name, c, x, g, w) -> tuple:
+    """A fused block's function in f64 with the plain version's bf16
+    rounding points (the gathered input row, the hidden activations before
+    each product): (raw, res), unrounded. K1 reads ``[x | c[owner] |
+    c[neighbour]]`` with ``x`` the edge latents; K2 ``[c | mean of 3 rows
+    of x]`` with ``x`` K3's vertex sums, the mean rounded to bf16."""
     m = w.mlp
-    own, nbr = g.cell_edge_index[0].long(), g.cell_edge_index[1].long()
-    h = (torch.cat([e, c[own], c[nbr]], 1).double() @ m.w0.double()
-         + m.b0.double())
+    if name == "K1_fused_face_block":
+        own, nbr = g.cell_edge_index[0].long(), g.cell_edge_index[1].long()
+        row, base = torch.cat([x, c[own], c[nbr]], 1), x
+    else:
+        vf = g.vertex_face.long()
+        v = x.double()
+        agg = ((v[vf[0]] + v[vf[1]] + v[vf[2]]) / 3.0).to(torch.bfloat16)
+        row, base = torch.cat([c, agg], 1), c
+    h = row.double() @ m.w0.double() + m.b0.double()
     for wk, bk in ((m.w1, m.b1), (m.w2, m.b2)):
         h = F.silu(h).to(torch.bfloat16).double() @ wk.double() + bk.double()
     mu = h.mean(1, keepdim=True)
     var = (h * h).mean(1, keepdim=True) - mu * mu
     hn = ((h - mu) / torch.sqrt(var + kernels.LN_EPS) * m.ln_g.double()
           + m.ln_b.double())
-    return hn, e.double() + hn
+    return hn, base.double() + hn
 
 
 def bf16_step(x: torch.Tensor) -> torch.Tensor:
@@ -485,15 +560,16 @@ def bf16_step(x: torch.Tensor) -> torch.Tensor:
                        torch.ldexp(torch.ones_like(x), exp - 8))
 
 
-def _compare_k1(name, got, want, exact) -> tuple:
-    """K1's outputs against the plain version's, as ``_compare``, and both
-    against K1's f64 evaluation ``exact``: an element beyond KERNEL_RTOL /
-    KERNEL_ATOL of the plain version passes only where the kernel is no
-    further from the f64 value than the plain version's largest distance
-    from it plus one bf16 step at that value. Two f32 evaluations round a
-    hidden bf16 activation differently now and then, and LayerNorm
-    amplifies it in rows of small variance; the f64 evaluation says which
-    of them is off. Returns (max abs err, readings per output)."""
+def _compare_block(name, got, want, exact) -> tuple:
+    """A fused block's outputs against the plain version's, as ``_compare``,
+    and both against the block's f64 evaluation ``exact``: an element
+    beyond KERNEL_RTOL / KERNEL_ATOL of the plain version passes only where
+    the kernel is no further from the f64 value than the plain version's
+    largest distance from it plus one bf16 step at that value. Two f32
+    evaluations round a hidden bf16 activation differently now and then,
+    and LayerNorm amplifies it in rows of small variance; the f64
+    evaluation says which of them is off. Returns (max abs err, readings
+    per output)."""
     err, readings = 0.0, {}
     for out, a, b, x in zip(("raw", "res") if len(got) == 2 else ("res",),
                             got, want, exact):
@@ -516,45 +592,51 @@ def _compare_k1(name, got, want, exact) -> tuple:
     return err, readings
 
 
-def k1_forms(graph, index_graph, w, single, latents, cells, edges) -> dict:
-    """K1's forms: single-output at the FluxD mesh on ``cells``/``edges``
-    (the path's, timed as ``single``), dual-output there, and single- and
-    dual-output at ``index_graph``'s faces; each held against its plain
-    version and its f64 evaluation (``_compare_k1``), timed beside the plain
-    version, with its bound."""
-    big_c, big_e = latents(index_graph.num_cells), latents(index_graph.num_faces)
-    small_c, small_e = latents(graph.num_cells), latents(graph.num_faces)
-    cases = {
-        f"single_{graph.num_faces}": (graph, cells, edges, False),
-        f"dual_{graph.num_faces}": (graph, small_c, small_e, True),
-        f"single_{index_graph.num_faces}": (index_graph, big_c, big_e, False),
-        f"dual_{index_graph.num_faces}": (index_graph, big_c, big_e, True),
-    }
+def block_forms(name, graph, index_graph, w, latents) -> dict:
+    """A fused block's four forms: single- and dual-output at the FluxD mesh
+    and at ``index_graph``, on seeded latents (K2 on K3's vertex sums of
+    seeded edge latents); each held against its plain version and its f64
+    evaluation (``_compare_block``), timed beside the plain version, with
+    its bound. The block's top-level numbers are those of the FluxD path's
+    form (K1 single-, K2 dual-output)."""
+    run_fn, ref_fn, count, main_dual = BLOCKS[name]
     forms = {}
-    for fname, (g, c, e, dual) in cases.items():
-        run = functools.partial(kernels.fused_face_block, c, e, g, w, dual)
-        ref = functools.partial(kernels.fused_face_block_ref, c, e, g, w, dual)
-        got, want = run(), ref()
-        got, want = (got, want) if dual else ((got,), (want,))
-        exact = k1_exact(c, e, g, w)
-        err, readings = _compare_k1(f"K1_fused_face_block {fname}", got,
-                                    want, exact if dual else exact[1:])
-        del got, want, exact
-        _, _, nbytes, flops = bounds(g)["K1_fused_face_block"]
-        if dual:
-            nbytes += g.num_faces * H * 2                 # raw written too
-        timed = (single if fname == f"single_{graph.num_faces}" else
-                 {"ms": gpu_ms(run), "plain_ms": gpu_ms(ref)})
-        forms[fname] = {**timed, "max_abs_err": err, "vs_f64": readings,
-                        "bound": _bound(nbytes, flops, PEAK_BF16_FLOPS)}
+    for g in (graph, index_graph):
+        c = latents(g.num_cells)
+        x = latents(g.num_faces)
+        if name == "K2_fused_cell_block":
+            x = kernels.edges_to_vertices_ref(x, g)
+        exact = block_exact(name, c, x, g, w)
+        for dual in (False, True):
+            fname = f"{'dual' if dual else 'single'}_{getattr(g, count)}"
+            run = functools.partial(run_fn, c, x, g, w, dual)
+            ref = functools.partial(ref_fn, c, x, g, w, dual)
+            got, want = run(), ref()
+            got, want = (got, want) if dual else ((got,), (want,))
+            err, readings = _compare_block(f"{name} {fname}", got, want,
+                                           exact if dual else exact[1:])
+            del got, want
+            _, _, nbytes, flops = bounds(g)[name]
+            # bounds() counts K1 single- and K2 dual-output
+            out_bytes = getattr(g, count) * H * 2
+            if dual and not main_dual:
+                nbytes += out_bytes
+            elif main_dual and not dual:
+                nbytes -= out_bytes
+            forms[fname] = {"ms": gpu_ms(run), "plain_ms": gpu_ms(ref),
+                            "max_abs_err": err, "vs_f64": readings,
+                            "bound": _bound(nbytes, flops, PEAK_BF16_FLOPS)}
+        del exact
+    main = f"{'dual' if main_dual else 'single'}_{getattr(graph, count)}"
     return {
         "max_abs_err": max(f["max_abs_err"] for f in forms.values()),
+        "ms": forms[main]["ms"], "plain_ms": forms[main]["plain_ms"],
+        "bound": forms[main]["bound"],
         "forms": {f: {**{k: v for k, v in r.items() if k != "bound"},
                       "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
                       "bytes": r["bound"][2], "flops": r["bound"][3]}
                   for f, r in forms.items()},
-        "unit": f"per launch, single_{graph.num_faces} (the FluxD path's "
-                "form)"}
+        "unit": f"per launch, {main} (the FluxD path's form)"}
 
 
 def check_against_plain(kern, plain, graph, feats, index_graph=None) -> dict:
@@ -807,8 +889,12 @@ def main() -> int:
     per_kernel.update(table_phase(vgraph))
     say("phase 2 kernel vs plain: ok " + json.dumps(
         {k: round(v["max_abs_err"], 6) for k, v in per_kernel.items()}))
-    for name in ("K1_fused_face_block", "K6_table_dual", "K7_table_single"):
+    for name in ("K1_fused_face_block", "K2_fused_cell_block", "K6_table_dual",
+                 "K7_table_single"):
         say(f"phase 2 {name} by form: " + json.dumps(per_kernel[name]["forms"]))
+    say("phase 2 NaN through a zero weight, same places as the plain version: "
+        + json.dumps({name: per_kernel[name]["nan_through_zero_weight"]
+                      for name in ("K6_table_dual", "K7_table_single")}))
 
     checks = {"FluxD": rollout_errors_check(fields),
               "FvgnF": rollout_errors_check(fields),

@@ -1,5 +1,6 @@
-// Hopper's asynchronous copies into shared memory, shared by K1
-// (face_block.cu through gn_wgmma.cuh) and K7 (table_single.cu): mbarriers,
+// Hopper's asynchronous copies into shared memory, shared by K1 and K2
+// (face_block.cu, cell_block.cu through gn_wgmma.cuh) and K6 and K7
+// (table_dual.cu, table_single.cu through table_mma.cuh): mbarriers,
 // bulk copies (cp.async.bulk) and bulk tensor copies (cp.async.bulk.tensor),
 // their completion counted in bytes on an mbarrier, and 16-byte cp.async
 // copies; and, on the host, the one-time opt-in to more shared memory.
@@ -32,6 +33,25 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
       "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
       "r"(bytes)
       : "memory");
+}
+
+// Arrives once, adding no bytes.
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+// Whether the phase of parity `parity` has completed; does not wait.
+__device__ __forceinline__ bool mbar_test(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      " mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
 }
 
 // Spins until the phase of parity `parity` has completed.
@@ -68,6 +88,38 @@ __device__ __forceinline__ void tensor_copy_2d(uint32_t dst, const void* map,
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%2, %3}], [%4];" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(bar)
+      : "memory");
+}
+
+// An L2 cache policy that evicts what it covers first: for data read once.
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
+               : "=l"(policy));
+  return policy;
+}
+
+// tensor_copy_2d under the L2 cache policy `policy`.
+__device__ __forceinline__ void tensor_copy_2d(uint32_t dst, const void* map,
+                                               int x, int y, uint32_t bar,
+                                               uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.L2::cache_hint [%0], [%1, {%2, %3}], [%4], %5;" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(bar),
+      "l"(policy)
+      : "memory");
+}
+
+// The same for a 5-D box, at coordinates (c0, .., c4).
+__device__ __forceinline__ void tensor_copy_5d(uint32_t dst, const void* map,
+                                               int c0, int c1, int c2, int c3,
+                                               int c4, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5, %6}], [%7];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(c4), "r"(bar)
       : "memory");
 }
 

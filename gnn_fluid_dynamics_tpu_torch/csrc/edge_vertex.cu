@@ -17,7 +17,7 @@
 // is deterministic. Bound: bytes (each half-row is read once, ~2.7 MB per
 // launch at the rollout's 5,361 faces); the launch is short enough that its
 // fixed cost dominates at this size.
-#include "gn_block.cuh"
+#include "common.cuh"
 
 namespace gfd {
 

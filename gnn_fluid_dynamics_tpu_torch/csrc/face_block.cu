@@ -94,13 +94,8 @@ extern "C" int gfd_face_block(int device, const void* edge, const void* cells,
                          opted_in);
   if (err != cudaSuccess) return err;
   if (n_faces == 0) return cudaSuccess;
-  static std::atomic<int> sm_count[64];  // 0 until read
-  int sms = sm_count[device].load();
-  if (sms == 0) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (err != cudaSuccess) return err;
-    sm_count[device].store(sms);
-  }
+  const int sms = sm_count(device);
+  if (sms <= 0) return cudaErrorInvalidDevice;
   const MlpVecs v{(const bf16*)b0, (const bf16*)b1, (const bf16*)b2,
                   (const bf16*)ln_g, (const bf16*)ln_b};
   const int tiles = (n_faces + ROWS - 1) / ROWS;

@@ -18,7 +18,7 @@
 // each moving one 16-byte chunk (8 bf16) of both rows, so every warp reads
 // and writes whole 256-byte rows in 16-byte accesses. No shared memory and
 // no products: the band DMA and the one-hot selectors are not carried over.
-#include "gn_block.cuh"
+#include "common.cuh"
 
 namespace gfd {
 

@@ -9,7 +9,8 @@
 // Numerics follow the JAX package's _mlp_ln_tail (ops/pallas_agg.py:516):
 // bf16 operands, f32 products and all elementwise math in f32, the hidden
 // activations rounded to bf16 before each product, bf16 stores. Templated on
-// the input width K0: K1 (face_block.cu) runs it at K0 = 384.
+// the input width K0: K1 (face_block.cu) runs it at K0 = 384, K2
+// (cell_block.cu) at K0 = 192.
 //
 // Design. One warpgroup (4 warps, 128 threads) per block, one block per SM.
 // W0, W1 and W2 sit in shared memory for the block's whole life: three bulk
@@ -30,9 +31,10 @@
 // from A; both outputs go through a padded shared tile, so every store to
 // device memory is 16 bytes.
 //
-// What bounds it, measured (PERF.md §6): every SM takes in the 160 KB
-// of weights plus its tile's 48 KB before the first product, and then runs
-// dependent phases with one warpgroup; latency, not bytes or operations.
+// What bounds it, measured for K1 (PERF.md §6): every SM takes in the
+// weights (160 KB for K1, 112 KB for K2) plus its tile before the first
+// product, and then runs dependent phases with one warpgroup; latency, not
+// bytes or operations.
 //
 // Operand layout in shared memory ("core matrices", no swizzle): an
 // operand of R rows (M for A, N for the weights) and K columns, K-major, is
@@ -41,12 +43,12 @@
 // so a descriptor's leading byte offset (the next 8 columns of k) is
 // R * 16 and its stride byte offset (the next 8 rows) is 128.
 //
-// Bound, as chip_smoke.py counts it: bytes. K1 at the FluxD mesh's 5,361
-// faces reads 2.5 MB (edge and cell latents, indices, weights) and writes
-// 1.4 MB: 1.146 us at 3.35 TB/s, against 0.88 GFLOP of products: 0.89 us at
-// 989 TFLOP/s. The two are close; either way the kernel's floor is a
-// microsecond, and what it has to beat is latency: the weights' trip from
-// L2, the gather, and three dependent product chains per tile.
+// Bound, as chip_smoke.py counts it: bytes for both kernels at the FluxD
+// mesh (K1 1.146 us at 5,361 faces, K2 0.913 us at 3,462 cells), the
+// products close behind (0.89 and 0.40 us at 989 TFLOP/s); either way the
+// floor is a microsecond, and what the kernels have to beat is latency:
+// the weights' trip from L2, the gather, and three dependent product chains
+// per tile.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -54,12 +56,11 @@
 #include <stdint.h>
 
 #include "async_copy.cuh"
+#include "common.cuh"
+#include "wgmma.cuh"
 
 namespace gfd {
 
-typedef __nv_bfloat16 bf16;
-
-constexpr int H = 128;              // latent width
 constexpr int ROWS = 64;            // rows per tile: one wgmma M
 constexpr int THREADS = 128;        // one warpgroup
 constexpr int OUT_LD = H * 2 + 16;  // bytes per row of an output tile
@@ -108,86 +109,6 @@ __device__ __forceinline__ uint64_t operand_desc(uint32_t addr, uint32_t lbo) {
   constexpr uint32_t sbo = 128;
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
          ((uint64_t)(sbo >> 4) << 32);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-// Keeps the compiler from moving accumulator reads or writes across the
-// asynchronous products.
-__device__ __forceinline__ void fence_operands(float* d) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d (this thread's 64 f32 of the 64 x 128 tile) = A (64 x 16, shared
-// memory) @ B (16 x 128, shared memory), plus d when `accumulate`; both
-// operands K-major (no transpose).
-__device__ __forceinline__ void wgmma_ss(float* d, uint64_t desc_a,
-                                         uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
-}
-
-// The same with A from registers: a[0..3] is mma.sync's m16n8k16 A
-// fragment of this warp's 16 rows.
-__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
-                                         uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-        "r"(accumulate));
 }
 
 // The fast exponential and division (a few f32 ulps): with one warpgroup
@@ -294,7 +215,7 @@ __device__ __forceinline__ void mlp_ln_tile(unsigned char* smem,
       wgmma_ss(t, operand_desc(a_base + 2 * s * a_lbo, a_lbo),
                operand_desc(w_base + 2 * s * w_lbo, w_lbo), s > s0);
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_operands(t);
 #pragma unroll
     for (int i = 0; i < 64; ++i) d[i] += t[i];
@@ -315,7 +236,7 @@ __device__ __forceinline__ void mlp_ln_tile(unsigned char* smem,
       for (int kk = k0; kk < k0 + PROMOTE && kk < H / 16; ++kk)
         wgmma_rs(t, a[kk], operand_desc(w + 2 * kk * w_lbo, w_lbo), kk > k0);
       wgmma_commit();
-      wgmma_wait_all();
+      wgmma_wait<0>();
       fence_operands(t);
 #pragma unroll
       for (int i = 0; i < 64; ++i) d[i] += t[i];
@@ -386,8 +307,3 @@ __device__ __forceinline__ void mlp_ln_tile(unsigned char* smem,
 }
 
 }  // namespace gfd
-
-// Name of a CUDA error code returned by one of the entry points.
-extern "C" const char* gfd_error_name(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}

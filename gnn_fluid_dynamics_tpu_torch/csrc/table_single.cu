@@ -31,41 +31,27 @@
 // bf16 -> f32): the tile's 8 warps share one copy of its band (measured
 // faster than two 64-cell blocks, which load it twice; PERF.md §6).
 // * The band (B rows of 128 bytes) goes to shared memory whole, as boxes of
-//   128 rows by bulk tensor copies (one tensor map per source buffer, made
-//   on the host and kept), each box on its own mbarrier, all issued by one
-//   thread at the start; the product starts on a box as soon as it lands.
-//   The copies apply the 128-byte swizzle (a row's 16-byte chunk c lands at
-//   c ^ (row % 8)), so the 8 rows one ldmatrix reads sit on 8 different
-//   bank groups: a plain contiguous band, 128-byte rows, would put them all
-//   on one.
-// * The table is read once and each entry used once, so it goes straight
-//   from device memory into registers, a chunk of 128 columns ahead of the
-//   product. The order of the 16 k positions of each mma step is permuted
-//   so that a lane's four entries of a row are four neighbouring columns
-//   (one 4-, 8- or 16-byte load for int8, bf16, f32), with the band rows
-//   for ldmatrix permuted to match (row_in_step below); the permutation
-//   keeps the 8 rows of each ldmatrix on 8 different rows mod 8.
+//   128 rows by bulk tensor copies, each box on its own mbarrier, all
+//   issued by one thread at the start; the product starts on a box as soon
+//   as it lands.
+// * The table goes straight from device memory into registers, a chunk of
+//   128 columns ahead of the product, in the permuted k order of
+//   table_mma.cuh (with `swap` for q >= 2), which also holds the word
+//   loads and the tensor-map cache that K6 shares. ldmatrix.trans reads the
+//   B fragments with the band rows permuted to match (band_lane); the
+//   permutation keeps the 8 rows of each ldmatrix on 8 different rows mod
+//   8, hence, with the swizzle, on 8 different bank groups.
 // * mma.sync rather than wgmma: the product is far below the card's
 //   operations-per-byte line, and mma.sync takes the table fragments from
 //   registers in this permuted order.
 // * The epilogue rounds, divides and pairs neighbouring lanes' values by one
 //   shuffle, so each lane stores 16 bytes.
-#include <cuda.h>
-#include <cuda_bf16.h>
-
-#include <mutex>
-
-#include "async_copy.cuh"
+#include "table_mma.cuh"
 
 namespace gfd {
 
-typedef __nv_bfloat16 bf16;
-
-constexpr int TABLE_TILE = 128;  // cells per table tile
 constexpr int ROWS = TABLE_TILE;  // cells per block: a whole tile
 constexpr int HALF = 64;         // the vertex sums' width
-constexpr int BOX = 128;         // band rows per tensor copy and per chunk
-constexpr int MAX_BOXES = 14;    // bands up to 1,792 rows
 constexpr int THREADS = ROWS / 16 * 32;  // a warp per 16 cells
 constexpr int BAR_BYTES = 8 * 16;
 
@@ -73,52 +59,62 @@ constexpr int BAR_BYTES = 8 * 16;
 // aligned to 1,024 bytes as the 128-byte swizzle requires.
 inline int smem_bytes(int band) { return BAR_BYTES + 1024 + band * HALF * 2; }
 
-// A lane's four table entries of one row for one mma step: 4 neighbouring
-// columns, as one load.
-template <typename T>
-struct Word;
-template <>
-struct Word<int8_t> {
-  typedef uint32_t type;
-};
-template <>
-struct Word<bf16> {
-  typedef uint2 type;
-};
-template <>
-struct Word<float> {
-  typedef uint4 type;
+// Where this lane's ldmatrix.trans reads in a box: lane l gives a row of
+// block l / 8 (k positions 0-7 or 8-15, channels n or n + 8), the band row
+// holding that k position. `row` is the row's byte offset in a box.
+struct BandLane {
+  uint32_t row;  // row_in_step * 128
+  int swz;       // row_in_step % 8, the 128-byte swizzle's xor
+  int hi_n;      // 1 for the lanes giving channels n + 8
 };
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
+__device__ __forceinline__ BandLane band_lane(int lane) {
+  const int hi_k = (lane >> 3) & 1, hi_n = lane >> 4;
+  const int pr = (lane & 7) >> 1;
+  const int row_in_step =
+      4 * pr + (lane & 1) + ((pr >= 2) != (hi_k == 1) ? 2 : 0);
+  return BandLane{(uint32_t)row_in_step * BOX_COLS * 2, row_in_step & 7, hi_n};
 }
 
-// Entries (0, 1) and (2, 3) of a word as bf16 pairs, each weight rounded to
-// bf16 (exact for int8 and bf16).
-__device__ __forceinline__ void split(uint32_t w, uint32_t& lo, uint32_t& hi) {
-  lo = pack_bf16((float)(int8_t)(w & 0xff), (float)(int8_t)((w >> 8) & 0xff));
-  hi = pack_bf16((float)(int8_t)((w >> 16) & 0xff), (float)(int8_t)(w >> 24));
+__device__ __forceinline__ void mma_16816(float* d, const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
-__device__ __forceinline__ void split(uint2 w, uint32_t& lo, uint32_t& hi) {
-  lo = w.x;
-  hi = w.y;
-}
-__device__ __forceinline__ void split(uint4 w, uint32_t& lo, uint32_t& hi) {
-  lo = pack_bf16(__uint_as_float(w.x), __uint_as_float(w.y));
-  hi = pack_bf16(__uint_as_float(w.z), __uint_as_float(w.w));
+
+// One mma step over a box's 64 channels: `step` is the shared address of
+// the box plus the step's 16 rows (box + 16 * s * 128), and acc[0..7] the
+// 8 n-tiles of 8 channels.
+__device__ __forceinline__ void box_step(uint32_t step, const BandLane& b,
+                                         const uint32_t (&a)[4],
+                                         float (*acc)[4]) {
+  const uint32_t row = step + b.row;
+#pragma unroll
+  for (int n = 0; n < BOX_COLS; n += 16) {
+    uint32_t b0, b1, b2, b3;
+    const uint32_t addr = row + (((n / 8 + b.hi_n) ^ b.swz) << 4);
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+        "[%4];"
+        : "=r"(b0), "=r"(b1), "=r"(b2), "=r"(b3)
+        : "r"(addr));
+    mma_16816(acc[n / 8], a, b0, b1);
+    mma_16816(acc[n / 8 + 1], a, b2, b3);
+  }
 }
 
 // The words of one 128-column chunk for this thread's two rows.
 template <typename T>
 __device__ __forceinline__ void load_words(typename Word<T>::type (*w)[8],
                                            const T* r0, const T* r1, int k0) {
-  typedef typename Word<T>::type W;
 #pragma unroll
   for (int s = 0; s < 8; ++s) {
-    w[0][s] = *reinterpret_cast<const W*>(r0 + k0 + 16 * s);
-    w[1][s] = *reinterpret_cast<const W*>(r1 + k0 + 16 * s);
+    w[0][s] = load_word(r0 + k0 + 16 * s);
+    w[1][s] = load_word(r1 + k0 + 16 * s);
   }
 }
 
@@ -147,19 +143,10 @@ table_single_kernel(const T* __restrict__ oh, const int* __restrict__ src_off,
     }
   }
 
-  // this lane's entries: columns 16s + 4q .. + 3 of each 16-column step;
-  // for q < 2 entries (0, 1) are k positions (2q, 2q + 1) of the step and
-  // entries (2, 3) positions (2q + 8, 2q + 9); for q >= 2 the other way
+  // this lane's entries: rows g and g + 8 of its warp, columns 16s + 4q ..
   const T* r0 = oh + (row0 + 16 * warp + g) * band + 4 * q;
   const T* r1 = r0 + 8 * (size_t)band;
-  // ldmatrix.trans: lane l gives a row of block l / 8 (k positions 0-7 or
-  // 8-15, channels n or n + 8): the band row holding that k position
-  const int hi_k = (lane >> 3) & 1, hi_n = lane >> 4;
-  const int pr = (lane & 7) >> 1;
-  const int row_in_step =
-      4 * pr + (lane & 1) + ((pr >= 2) != (hi_k == 1) ? 2 : 0);
-  const uint32_t lane_row = band_base + row_in_step * HALF * 2;
-  const int swz = row_in_step & 7;
+  const BandLane bl = band_lane(lane);
 
   W cur[2][8], nxt[2][8];
   load_words<T>(cur, r0, r1, 0);
@@ -170,37 +157,9 @@ table_single_kernel(const T* __restrict__ oh, const int* __restrict__ src_off,
     mbar_wait(bars + 8 * c, 0);
 #pragma unroll
     for (int s = 0; s < 8; ++s) {
-      uint32_t lo0, hi0, lo1, hi1;
-      split(cur[0][s], lo0, hi0);
-      split(cur[1][s], lo1, hi1);
-      const bool swap = q >= 2;
-      const uint32_t a0 = swap ? hi0 : lo0, a2 = swap ? lo0 : hi0;
-      const uint32_t a1 = swap ? hi1 : lo1, a3 = swap ? lo1 : hi1;
-      const uint32_t row_addr = lane_row + (c * BOX + 16 * s) * HALF * 2;
-#pragma unroll
-      for (int n = 0; n < HALF; n += 16) {
-        uint32_t b0, b1, b2, b3;
-        const uint32_t addr = row_addr + (((n / 8 + hi_n) ^ swz) << 4);
-        asm volatile(
-            "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-            "[%4];"
-            : "=r"(b0), "=r"(b1), "=r"(b2), "=r"(b3)
-            : "r"(addr));
-        float* d0 = acc[n / 8];
-        float* d1 = acc[n / 8 + 1];
-        asm volatile(
-            "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-            "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-            "{%0, %1, %2, %3};"
-            : "+f"(d0[0]), "+f"(d0[1]), "+f"(d0[2]), "+f"(d0[3])
-            : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-        asm volatile(
-            "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-            "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-            "{%0, %1, %2, %3};"
-            : "+f"(d1[0]), "+f"(d1[1]), "+f"(d1[2]), "+f"(d1[3])
-            : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b2), "r"(b3));
-      }
+      uint32_t a[4];
+      a_fragment(cur[0][s], cur[1][s], q >= 2, a);
+      box_step(band_base + (c * BOX + 16 * s) * HALF * 2, bl, a, acc);
     }
 #pragma unroll
     for (int r = 0; r < 2; ++r)
@@ -236,68 +195,6 @@ table_single_kernel(const T* __restrict__ oh, const int* __restrict__ src_off,
   }
 }
 
-// cuTensorMapEncodeTiled, looked up through the runtime's entry-point
-// table, so that the library needs no link against libcuda.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-inline EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// The band's tensor map for a source (device, address, rows), made once and
-// kept: a rollout applies the table to the same source buffers step after
-// step. A few sources are kept, the oldest replaced first.
-struct BandMap {
-  int device;
-  const void* src;
-  int rows;
-  CUtensorMap map;
-};
-
-inline cudaError_t band_map(int device, const void* src, int rows,
-                            CUtensorMap* out) {
-  constexpr int KEEP = 8;
-  static std::mutex lock;
-  static BandMap kept[KEEP];
-  static int n_kept = 0, oldest = 0;
-  std::lock_guard<std::mutex> guard(lock);
-  for (int i = 0; i < n_kept; ++i)
-    if (kept[i].device == device && kept[i].src == src && kept[i].rows == rows) {
-      *out = kept[i].map;
-      return cudaSuccess;
-    }
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  BandMap m{device, src, rows, {}};
-  const cuuint64_t dims[2] = {HALF, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {HALF * 2};
-  const cuuint32_t box[2] = {HALF, BOX};
-  const cuuint32_t unit[2] = {1, 1};
-  if (encode(&m.map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(src),
-             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return cudaErrorInvalidValue;
-  const int slot = n_kept < KEEP ? n_kept++ : (oldest++ % KEEP);
-  kept[slot] = m;
-  *out = m.map;
-  return cudaSuccess;
-}
-
 template <typename T>
 cudaError_t launch_table_single(int device, const void* oh, const void* src_off,
                                 const CUtensorMap& map, int n_rows, int band,
@@ -306,7 +203,7 @@ cudaError_t launch_table_single(int device, const void* oh, const void* src_off,
   static std::atomic<uint64_t> opted_in{0};
   cudaError_t err =
       smem_opt_in_once((const void*)table_single_kernel<T>, device,
-                       smem_bytes(MAX_BOXES * BOX), opted_in);
+                       smem_bytes(MAX_BAND), opted_in);
   if (err != cudaSuccess) return err;
   table_single_kernel<T><<<n_rows / ROWS, THREADS, smem_bytes(band), stream>>>(
       (const T*)oh, (const int*)src_off, map, band, (float*)out);
@@ -314,11 +211,6 @@ cudaError_t launch_table_single(int device, const void* oh, const void* src_off,
 }
 
 }  // namespace gfd
-
-// Name of a CUDA error code returned by one of the entry points.
-extern "C" const char* gfd_error_name(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
 
 // Launches K7 on `stream`; returns the CUDA error code (0 on success).
 // table_dtype: 0 int8, 1 bf16, 2 f32. n_rows = tiles * 128; band is a
@@ -332,12 +224,12 @@ extern "C" int gfd_table_single(int device, const void* oh, const void* src_off,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (n_rows % TABLE_TILE || band % BOX || band <= 0 ||
-      band > MAX_BOXES * BOX || src_rows < band)
+      band > MAX_BAND || src_rows < band)
     return cudaErrorInvalidValue;
   if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
   if (n_rows == 0) return cudaSuccess;
   CUtensorMap map;
-  err = band_map(device, src, src_rows, &map);
+  err = band_map(device, src, src_rows, HALF, false, BOX, &map);
   if (err != cudaSuccess) return err;
   cudaStream_t s = (cudaStream_t)stream;
   switch (table_dtype) {

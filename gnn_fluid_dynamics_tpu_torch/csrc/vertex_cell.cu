@@ -18,7 +18,7 @@
 // rows in f32 registers and storing 32 bytes of the f32 mean. No shared
 // memory and no products: the band DMA and the one-hot selectors are not
 // carried over.
-#include "gn_block.cuh"
+#include "common.cuh"
 
 namespace gfd {
 

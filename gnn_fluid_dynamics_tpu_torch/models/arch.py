@@ -149,8 +149,9 @@ class MLP(nn.Module):
     def kernel_weights(self, dtype=torch.bfloat16, packed: bool = False):
         """This MLP as the fused blocks take it: matrices (inputs, outputs),
         every tensor in ``dtype`` (the kernels take bf16; the plain versions
-        any float dtype). With ``packed``, K1's ``FaceWeights``: the same
-        with the matrices packed as K1 reads them (``kernels.face_weights``).
+        any float dtype). With ``packed``, the fused kernels' (K1's and
+        K2's) ``PackedWeights``: the same with the matrices packed as the
+        kernels read them (``kernels.packed_weights``).
         Cached until a parameter is replaced or changed in place, so the
         packing runs once per set of weights."""
         params = (self.dense0.weight, self.dense0.bias, self.dense1.weight,
@@ -161,7 +162,7 @@ class MLP(nn.Module):
             w = kernels.BlockWeights(*(
                 (p.detach().t() if p.ndim == 2 else p.detach()).to(dtype).contiguous()
                 for p in params))
-            self._kernel_cache = (key, kernels.face_weights(w) if packed else w)
+            self._kernel_cache = (key, kernels.packed_weights(w) if packed else w)
         return self._kernel_cache[1]
 
 
@@ -228,7 +229,7 @@ class CellBlock(nn.Module):
             vtx = kernels.edges_to_vertices(edge_attr.to(torch.bfloat16), graph)
             return kernels.fused_cell_block(
                 cell_attr.to(torch.bfloat16), vtx, graph,
-                self.mlp.kernel_weights(), dual_out=dual_out)
+                self.mlp.kernel_weights(packed=True), dual_out=dual_out)
         cell_agg = aggregate_twice_mp(edge_attr, graph, route == "unfused")
         return self.mlp(_with_extra([cell_attr, cell_agg], extra,
                                     cell_attr.shape[0]))

@@ -59,7 +59,8 @@ SOURCES = {"face_block": "face_block.cu", "cell_block": "cell_block.cu",
            "edge_vertex": "edge_vertex.cu", "face_gather": "face_gather.cu",
            "vertex_cell": "vertex_cell.cu", "table_dual": "table_dual.cu",
            "table_single": "table_single.cu"}
-HEADERS = ("async_copy.cuh", "gn_block.cuh", "gn_wgmma.cuh", "table.cuh")
+HEADERS = ("async_copy.cuh", "common.cuh", "gn_wgmma.cuh", "table_mma.cuh",
+           "wgmma.cuh")
 H = 128          # the latent width the kernels are built for
 LN_EPS = 1e-5
 
@@ -71,11 +72,13 @@ _ARGTYPES = {
     "gfd_edge_vertex": [_I] + [_P] * 3 + [_I] + [_P] * 2,
     "gfd_face_gather": [_I] + [_P] * 3 + [_I] + [_P] * 3,
     "gfd_vertex_cell": [_I] + [_P] * 4 + [_I] + [_P] * 2,
-    "gfd_table_dual": [_I] + [_P] * 4 + [_I] * 4 + [_P] * 3,
+    "gfd_table_dual": [_I] + [_P] * 4 + [_I] * 5 + [_P] * 3,
     "gfd_table_single": [_I] + [_P] * 3 + [_I] * 4 + [_P] * 2,
 }
 TABLE_TILE = 128  # target rows per table tile
-TABLE_SINGLE_MAX_BAND = 1792  # K7 holds its whole band in shared memory
+# the widest band K6 and K7 take: K7 holds its whole band in shared memory,
+# K6 streams its band and takes the same, so the two accept the same graphs
+TABLE_MAX_BAND = 1792
 # the table dtypes K6/K7 read, by the code their C entry points take
 TABLE_DTYPES = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
 _ENTRY = {name: "gfd_" + name for name in SOURCES}
@@ -85,8 +88,9 @@ _lock = threading.Lock()
 
 
 class BlockWeights(NamedTuple):
-    """One GN sub-block's MLP + LayerNorm as the fused kernels take it: each
-    matrix (inputs, outputs) row-major and every tensor in the latents' dtype.
+    """One GN sub-block's MLP + LayerNorm as the fused kernels' plain
+    versions read it (the kernels read :class:`PackedWeights`): each matrix
+    (inputs, outputs) row-major and every tensor in the latents' dtype.
     ``w0``'s rows follow the kernel's gathered input, ``[e | x[owner] |
     x[neighbour]]`` for K1 and ``[c | vertex mean]`` for K2."""
     w0: torch.Tensor
@@ -99,10 +103,11 @@ class BlockWeights(NamedTuple):
     ln_b: torch.Tensor
 
 
-class FaceWeights(NamedTuple):
-    """K1's weights: ``mlp``, which its plain version reads, and ``packed``,
-    ``mlp``'s three matrices in the layout K1 copies into shared memory.
-    Made by :func:`face_weights` from ``mlp``, so the two never disagree."""
+class PackedWeights(NamedTuple):
+    """The fused kernels' weights (K1's and K2's): ``mlp``, which their plain
+    versions read, and ``packed``, ``mlp``'s three matrices in the layout the
+    kernels copy into shared memory. Made by :func:`packed_weights` from
+    ``mlp``, so the two never disagree."""
     mlp: BlockWeights
     packed: torch.Tensor
 
@@ -118,16 +123,20 @@ def _core_matrices(w: torch.Tensor) -> torch.Tensor:
 def pack_weights(w0: torch.Tensor, w1: torch.Tensor,
                  w2: torch.Tensor) -> torch.Tensor:
     """W0, W1 and W2 ((K0, H), (H, H), (H, H), inputs x outputs) in the
-    layout K1 copies into shared memory as it stands, one after the other in
-    one flat tensor."""
+    layout K1 and K2 copy into shared memory as it stands, one after the
+    other in one flat tensor."""
     return torch.cat([_core_matrices(w) for w in (w0, w1, w2)]).contiguous()
 
 
-def face_weights(w: BlockWeights) -> FaceWeights:
-    """K1's weights from the face MLP's: ``w`` and its matrices packed
-    (:func:`pack_weights`). Made once per set of weights
+def packed_weights(w: BlockWeights) -> PackedWeights:
+    """The fused kernels' weights from an MLP's: ``w`` and its matrices
+    packed (:func:`pack_weights`). Made once per set of weights
     (``MLP.kernel_weights(packed=True)`` caches it), never per launch."""
-    return FaceWeights(w, pack_weights(w.w0, w.w1, w.w2))
+    return PackedWeights(w, pack_weights(w.w0, w.w1, w.w2))
+
+
+def _unpacked(w) -> BlockWeights:
+    return w.mlp if isinstance(w, PackedWeights) else w
 
 
 # ---------------------------------------------------------------------------
@@ -227,10 +236,26 @@ def _check(t: torch.Tensor, what: str, device, dtype, shape) -> None:
         raise ValueError(f"{what} is not 16-byte aligned")
 
 
-def _check_weights(w: BlockWeights, k0: int, device) -> None:
-    shapes = {"w0": (k0, H), "w1": (H, H), "w2": (H, H)}
-    for field, t in zip(BlockWeights._fields, w):
-        _check(t, field, device, torch.bfloat16, shapes.get(field, (H,)))
+def _check_packed(w, k0: int, device, kernel: str) -> None:
+    """What a fused kernel reads of its :class:`PackedWeights`: the packed
+    matrices for input width ``k0`` and the five vectors, bf16 on
+    ``device``."""
+    if not isinstance(w, PackedWeights):
+        raise ValueError(f"{kernel} reads its weights packed: pass "
+                         "packed_weights(w) (MLP.kernel_weights(packed=True))")
+    _check(w.packed, "packed", device, torch.bfloat16, ((k0 + 2 * H) * H,))
+    for field in ("b0", "b1", "b2", "ln_g", "ln_b"):
+        _check(getattr(w.mlp, field), field, device, torch.bfloat16, (H,))
+
+
+def _packed_ptrs(w: PackedWeights, k0: int) -> tuple:
+    """The kernel's pointer arguments: W0, b0, W1, b1, W2, b2, ln_g, ln_b."""
+    m = w.mlp
+    p0 = w.packed.data_ptr()
+    p1 = p0 + k0 * H * 2                               # bf16 bytes
+    p2 = p1 + H * H * 2
+    return (p0, _ptr(m.b0), p1, _ptr(m.b1), p2, _ptr(m.b2), _ptr(m.ln_g),
+            _ptr(m.ln_b))
 
 
 def _check_bands(src_off: torch.Tensor, band: int, rows: int) -> None:
@@ -275,10 +300,9 @@ def _mlp_ln_tail_ref(base: torch.Tensor, h0: torch.Tensor, w: BlockWeights):
 def fused_face_block_ref(cell_attr, edge_attr, graph, w, dual_out: bool = False):
     """Plain version of K1: the face block's MLP on ``[e | x[owner] |
     x[neighbour]]``, LayerNorm and residual, with the weights ``w`` (a
-    :class:`BlockWeights`, or K1's :class:`FaceWeights`). Returns the
+    :class:`BlockWeights`, or its :class:`PackedWeights`). Returns the
     residualed edge latents, or (raw, residualed) with ``dual_out``."""
-    if isinstance(w, FaceWeights):
-        w = w.mlp
+    w = _unpacked(w)
     own, nbr = graph.cell_edge_index[0], graph.cell_edge_index[1]
     x = torch.cat([edge_attr, cell_attr[own], cell_attr[nbr]], dim=1)
     h0 = x.float() @ w.w0.float() + w.b0.float()
@@ -286,12 +310,13 @@ def fused_face_block_ref(cell_attr, edge_attr, graph, w, dual_out: bool = False)
     return (raw, res) if dual_out else res
 
 
-def fused_cell_block_ref(cell_attr, vtx, graph, w: BlockWeights,
-                         dual_out: bool = False):
+def fused_cell_block_ref(cell_attr, vtx, graph, w, dual_out: bool = False):
     """Plain version of K2: the cell block's MLP on ``[c | mean of the 3
-    vertex rows]`` (``vtx`` is K3's (V, H/2) sum), LayerNorm and residual.
-    The mean is taken in f32 and rounded to the latents' dtype, as the TPU
-    kernel does."""
+    vertex rows]`` (``vtx`` is K3's (V, H/2) sum), LayerNorm and residual,
+    with the weights ``w`` (a :class:`BlockWeights`, or its
+    :class:`PackedWeights`). The mean is taken in f32 and rounded to the
+    latents' dtype, as the TPU kernel does."""
+    w = _unpacked(w)
     vf = graph.vertex_face
     v = vtx.float()
     agg = (v[vf[0]] + v[vf[1]] + v[vf[2]]) * (1.0 / 3.0)
@@ -371,7 +396,7 @@ def table_single_ref(oh, src_off, src):
 
 def fused_face_block(cell_attr, edge_attr, graph, w, dual_out: bool = False):
     """K1: the fused face block. See :func:`fused_face_block_ref`. On the
-    card ``w`` must be K1's :class:`FaceWeights` (:func:`face_weights`)."""
+    card ``w`` must be :class:`PackedWeights` (:func:`packed_weights`)."""
     if edge_attr.device.type == "cpu":
         return fused_face_block_ref(cell_attr, edge_attr, graph, w, dual_out)
     dev = edge_attr.device
@@ -379,30 +404,19 @@ def fused_face_block(cell_attr, edge_attr, graph, w, dual_out: bool = False):
     _check(edge_attr, "edge_attr", dev, torch.bfloat16, (nf, H))
     _check(cell_attr, "cell_attr", dev, torch.bfloat16, (nc, H))
     _check(graph.cell_edge_index, "cell_edge_index", dev, torch.int32, (2, nf))
-    if not isinstance(w, FaceWeights):
-        raise ValueError("K1 reads its weights packed: pass face_weights(w) "
-                         "(MLP.kernel_weights(packed=True))")
-    # what the kernel reads: the packed matrices and the five vectors
-    _check(w.packed, "packed", dev, torch.bfloat16, ((3 * H + 2 * H) * H,))
-    m = w.mlp
-    for field in ("b0", "b1", "b2", "ln_g", "ln_b"):
-        _check(getattr(m, field), field, dev, torch.bfloat16, (H,))
+    _check_packed(w, 3 * H, dev, "K1")
     res = torch.empty_like(edge_attr)
     raw = torch.empty_like(edge_attr) if dual_out else None
-    p0 = w.packed.data_ptr()
-    p1 = p0 + 3 * H * H * 2                            # bf16 bytes
-    p2 = p1 + H * H * 2
     _launch("face_block", dev, _ptr(edge_attr), _ptr(cell_attr),
             _ptr(graph.cell_edge_index[0]), _ptr(graph.cell_edge_index[1]),
-            nf, p0, _ptr(m.b0), p1, _ptr(m.b1), p2, _ptr(m.b2), _ptr(m.ln_g),
-            _ptr(m.ln_b), _ptr(raw), _ptr(res))
+            nf, *_packed_ptrs(w, 3 * H), _ptr(raw), _ptr(res))
     fused_face_block.launches += 1
     return (raw, res) if dual_out else res
 
 
-def fused_cell_block(cell_attr, vtx, graph, w: BlockWeights,
-                     dual_out: bool = False):
-    """K2: the fused cell block. See :func:`fused_cell_block_ref`."""
+def fused_cell_block(cell_attr, vtx, graph, w, dual_out: bool = False):
+    """K2: the fused cell block. See :func:`fused_cell_block_ref`. On the
+    card ``w`` must be :class:`PackedWeights` (:func:`packed_weights`)."""
     if cell_attr.device.type == "cpu":
         return fused_cell_block_ref(cell_attr, vtx, graph, w, dual_out)
     dev = cell_attr.device
@@ -410,13 +424,13 @@ def fused_cell_block(cell_attr, vtx, graph, w: BlockWeights,
     _check(cell_attr, "cell_attr", dev, torch.bfloat16, (nc, H))
     _check(vtx, "vtx", dev, torch.bfloat16, (nv, H // 2))
     _check(graph.vertex_face, "vertex_face", dev, torch.int32, (3, nc))
-    _check_weights(w, H + H // 2, dev)
+    _check_packed(w, H + H // 2, dev, "K2")
     res = torch.empty_like(cell_attr)
     raw = torch.empty_like(cell_attr) if dual_out else None
     vf = graph.vertex_face
     _launch("cell_block", dev, _ptr(cell_attr), _ptr(vtx), _ptr(vf[0]),
-            _ptr(vf[1]), _ptr(vf[2]), nc, *map(_ptr, w), _ptr(raw),
-            _ptr(res))
+            _ptr(vf[1]), _ptr(vf[2]), nc, *_packed_ptrs(w, H + H // 2),
+            _ptr(raw), _ptr(res))
     fused_cell_block.launches += 1
     return (raw, res) if dual_out else res
 
@@ -470,8 +484,9 @@ def vertices_to_cells(vtx, graph):
 
 
 def _check_table(oh, what, dev, like=None) -> None:
-    """A (T, 128, B) table, B a positive multiple of 128, in one of the table
-    dtypes (or ``like``'s dtype and shape)."""
+    """A (T, 128, B) table, B a positive multiple of 128 up to
+    TABLE_MAX_BAND, in one of the table dtypes (or ``like``'s dtype and
+    shape)."""
     if oh.dtype not in TABLE_DTYPES:
         raise ValueError(f"{what} has dtype {oh.dtype}, expected one of "
                          f"{tuple(TABLE_DTYPES)}")
@@ -479,6 +494,9 @@ def _check_table(oh, what, dev, like=None) -> None:
             or oh.shape[2] == 0):
         raise ValueError(f"{what} has shape {tuple(oh.shape)}, expected "
                          f"(T, {TABLE_TILE}, a multiple of 128)")
+    if oh.shape[2] > TABLE_MAX_BAND:
+        raise ValueError(f"{what} has band {oh.shape[2]}; the table kernels "
+                         f"take at most {TABLE_MAX_BAND}")
     like = oh if like is None else like
     _check(oh, what, dev, like.dtype, like.shape)
 
@@ -503,8 +521,8 @@ def table_dual(oh_a, oh_b, src_off, src, combine_roll: bool = False):
         out_a = torch.empty((rows, H), dtype=torch.bfloat16, device=dev)
         out_b = torch.empty_like(out_a)
     _launch("table_dual", dev, _ptr(oh_a), _ptr(oh_b), _ptr(src_off),
-            _ptr(src), rows, band, TABLE_DTYPES[oh_a.dtype], int(combine_roll),
-            _ptr(out_a), _ptr(out_b))
+            _ptr(src), src.shape[0], rows, band, TABLE_DTYPES[oh_a.dtype],
+            int(combine_roll), _ptr(out_a), _ptr(out_b))
     table_dual.launches += 1
     return out_a if combine_roll else (out_a, out_b)
 
@@ -518,9 +536,6 @@ def table_single(oh, src_off, src):
     dev = src.device
     _check_table(oh, "oh", dev)
     T, _, band = oh.shape
-    if band > TABLE_SINGLE_MAX_BAND:
-        raise ValueError(f"oh has band {band}; K7 takes at most "
-                         f"{TABLE_SINGLE_MAX_BAND}")
     _check(src_off, "src_off", dev, torch.int32, (T,))
     _check(src, "src", dev, torch.bfloat16, (src.shape[0], H // 2))
     _check_bands(src_off, band, src.shape[0])

@@ -1,15 +1,16 @@
-"""What the redesigned K1 (fused face block) and K7 (dense-table single
-apply) rest on, checked on the CPU: the kernel build's hash sees every
-header; K7's plain version agrees with the JAX package's dense Pallas kernel
-(interpret mode) at other band widths and on NaN sources; K1's packed weight
-layout and weights; the wrappers' refusals (K6/K7 bands outside their
-source too); and the yardsticks of ``chip_smoke.py``
-(bytes and operations of each kernel's work), so that a redesign cannot
-move its own bound.
+"""What the redesigned K1 and K2 (fused face and cell blocks) and K6 and K7
+(dense-table dual and single apply) rest on, checked on the CPU: the kernel
+build's hash sees every header; K6's and K7's plain versions agree with the
+JAX package's dense Pallas kernels (interpret mode) at other band widths and
+on NaN sources; the packed weight layout (K0 = 384 and 192) and the weights
+K1 and K2 are given; the wrappers' refusals (unpacked weights, bands above
+the kernels' limit or outside their source); and the yardsticks of
+``chip_smoke.py`` (bytes and operations of each kernel's work), so that a
+redesign cannot move its own bound.
 
 Tolerances: K7 against the Pallas kernel within one bf16 step (2**-7
 relative plus 2**-7 absolute: f32 sums in another order, one rounding);
-layouts and counts exactly.
+NaN positions, layouts and counts exactly.
 """
 
 import dataclasses
@@ -27,7 +28,7 @@ import chip_smoke
 from gnn_fluid_dynamics_tpu_torch.data.pipeline import (MeshDataset, Trajectory,
                                                         rollout_batch)
 from gnn_fluid_dynamics_tpu_torch.graph import from_geometry, to_static_bands
-from gnn_fluid_dynamics_tpu_torch.models.arch import MLP
+from gnn_fluid_dynamics_tpu_torch.models.arch import MLP, ArchConfig, CellBlock
 from gnn_fluid_dynamics_tpu_torch.ops import kernels
 
 H = 128
@@ -112,16 +113,53 @@ def test_table_single_plain_propagates_nan_through_a_zero_weight():
     assert np.isfinite(want[128:]).all() and np.isfinite(got[128:]).all()
 
 
+@pytest.mark.parametrize("roll", [False, True])
+def test_table_dual_plain_propagates_nan_through_a_zero_weight(roll):
+    """K6's plain version, as the TPU kernel's one-hot products: a NaN source
+    row in a tile's band that neither table of that tile weighs gives NaN in
+    every row of that tile (in both outputs, or in the rolled sum), and in no
+    other tile."""
+    rng = np.random.default_rng(22)
+    T, B = 2, 256
+    oh_a = _vc_like_table(rng, T, B)
+    oh_b = _vc_like_table(rng, T, B)
+    off = np.array([0, 256], np.int32)
+    src = rng.normal(size=(512, H)).astype(np.float32)
+    nan_row = 9
+    oh_a[0, :, nan_row] = 0
+    oh_b[0, :, nan_row] = 0
+    src[nan_row] = np.nan
+    sj = jnp.asarray(src, jnp.bfloat16)
+    st = torch.from_numpy(src).to(torch.bfloat16)
+    want = pallas_agg.banded_dual_pallas(
+        jnp.asarray(oh_a), jnp.asarray(oh_b), jnp.asarray(off), sj,
+        combine_roll=H // 2 if roll else 0)
+    got = kernels.table_dual(torch.from_numpy(oh_a), torch.from_numpy(oh_b),
+                             torch.from_numpy(off), st, combine_roll=roll)
+    if roll:
+        want, got = (np.asarray(want.astype(jnp.float32))[:, :H // 2],), (got,)
+    else:
+        want = tuple(np.asarray(w.astype(jnp.float32)) for w in want)
+    for w, g in zip(want, got):
+        g = g.float().numpy()
+        np.testing.assert_array_equal(np.isnan(g), np.isnan(w))
+        assert np.isnan(g[:128]).all() and np.isfinite(g[128:]).all()
+
+
 # ---- K1's packed weights and the wrappers' refusals -------------------------
 
 def test_pack_weights_puts_each_entry_in_its_core_matrix():
     """Element (k, n) of a (K, N) matrix lands at ((k // 8) * (N // 8) +
     n // 8) * 64 + (n % 8) * 8 + k % 8 of its part, the parts W0, W1, W2 one
     after the other (the layout ``csrc/gn_wgmma.cuh`` describes)."""
-    g = torch.Generator().manual_seed(3)
-    ws = [torch.randn(k, H, generator=g) for k in (3 * H, H, H)]
+    _assert_packed(3 * H, seed=3)
+
+
+def _assert_packed(k0, seed):
+    g = torch.Generator().manual_seed(seed)
+    ws = [torch.randn(k, H, generator=g) for k in (k0, H, H)]
     packed = kernels.pack_weights(*ws)
-    assert packed.shape == ((3 * H + 2 * H) * H,) and packed.is_contiguous()
+    assert packed.shape == ((k0 + 2 * H) * H,) and packed.is_contiguous()
     base = 0
     for w in ws:
         K, N = w.shape
@@ -131,12 +169,19 @@ def test_pack_weights_puts_each_entry_in_its_core_matrix():
         base += K * N
 
 
+def test_pack_weights_at_the_cell_blocks_width():
+    """The same layout at K2's input width, K0 = 192 (128 cell channels and
+    the 64-channel vertex mean): element (k, n) of each matrix lands in its
+    8 x 8 core matrix, W0 (192 x 128), W1 and W2 one after the other."""
+    _assert_packed(H + H // 2, seed=4)
+
+
 def test_kernel_weights_pack_once_in_bf16():
-    """Only K1's weights are packed, asked for by name, once per set of
-    weights; the plain MLP weights (K2's) carry no packed copy."""
+    """The fused kernels' weights are packed when asked for by name, once
+    per set of weights; the plain MLP weights carry no packed copy."""
     mlp = MLP(3 * H, H, H, generator=torch.Generator().manual_seed(0))
     w = mlp.kernel_weights(packed=True)
-    assert isinstance(w, kernels.FaceWeights)
+    assert isinstance(w, kernels.PackedWeights)
     assert w.packed.dtype == w.mlp.w0.dtype == torch.bfloat16
     torch.testing.assert_close(
         w.packed, kernels.pack_weights(w.mlp.w0, w.mlp.w1, w.mlp.w2),
@@ -146,7 +191,7 @@ def test_kernel_weights_pack_once_in_bf16():
 
 
 def test_face_block_plain_version_reads_the_packed_weights_source(small_graph):
-    """On the CPU K1 with its FaceWeights gives what it gives with the MLP
+    """On the CPU K1 with its PackedWeights gives what it gives with the MLP
     weights they were packed from."""
     g = small_graph
     mlp = MLP(3 * H, H, H, generator=torch.Generator().manual_seed(1))
@@ -167,13 +212,13 @@ def small_graph():
 
 
 def test_face_block_refuses_weights_without_their_packing(small_graph):
-    """Off the CPU K1 takes only FaceWeights, and checks what it passes to
+    """Off the CPU K1 takes only PackedWeights, and checks what it passes to
     the kernel: the packed matrices and the five vectors."""
     meta = torch.device("meta")
     g = small_graph
     mlp = MLP(3 * H, H, H, generator=torch.Generator().manual_seed(0))
     fw = mlp.kernel_weights(packed=True)
-    w = kernels.FaceWeights(kernels.BlockWeights(*(t.to(meta) for t in fw.mlp)),
+    w = kernels.PackedWeights(kernels.BlockWeights(*(t.to(meta) for t in fw.mlp)),
                             fw.packed.to(meta))
     cells = torch.empty((g.num_cells, H), dtype=torch.bfloat16, device=meta)
     edges = torch.empty((g.num_faces, H), dtype=torch.bfloat16, device=meta)
@@ -188,6 +233,92 @@ def test_face_block_refuses_weights_without_their_packing(small_graph):
         kernels.fused_face_block(cells, edges, gm, w._replace(
             mlp=w.mlp._replace(ln_b=w.mlp.ln_b.float())))
     assert kernels.fused_face_block.launches == before
+
+
+def test_cell_block_passes_packed_bf16_weights_once(small_graph, monkeypatch):
+    """The fused cell block hands K2 its MLP's PackedWeights, bf16, packed
+    once and then taken from the cache."""
+    g = small_graph
+    block = CellBlock(ArchConfig(), generator=torch.Generator().manual_seed(5))
+    seen = []
+
+    def spy(cell_attr, vtx, graph, w, dual_out=False):
+        seen.append(w)
+        return kernels.fused_cell_block_ref(cell_attr, vtx, graph, w, dual_out)
+
+    monkeypatch.setattr(kernels, "fused_cell_block", spy)
+    gen = torch.Generator().manual_seed(6)
+    cells = torch.randn(g.num_cells, H, generator=gen)
+    edges = torch.randn(g.num_faces, H, generator=gen)
+    for _ in range(2):
+        block(cells, edges, g, route="fused", dual_out=True)
+    w = seen[0]
+    assert isinstance(w, kernels.PackedWeights) and seen[1] is w
+    assert w.packed.dtype == torch.bfloat16
+    assert all(t.dtype == torch.bfloat16 for t in w.mlp)
+    torch.testing.assert_close(
+        w.packed, kernels.pack_weights(w.mlp.w0, w.mlp.w1, w.mlp.w2),
+        rtol=0, atol=0)
+
+
+def test_cell_block_plain_version_reads_the_packed_weights_source(small_graph):
+    """On the CPU K2 with its PackedWeights gives what it gives with the MLP
+    weights they were packed from."""
+    g = small_graph
+    mlp = MLP(H + H // 2, H, H, generator=torch.Generator().manual_seed(7))
+    gen = torch.Generator().manual_seed(8)
+    cells = torch.randn(g.num_cells, H, generator=gen).to(torch.bfloat16)
+    vtx = torch.randn(g.num_vertices, H // 2, generator=gen).to(torch.bfloat16)
+    got = kernels.fused_cell_block(cells, vtx, g,
+                                   mlp.kernel_weights(packed=True), True)
+    want = kernels.fused_cell_block(cells, vtx, g, mlp.kernel_weights(), True)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_cell_block_refuses_weights_without_their_packing(small_graph):
+    """Off the CPU K2 takes only PackedWeights for K0 = 192, and checks what
+    it passes to the kernel: the packed matrices and the five vectors."""
+    meta = torch.device("meta")
+    g = small_graph
+    mlp = MLP(H + H // 2, H, H, generator=torch.Generator().manual_seed(0))
+    pw = mlp.kernel_weights(packed=True)
+    w = kernels.PackedWeights(kernels.BlockWeights(*(t.to(meta) for t in pw.mlp)),
+                              pw.packed.to(meta))
+    cells = torch.empty((g.num_cells, H), dtype=torch.bfloat16, device=meta)
+    vtx = torch.empty((g.num_vertices, H // 2), dtype=torch.bfloat16,
+                      device=meta)
+    gm = dataclasses.replace(g, vertex_face=g.vertex_face.to(meta))
+    face_packed = MLP(3 * H, H, H).kernel_weights(packed=True).packed.to(meta)
+    before = kernels.fused_cell_block.launches
+    with pytest.raises(ValueError, match="packed"):
+        kernels.fused_cell_block(cells, vtx, gm, w.mlp)
+    with pytest.raises(ValueError, match="packed"):
+        kernels.fused_cell_block(cells, vtx, gm, w._replace(packed=face_packed))
+    with pytest.raises(ValueError, match="b1"):
+        kernels.fused_cell_block(cells, vtx, gm, w._replace(
+            mlp=w.mlp._replace(b1=w.mlp.b1.float())))
+    assert kernels.fused_cell_block.launches == before
+
+
+@pytest.mark.parametrize("kernel", ["K6", "K7"])
+def test_table_kernels_refuse_a_band_above_their_limit(kernel):
+    """K6 and K7 take bands up to TABLE_MAX_BAND (1,792): a wider table is
+    refused before anything launches."""
+    meta = torch.device("meta")
+    band = kernels.TABLE_MAX_BAND + 128
+    oh = torch.empty((2, 128, band), dtype=torch.int8, device=meta)
+    off = torch.zeros(2, dtype=torch.int32, device=meta)
+    if kernel == "K6":
+        call, args = kernels.table_dual, (oh, oh, off, torch.empty(
+            (4096, H), dtype=torch.bfloat16, device=meta))
+    else:
+        call, args = kernels.table_single, (oh, off, torch.empty(
+            (4096, H // 2), dtype=torch.bfloat16, device=meta))
+    before = call.launches
+    with pytest.raises(ValueError, match="at most 1792"):
+        call(*args)
+    assert call.launches == before
 
 
 @pytest.mark.parametrize("band", [0, 200])
