@@ -10,13 +10,20 @@ Phases (each prints one flushed line; any failure exits non-zero):
 1. device and build: the card's name and power limit, the kernels' build time;
 2. kernel vs plain: K1-K5 at the FluxD/FvgnF shapes (K1 and K2 in four
    forms, single- and dual-output at the FluxD mesh and at the FluxD-valid
-   batch on its index route, each also read against an f64 evaluation) and
+   batch on its index route, each also read against an f64 evaluation; K3,
+   K5 and the pair K3 -> K5 also at that batch, whose pad vertex has a CSR
+   row longer than one of K3's rounds) and
    K6/K7 on the FluxD-valid batch's own tables (int8, and once more cast to
    bf16 and to f32; K6's roll form also on the tables widened to a band of
    896, K7 on the tables widened to 384), on seeded inputs; K6 and K7 also
    with a NaN source row that a tile's weights skip, whose NaN must reach
    the same places as in the plain version; K7 and its library call timed
-   also with L2 flushed between launches;
+   also with L2 flushed between launches; the launch floor (an empty kernel
+   back to back, with and without the programmatic dependent launch
+   attribute K3 and K5 launch with); and the PDL hazard check: for 200
+   rounds a slow writer, which lets the next launch start at its own start,
+   writes fresh edge latents into the buffer that K3 reads right after it,
+   and K3 -> K5 must agree with the plain versions on every round;
 3. the three paths at hidden 128, 15 GN block applications and bf16, with
    seeded weights and statistics from the synthetic channel flow:
 
@@ -43,7 +50,8 @@ Phases (each prints one flushed line; any failure exits non-zero):
    (15, K6 30) and never on another path; last a device profile of 10
    steps;
 4. the ``kernels`` line: per kernel its time per launch, launches, bound,
-   plain time and library time.
+   plain time and library time (K3 and K5 also the pair's time and the
+   launch floor).
 
 The last line is ``{"ok": true, "device": {...}}``. Without a card the script
 exits non-zero and prints no result.
@@ -103,6 +111,9 @@ KERNEL_RTOL = KERNEL_ATOL = 2.0 ** -7
 # latents through 15 blocks (measured on the CPU at 904 cells: up to 2.8%
 # on FluxD's face fields)
 STEP_TOL = 5e-2
+HAZARD_ROUNDS = 200
+HAZARD_CYCLES = 100_000   # the hazard writer's idle cycles (~50 us) before it writes
+FLOOR_ITERS = 200         # launches per timed batch of K3, K5, the pair, the floor
 
 KERNELS = {
     "K1_fused_face_block": dict(
@@ -460,7 +471,8 @@ def kernel_phase(graph, index_graph) -> dict:
     its plain version on the same inputs, then timed beside it. K1 and K2
     in four forms each, single- and dual-output at the FluxD mesh and at
     ``index_graph`` (the FluxD-valid batch on its index route), also held
-    against an f64 evaluation (``block_forms``)."""
+    against an f64 evaluation (``block_forms``); K3, K5 and the pair K3 ->
+    K5 at both (``chain_forms``), and the launch floor."""
     dev = graph.device
     rng = np.random.default_rng(0)
 
@@ -474,24 +486,28 @@ def kernel_phase(graph, index_graph) -> dict:
         packed=True)
     cells, edges = latents(graph.num_cells), latents(graph.num_faces)
     vtx = kernels.edges_to_vertices_ref(edges, graph)
-    cases = {
-        "K3_edges_to_vertices": (
-            lambda: kernels.edges_to_vertices(edges, graph),
-            lambda: kernels.edges_to_vertices_ref(edges, graph)),
-        "K5_vertices_to_cells": (
-            lambda: kernels.vertices_to_cells(vtx, graph),
-            lambda: kernels.vertices_to_cells_ref(vtx, graph)),
-        "K4_gather_face_cells": (
-            lambda: kernels.gather_face_cells(cells, graph),
-            lambda: kernels.gather_face_cells_ref(cells, graph)),
-    }
-    results = {}
-    for name, (run, ref) in cases.items():
-        got, want = run(), ref()
-        torch.cuda.synchronize()
-        err = _compare(name, got, want, exact=name == "K4_gather_face_cells")
-        results[name] = {"max_abs_err": err, "ms": gpu_ms(run),
-                         "plain_ms": gpu_ms(ref)}
+    run = functools.partial(kernels.gather_face_cells, cells, graph)
+    ref = functools.partial(kernels.gather_face_cells_ref, cells, graph)
+    got, want = run(), ref()
+    torch.cuda.synchronize()
+    results = {"K4_gather_face_cells": {
+        "max_abs_err": _compare("K4_gather_face_cells", got, want, exact=True),
+        "ms": gpu_ms(run), "plain_ms": gpu_ms(ref)}}
+    chain = chain_forms(graph, index_graph, latents)
+    floor = floor_times(graph)
+    for name, rows in (("K3_edges_to_vertices", graph.num_vertices),
+                       ("K5_vertices_to_cells", graph.num_cells)):
+        at_mesh = chain[name][str(rows)]
+        results[name] = {
+            "max_abs_err": max(f["max_abs_err"] for f in chain[name].values()),
+            "ms": at_mesh["ms"], "plain_ms": at_mesh["plain_ms"],
+            "forms": chain[name], "pair": chain["pair"],
+            "launch_floor_ms": floor,
+            "unit": "per launch at the FvgnF mesh, back to back without the "
+                    "PDL attribute (with it a launch overlaps its own next "
+                    "one); forms by rows; pair: K3 -> K5 by cells, with the "
+                    "attribute as the path launches it and without; longest "
+                    f"CSR row {chain['longest_csr_row']}"}
     # one PyTorch call computing each kernel's function where there is one;
     # timed here, never used by the port. K3: index_add_ of the (2F, H/2)
     # half-rows onto their vertices (bf16 accumulation)
@@ -516,6 +532,123 @@ def kernel_phase(graph, index_graph) -> dict:
                     ("K2_fused_cell_block", w_cell)):
         results[name] = block_forms(name, graph, index_graph, w, latents)
     return results
+
+
+def csr_longest_row(g) -> int:
+    """The most incidences of one vertex in ``g``'s CSR (the pad vertex of a
+    padded graph holds about 2 per padded face)."""
+    return int((g.vertex_inc_ptr[1:] - g.vertex_inc_ptr[:-1]).max())
+
+
+def chain_forms(graph, index_graph, latents) -> dict:
+    """K3 and K5 at the FvgnF mesh and at ``index_graph`` (the FluxD-valid
+    batch on its index route), and the pair K3 -> K5 as FvgnF issues it,
+    each held against its plain version and timed back to back. K3 and K5
+    alone are timed without the PDL attribute: with it a kernel timed alone
+    overlaps its own next launch, which no path does. The pair is timed
+    with the attribute (each K3 may start as the K5 before it ends, as it
+    may behind the kernel ahead of it in FvgnF's step) and without. Fails if
+    the batch's longest CSR row fits in one of K3's rounds (32 incidences)."""
+    longest = csr_longest_row(index_graph)
+    if longest <= 32:
+        fail(f"the padded batch's longest CSR row has {longest} incidences: "
+             "K3's round loop is not held")
+    out = {"K3_edges_to_vertices": {}, "K5_vertices_to_cells": {}, "pair": {}}
+    for g in (graph, index_graph):
+        edges = latents(g.num_faces)
+        vtx = kernels.edges_to_vertices_ref(edges, g)
+        k3 = functools.partial(kernels.edges_to_vertices, edges, g)
+        k3_ref = functools.partial(kernels.edges_to_vertices_ref, edges, g)
+        k5 = functools.partial(kernels.vertices_to_cells, vtx, g)
+        k5_ref = functools.partial(kernels.vertices_to_cells_ref, vtx, g)
+
+        def pair(edges=edges, g=g):
+            return kernels.vertices_to_cells(kernels.edges_to_vertices(edges, g), g)
+
+        def pair_ref(vtx=vtx, g=g):
+            return kernels.vertices_to_cells_ref(vtx, g)
+
+        bnd = bounds(g)
+        b3, b5 = bnd["K3_edges_to_vertices"], bnd["K5_vertices_to_cells"]
+        bnd["pair"] = _bound(b3[2] + b5[2], b3[3] + b5[3], PEAK_F32_FLOPS)
+        for name, run, ref, rows in (
+                ("K3_edges_to_vertices", k3, k3_ref, g.num_vertices),
+                ("K5_vertices_to_cells", k5, k5_ref, g.num_cells),
+                ("pair", pair, pair_ref, g.num_cells)):
+            got, want = run(), ref()
+            torch.cuda.synchronize()
+            with kernels.without_pdl():
+                ms_no_pdl = gpu_ms(run, FLOOR_ITERS)
+            form = {"max_abs_err": _compare(f"{name} at {rows} rows", got,
+                                            want, exact=False),
+                    "ms": ms_no_pdl, "plain_ms": gpu_ms(ref),
+                    "bound_ms": bnd[name][0], "bound_by": bnd[name][1]}
+            if name == "pair":
+                form["ms_no_pdl"] = ms_no_pdl
+                form["ms"] = gpu_ms(run, FLOOR_ITERS)
+            out[name][str(rows)] = form
+    out["longest_csr_row"] = {"mesh": csr_longest_row(graph),
+                              "batch": longest}
+    return out
+
+
+def floor_times(graph) -> dict:
+    """ms per launch of an empty kernel back to back (as ``gpu_ms`` times),
+    without and with the programmatic dependent launch attribute, at one
+    block of 32 threads and at K3's grid on ``graph`` (a warp per vertex,
+    8 per block)."""
+    dev = graph.device
+    out = {}
+    for shape, (blocks, threads) in (("1x32", (1, 32)),
+                                     ("k3_grid", ((graph.num_vertices + 7) // 8,
+                                                  256))):
+        run = functools.partial(kernels.launch_floor, dev, blocks, threads)
+        with kernels.without_pdl():
+            out[f"plain_{shape}"] = gpu_ms(run, FLOOR_ITERS)
+        out[f"pdl_{shape}"] = gpu_ms(run, FLOOR_ITERS)
+    return out
+
+
+def pdl_hazard_check(graph) -> dict:
+    """K3 and K5 start before the kernel ahead of them ends, and must not
+    read its output before their wait. For HAZARD_ROUNDS rounds a writer
+    that lets the next launch start at its own start, then idles
+    HAZARD_CYCLES clock cycles, writes fresh edge latents (the sign flipped
+    every round) into the buffer K3 reads right after it; then K5. K3 thus
+    runs its prologue beside the writer, and K5 beside K3. Every round's
+    vertex sums and cell means must agree with the plain versions on that
+    round's edges. Also times a round (writer, K3, K5) back to back with
+    and without the PDL attribute."""
+    dev = graph.device
+    gen = torch.Generator(device=dev).manual_seed(3)
+    base = torch.empty(graph.num_faces, H, dtype=torch.bfloat16,
+                       device=dev).normal_(generator=gen)
+    edges = torch.zeros_like(base)
+
+    def round_(r):
+        kernels.slow_writer(base, edges, bool(r % 2), HAZARD_CYCLES)
+        vtx = kernels.edges_to_vertices(edges, graph)
+        return vtx, kernels.vertices_to_cells(vtx, graph)
+
+    rounds = []
+    torch.cuda.synchronize()
+    for r in range(HAZARD_ROUNDS):
+        rounds.append(round_(r))
+    torch.cuda.synchronize()
+    err = 0.0
+    for r, (vtx, cells) in enumerate(rounds):
+        e = -base if r % 2 else base
+        err = max(err,
+                  _compare(f"PDL hazard round {r}: K3", vtx,
+                           kernels.edges_to_vertices_ref(e, graph), False),
+                  _compare(f"PDL hazard round {r}: K5", cells,
+                           kernels.vertices_to_cells_ref(vtx, graph), False))
+    with kernels.without_pdl():
+        round_no_pdl = gpu_ms(functools.partial(round_, 0), 20)
+    return {"rounds": HAZARD_ROUNDS, "writer_idle_cycles": HAZARD_CYCLES,
+            "max_abs_err": err,
+            "ms_per_round": gpu_ms(functools.partial(round_, 0), 20),
+            "ms_per_round_no_pdl": round_no_pdl}
 
 
 # the fused blocks: their wrapper, plain version, the rows they write, and
@@ -748,12 +881,11 @@ def validate_check(ds):
     return check
 
 
-def slice_phase(path: str, graph, errors_check, device_line: str,
-                index_graph=None) -> dict:
-    """One path's rollout through the kernels: first held against the plain
-    route (and, with ``index_graph``, against the index route of the same
-    batch), then timed with the launch counters read around it."""
-    cls, per_step = PATHS[path]
+def path_models(path: str, graph):
+    """``path``'s model on the kernel route and on the plain route, with the
+    same seeded weights and statistics from ``graph``'s features, and those
+    features."""
+    cls = PATHS[path][0]
     dev = graph.device
     cfg = ModelConfig(name=cls.name, hidden_width=H, mp_num=MP_NUM,
                       aggregation="pallas", compute_dtype="bfloat16")
@@ -767,7 +899,16 @@ def slice_phase(path: str, graph, errors_check, device_line: str,
     kern.set_stats(stats)
     plain.set_stats(stats)
     plain.module.load_state_dict(kern.module.state_dict())
+    return kern, plain, feats
 
+
+def slice_phase(path: str, graph, errors_check, device_line: str,
+                index_graph=None) -> dict:
+    """One path's rollout through the kernels: first held against the plain
+    route (and, with ``index_graph``, against the index route of the same
+    batch), then timed with the launch counters read around it."""
+    per_step = PATHS[path][1]
+    kern, plain, feats = path_models(path, graph)
     worst = check_against_plain(kern, plain, graph, feats, index_graph)
     say(f"phase 3a {path} kernel vs plain route, {CHECK_STEPS} steps on the "
         "same inputs: ok " + json.dumps(
@@ -828,7 +969,10 @@ def device_profile(model, graph, feats, steps: int = 10):
     """Device time per step by kernel name over a short rollout (the 8
     largest, and each of this package's kernels), and the share of the
     window's wall time with a kernel running, from torch.profiler (device
-    activity only); None where the profiler shows no device time."""
+    activity only); None where the profiler shows no device time. The
+    device time per step is the sum of the kernels' spans, and also their
+    union: a kernel launched by PDL starts before the one ahead of it ends
+    (its prologue, then its wait), so the sum counts that overlap twice."""
     from torch.profiler import ProfilerActivity, profile
     cfg = RolloutConfig(num_steps=steps, compute_error=False)
     try:
@@ -849,6 +993,12 @@ def device_profile(model, graph, feats, steps: int = 10):
         per_name[e.name] = per_name.get(e.name, 0.0) + (
             e.time_range.end - e.time_range.start)
     busy = sum(per_name.values())
+    union, reach = 0.0, float("-inf")
+    for start, end in sorted((e.time_range.start, e.time_range.end)
+                             for e in events):
+        if end > reach:
+            union += end - max(start, reach)
+            reach = end
     top = sorted(per_name.items(), key=lambda kv: -kv[1])[:8]
     # this package's kernels: "gfd::name(...)", or "void gfd::name<...>(...)"
     # for a template
@@ -856,6 +1006,7 @@ def device_profile(model, graph, feats, steps: int = 10):
             for n, t in per_name.items() if "gfd::" in n.split("(")[0]}
     return {"busy_share": busy / wall_us,
             "device_ms_per_step": busy / steps / 1e3,
+            "device_union_ms_per_step": union / steps / 1e3,
             "wall_ms_per_step": wall_us / steps / 1e3,
             "kernels_per_step": len(events) / steps,
             "top_ms_per_step": {n[:60]: t / steps / 1e3 for n, t in top},
@@ -889,9 +1040,17 @@ def main() -> int:
     per_kernel.update(table_phase(vgraph))
     say("phase 2 kernel vs plain: ok " + json.dumps(
         {k: round(v["max_abs_err"], 6) for k, v in per_kernel.items()}))
-    for name in ("K1_fused_face_block", "K2_fused_cell_block", "K6_table_dual",
+    for name in ("K1_fused_face_block", "K2_fused_cell_block",
+                 "K3_edges_to_vertices", "K5_vertices_to_cells", "K6_table_dual",
                  "K7_table_single"):
         say(f"phase 2 {name} by form: " + json.dumps(per_kernel[name]["forms"]))
+    say("phase 2 K3 -> K5 pair by cells: "
+        + json.dumps(per_kernel["K3_edges_to_vertices"]["pair"])
+        + "; launch floor, ms per empty launch back to back: "
+        + json.dumps(per_kernel["K3_edges_to_vertices"]["launch_floor_ms"]))
+    hazard = pdl_hazard_check(graph)
+    say("phase 2 PDL hazard check, K3 -> K5 right behind a slow writer of "
+        "their input: ok " + json.dumps(hazard))
     say("phase 2 NaN through a zero weight, same places as the plain version: "
         + json.dumps({name: per_kernel[name]["nan_through_zero_weight"]
                       for name in ("K6_table_dual", "K7_table_single")}))
@@ -920,6 +1079,7 @@ def main() -> int:
             "library_ms": r.get("library_ms"), "bytes": nbytes, "flops": flops,
             **({"forms": r["forms"], "unit": r["unit"]}
                if "forms" in r else {}),
+            **{k: r[k] for k in ("pair", "launch_floor_ms") if k in r},
         })
     say(f"phase 4 card {line}; " + "; ".join(
         f"{path} {p['steps_per_s']:.1f} steps/s, {p['ms_per_step']:.4f} ms/step"

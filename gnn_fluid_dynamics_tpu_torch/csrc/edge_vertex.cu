@@ -12,35 +12,128 @@
 // inc_row[inc_ptr[v] : inc_ptr[v + 1]] (2f + 0 sent, 2f + 1 received).
 //
 // The TPU kernel rebuilt send/receive one-hot tables on chip and multiplied
-// them with a DMA'd band of edges. Here one warp owns one vertex and walks
-// its CSR row, each lane adding 2 of the 64 channels: no atomics, so the sum
-// is deterministic. Bound: bytes (each half-row is read once, ~2.7 MB per
-// launch at the rollout's 5,361 faces); the launch is short enough that its
-// fixed cost dominates at this size.
+// them with a DMA'd band of edges. Here one warp owns one vertex; no
+// atomics, so the sum is deterministic.
+//
+// What bounds it: not bytes. A launch at the rollout's mesh moves 1.7 MB
+// (10,722 half-rows of 128 B, 0.5 us at 3.35 TB/s), but each vertex is a
+// chain of dependent loads (row bounds, then incidence ids, then half-rows)
+// and the launch's fixed cost is most of its time. The design shortens the
+// chain and hides what it can:
+//  * a round brings 32 incidence ids in one coalesced load, one per lane;
+//    the half-rows go as 16-byte loads, 8 lanes per half-row, 4 half-rows
+//    per pass, all 8 passes of a round issued before any is summed, with the
+//    next round's ids already in flight (rows past 32, as the pad vertex of
+//    a padded graph has, take more rounds);
+//  * it is launched by programmatic dependent launch (pdl.cuh): a warp's
+//    row bounds and first ids, constant index vectors, load while the
+//    kernel before it finishes, and K5 may start once every block of it
+//    has started.
 #include "common.cuh"
+#include "pdl.cuh"
 
 namespace gfd {
 
-constexpr int HALF = H / 2;
+constexpr int HALF = H / 2;                    // channels of a half-row
+constexpr int ROW_LANES = 8;                   // lanes per half-row, 16 B each
+constexpr int ROWS_PER_PASS = 32 / ROW_LANES;  // half-rows per warp load
+constexpr int ROUND = 32;                      // incidence ids per round
+constexpr int PASSES = ROUND / ROWS_PER_PASS;
 constexpr int WARPS = 8;
+constexpr unsigned FULL = 0xffffffffu;
+
+__device__ __forceinline__ void add_bf16x8(float (&s)[8], const uint4& x) {
+  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&x);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float2 f = __bfloat1622float2(p[k]);
+    s[2 * k] += f.x;
+    s[2 * k + 1] += f.y;
+  }
+}
+
+// The f32 sum of the half-rows edge[inc_row[j]], j in [start, end), in
+// channels 8q .. 8q + 7 (q = lane % 8), left in every lane. `ids` holds the
+// first round's ids (lane l: inc_row[start + l], where that lies below
+// end). Lane group g = lane / 8 sums each round's incidences g, g + 4, ... in
+// order; the four groups' sums meet by two shuffles in a fixed order, so
+// every run gives the same bits.
+__device__ __forceinline__ void vertex_sum(const bf16* edge,
+                                           const int* __restrict__ inc_row,
+                                           int start, int end, int ids,
+                                           int lane, float (&s)[8]) {
+  const int g = lane / ROW_LANES, q = lane % ROW_LANES;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) s[k] = 0.0f;
+  for (int base = start; base < end; base += ROUND) {
+    const int next = base + ROUND + lane;
+    const int next_ids = next < end ? inc_row[next] : 0;
+    const int n = min(end - base, ROUND);
+    uint4 x[PASSES];
+#pragma unroll
+    for (int p = 0; p < PASSES; ++p) {
+      const int i = p * ROWS_PER_PASS + g;
+      const int row = __shfl_sync(FULL, ids, i);
+      x[p] = i < n ? reinterpret_cast<const uint4*>(edge + (size_t)row * HALF)[q]
+                   : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int p = 0; p < PASSES; ++p) add_bf16x8(s, x[p]);  // + 0 is exact
+    ids = next_ids;
+  }
+#pragma unroll
+  for (int k = 0; k < 8; ++k) s[k] += __shfl_xor_sync(FULL, s[k], 8);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) s[k] += __shfl_xor_sync(FULL, s[k], 16);
+}
 
 __global__ void __launch_bounds__(WARPS * 32)
-edge_vertex_kernel(const bf16* __restrict__ edge, const int* __restrict__ ptr,
+edge_vertex_kernel(const bf16* edge, const int* __restrict__ ptr,
                    const int* __restrict__ inc_row, int n_vertices,
-                   bf16* __restrict__ out) {
-  const int v = blockIdx.x * WARPS + threadIdx.x / 32;
+                   bf16* out) {
+  pdl_launch_dependents();
   const int lane = threadIdx.x % 32;
-  if (v >= n_vertices) return;
-  float sx = 0.0f, sy = 0.0f;
-  const int end = ptr[v + 1];
-  for (int j = ptr[v]; j < end; ++j) {
-    const float2 x = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(
-        edge + (size_t)inc_row[j] * HALF)[lane]);
-    sx += x.x;
-    sy += x.y;
+  const int v = blockIdx.x * WARPS + threadIdx.x / 32;
+  // constant index vectors only, before the wait: the row bounds, first ids
+  int start = 0, end = 0, ids = 0;
+  if (v < n_vertices) {
+    start = ptr[v];
+    end = ptr[v + 1];
+    if (start + lane < end) ids = inc_row[start + lane];
   }
-  reinterpret_cast<__nv_bfloat162*>(out + (size_t)v * HALF)[lane] =
-      __floats2bfloat162_rn(sx, sy);
+  pdl_wait();
+  if (v >= n_vertices) return;
+  float s[8];
+  vertex_sum(edge, inc_row, start, end, ids, lane, s);
+  if (lane < ROW_LANES) {
+    uint4 o;
+    __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&o);
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      p[k] = __floats2bfloat162_rn(s[2 * k], s[2 * k + 1]);
+    reinterpret_cast<uint4*>(out + (size_t)v * HALF)[lane] = o;
+  }
+}
+
+// An empty kernel that keeps the PDL rules, for the launch floor.
+__global__ void launch_floor_kernel() {
+  pdl_launch_dependents();
+  pdl_wait();
+}
+
+// The writer of the PDL hazard check: lets a PDL launch behind it start at
+// once, idles for `cycles` clock cycles, then writes dst = src, negated
+// when `negate`. A kernel behind it that read dst before its wait would
+// read the previous round's values.
+__global__ void slow_writer_kernel(const bf16* src, int n, int negate,
+                                   int cycles, bf16* dst) {
+  pdl_launch_dependents();
+  const long long t0 = clock64();
+  while (clock64() - t0 < cycles) {
+  }
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x)
+    dst[i] = negate ? __hneg(src[i]) : src[i];
 }
 
 }  // namespace gfd
@@ -54,8 +147,33 @@ extern "C" int gfd_edge_vertex(int device, const void* edge, const void* ptr,
   if (err != cudaSuccess) return err;
   if (n_vertices == 0) return cudaSuccess;
   const int blocks = (n_vertices + WARPS - 1) / WARPS;
-  edge_vertex_kernel<<<blocks, WARPS * 32, 0, (cudaStream_t)stream>>>(
-      (const bf16*)edge, (const int*)ptr, (const int*)inc_row, n_vertices,
-      (bf16*)out);
+  return launch_pdl(edge_vertex_kernel, dim3(blocks), dim3(WARPS * 32),
+                    (cudaStream_t)stream, (const bf16*)edge, (const int*)ptr,
+                    (const int*)inc_row, n_vertices, (bf16*)out);
+}
+
+// Launches the empty kernel on `stream` with `blocks` x `threads` through
+// the PDL launch path: the fixed cost of a launch, for measuring. Returns
+// the CUDA error code.
+extern "C" int gfd_launch_floor(int device, int blocks, int threads,
+                                void* stream) {
+  using namespace gfd;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  return launch_pdl(launch_floor_kernel, dim3(blocks), dim3(threads),
+                    (cudaStream_t)stream);
+}
+
+// Launches the hazard check's writer on `stream` as a plain launch of
+// `blocks` blocks of 256 threads (few, so that the PDL launch behind it
+// finds room beside it); returns the CUDA error code.
+extern "C" int gfd_slow_writer(int device, const void* src, int n, int negate,
+                               int cycles, int blocks, void* dst,
+                               void* stream) {
+  using namespace gfd;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  slow_writer_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(
+      (const bf16*)src, n, negate, cycles, (bf16*)dst);
   return cudaGetLastError();
 }

@@ -11,14 +11,19 @@
 // mean, so the wrapper's cast and division cost no launches of their own;
 // the rounding points are the TPU wrapper's.
 //
-// Bound: bytes. A launch reads the vertex sums once (V * 128 B), the three
-// vertex ids (12 B per cell) and writes 256 B per cell: 1.17 MB at the
-// rollout's 1,899 vertices and 3,462 cells, 0.35 us at 3.35 TB/s. Design: 8
-// threads per cell, each summing one 16-byte chunk (8 bf16) of the three
-// rows in f32 registers and storing 32 bytes of the f32 mean. No shared
-// memory and no products: the band DMA and the one-hot selectors are not
-// carried over.
+// What bounds it: not bytes. A launch reads the vertex sums once (V * 128
+// B), the three vertex ids (12 B per cell) and writes 256 B per cell: 1.17
+// MB at the rollout's 1,899 vertices and 3,462 cells, 0.35 us at 3.35 TB/s.
+// Each cell is two dependent round trips (its vertex ids, then its three
+// rows), and the launch's fixed cost is most of its time. Design: 8 threads
+// per cell, each summing one 16-byte chunk (8 bf16) of the three rows in
+// f32 registers and storing 32 bytes of the f32 mean. It is launched by
+// programmatic dependent launch (pdl.cuh) behind K3: a thread loads its
+// cell's vertex ids (a constant index vector) while K3 still runs, waits,
+// and then issues its three row loads and its stores. No shared memory and
+// no products: the band DMA and the one-hot selectors are not carried over.
 #include "common.cuh"
+#include "pdl.cuh"
 
 namespace gfd {
 
@@ -28,16 +33,23 @@ constexpr int MEAN_THREADS = 256;
 constexpr int CELLS_PER_BLOCK = MEAN_THREADS / VTX_CHUNKS;
 
 __global__ void __launch_bounds__(MEAN_THREADS)
-vertex_cell_kernel(const bf16* __restrict__ vtx, const int* __restrict__ v0,
+vertex_cell_kernel(const bf16* vtx, const int* __restrict__ v0,
                    const int* __restrict__ v1, const int* __restrict__ v2,
-                   int n_cells, float* __restrict__ out) {
+                   int n_cells, float* out) {
   const int c = blockIdx.x * CELLS_PER_BLOCK + threadIdx.x / VTX_CHUNKS;
   const int q = threadIdx.x % VTX_CHUNKS;
+  int i0 = 0, i1 = 0, i2 = 0;  // before the wait: the constant vertex ids
+  if (c < n_cells) {
+    i0 = v0[c];
+    i1 = v1[c];
+    i2 = v2[c];
+  }
+  pdl_wait();
   if (c >= n_cells) return;
   const uint4* src = reinterpret_cast<const uint4*>(vtx);
-  const uint4 a = src[(size_t)v0[c] * VTX_CHUNKS + q];
-  const uint4 b = src[(size_t)v1[c] * VTX_CHUNKS + q];
-  const uint4 d = src[(size_t)v2[c] * VTX_CHUNKS + q];
+  const uint4 a = src[(size_t)i0 * VTX_CHUNKS + q];
+  const uint4 b = src[(size_t)i1 * VTX_CHUNKS + q];
+  const uint4 d = src[(size_t)i2 * VTX_CHUNKS + q];
   const bf16* pa = reinterpret_cast<const bf16*>(&a);
   const bf16* pb = reinterpret_cast<const bf16*>(&b);
   const bf16* pd = reinterpret_cast<const bf16*>(&d);
@@ -64,8 +76,7 @@ extern "C" int gfd_vertex_cell(int device, const void* vtx, const void* v0,
   if (err != cudaSuccess) return err;
   if (n_cells == 0) return cudaSuccess;
   const int blocks = (n_cells + CELLS_PER_BLOCK - 1) / CELLS_PER_BLOCK;
-  vertex_cell_kernel<<<blocks, MEAN_THREADS, 0, (cudaStream_t)stream>>>(
-      (const bf16*)vtx, (const int*)v0, (const int*)v1, (const int*)v2, n_cells,
-      (float*)out);
-  return cudaGetLastError();
+  return launch_pdl(vertex_cell_kernel, dim3(blocks), dim3(MEAN_THREADS),
+                    (cudaStream_t)stream, (const bf16*)vtx, (const int*)v0,
+                    (const int*)v1, (const int*)v2, n_cells, (float*)out);
 }

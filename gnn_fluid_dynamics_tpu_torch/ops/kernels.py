@@ -25,7 +25,10 @@ whole batch of graphs.
 
 A wrapper given tensors on the CPU returns its plain version; given CUDA
 tensors it launches its kernel or raises. Each launch adds one to the
-wrapper's ``launches`` attribute.
+wrapper's ``launches`` attribute. K3 and K5 launch by programmatic dependent
+launch (``csrc/pdl.cuh``): each may start while the kernel before it in the
+stream still runs, reading only the graph's constant index vectors until it
+has waited for that kernel.
 
 The sources are compiled with ``nvcc`` for ``sm_90a`` into plain-C shared
 libraries under ``build/torch_kernels/`` at the checkout's root, at first use
@@ -35,6 +38,7 @@ sources and flags, and loaded with ``ctypes``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -59,8 +63,8 @@ SOURCES = {"face_block": "face_block.cu", "cell_block": "cell_block.cu",
            "edge_vertex": "edge_vertex.cu", "face_gather": "face_gather.cu",
            "vertex_cell": "vertex_cell.cu", "table_dual": "table_dual.cu",
            "table_single": "table_single.cu"}
-HEADERS = ("async_copy.cuh", "common.cuh", "gn_wgmma.cuh", "table_mma.cuh",
-           "wgmma.cuh")
+HEADERS = ("async_copy.cuh", "common.cuh", "gn_wgmma.cuh", "pdl.cuh",
+           "table_mma.cuh", "wgmma.cuh")
 H = 128          # the latent width the kernels are built for
 LN_EPS = 1e-5
 
@@ -74,6 +78,9 @@ _ARGTYPES = {
     "gfd_vertex_cell": [_I] + [_P] * 4 + [_I] + [_P] * 2,
     "gfd_table_dual": [_I] + [_P] * 4 + [_I] * 5 + [_P] * 3,
     "gfd_table_single": [_I] + [_P] * 3 + [_I] * 4 + [_P] * 2,
+    "gfd_launch_floor": [_I] * 3 + [_P],
+    "gfd_slow_writer": [_I, _P] + [_I] * 4 + [_P] * 2,
+    "gfd_set_pdl": [_I],
 }
 TABLE_TILE = 128  # target rows per table tile
 # the widest band K6 and K7 take: K7 holds its whole band in shared memory,
@@ -82,6 +89,13 @@ TABLE_MAX_BAND = 1792
 # the table dtypes K6/K7 read, by the code their C entry points take
 TABLE_DTYPES = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
 _ENTRY = {name: "gfd_" + name for name in SOURCES}
+# entry points beside a library's kernel, for measuring and checking: the
+# empty kernel of K3's launch path (the launch floor), the PDL hazard check's
+# writer, and the PDL switch of the libraries that launch by PDL
+PDL_LIBRARIES = ("edge_vertex", "vertex_cell")
+_EXTRA_ENTRIES = {"edge_vertex": ("gfd_launch_floor", "gfd_slow_writer",
+                                  "gfd_set_pdl"),
+                  "vertex_cell": ("gfd_set_pdl",)}
 
 _libs: dict = {}
 _lock = threading.Lock()
@@ -201,19 +215,20 @@ def _library(name: str) -> ctypes.CDLL:
             build_kernels()
             for n in SOURCES:
                 dll = ctypes.CDLL(str(_library_path(n)))
-                fn = getattr(dll, _ENTRY[n])
-                fn.argtypes = _ARGTYPES[_ENTRY[n]]
-                fn.restype = ctypes.c_int
+                for entry in (_ENTRY[n],) + _EXTRA_ENTRIES.get(n, ()):
+                    fn = getattr(dll, entry)
+                    fn.argtypes = _ARGTYPES[entry]
+                    fn.restype = ctypes.c_int
                 dll.gfd_error_name.argtypes = [ctypes.c_int]
                 dll.gfd_error_name.restype = ctypes.c_char_p
                 _libs[n] = dll
     return _libs[name]
 
 
-def _launch(name: str, device: torch.device, *args) -> None:
+def _launch(name: str, device: torch.device, *args, entry=None) -> None:
     lib = _library(name)
     stream = torch.cuda.current_stream(device).cuda_stream
-    rc = getattr(lib, _ENTRY[name])(device.index or 0, *args, stream)
+    rc = getattr(lib, entry or _ENTRY[name])(device.index or 0, *args, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel failed: CUDA error {rc} "
                            f"({lib.gfd_error_name(rc).decode()})")
@@ -481,6 +496,51 @@ def vertices_to_cells(vtx, graph):
             _ptr(vf[2]), nc, _ptr(out))
     vertices_to_cells.launches += 1
     return out
+
+
+def launch_floor(device, blocks: int, threads: int) -> None:
+    """One launch of an empty kernel of ``blocks`` x ``threads`` on
+    ``device`` through K3's and K5's launch path, with the programmatic
+    dependent launch attribute unless inside :func:`without_pdl`: what a
+    launch costs the card before any work. For measuring; counts nothing."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"the launch floor is measured on a card, not {device}")
+    _launch("edge_vertex", device, blocks, threads, entry="gfd_launch_floor")
+
+
+@contextlib.contextmanager
+def without_pdl():
+    """K3, K5 and the launch floor's kernel launch without the programmatic
+    dependent launch attribute inside the block: each then starts after the
+    kernel before it has ended, as a plain launch does. Timed back to back
+    with the attribute, a kernel overlaps its own next launch, which no path
+    does; this is for timing it without that. Measuring only."""
+    libs = [_library(n) for n in PDL_LIBRARIES]
+    for lib in libs:
+        lib.gfd_set_pdl(0)
+    try:
+        yield
+    finally:
+        for lib in libs:
+            lib.gfd_set_pdl(1)
+
+
+def slow_writer(src, dst, negate: bool, cycles: int, blocks: int = 4) -> None:
+    """The PDL hazard check's writer: a plain launch of ``blocks`` blocks
+    that lets a PDL launch behind it start at once, idles ``cycles`` clock
+    cycles, then writes ``dst = src`` (negated when ``negate``); bf16 of one
+    size on one card. A kernel behind it that read ``dst`` before its wait
+    would read the values from before. For checking; counts nothing."""
+    dev = src.device
+    if dev.type != "cuda":
+        raise ValueError(f"the hazard writer runs on a card, not {dev}")
+    _check(dst, "dst", dev, torch.bfloat16, src.shape)
+    _check(src, "src", dev, torch.bfloat16, src.shape)
+    if not (src.is_contiguous() and dst.is_contiguous()):
+        raise ValueError("src and dst must be contiguous")
+    _launch("edge_vertex", dev, _ptr(src), src.numel(), int(negate), cycles,
+            blocks, _ptr(dst), entry="gfd_slow_writer")
 
 
 def _check_table(oh, what, dev, like=None) -> None:

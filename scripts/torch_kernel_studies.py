@@ -1,8 +1,9 @@
-"""Design studies of the port's K1, K2 and K6 on one card, each from a
-patched copy of ``gnn_fluid_dynamics_tpu_torch/csrc`` under the ignored
+"""Design studies of the port's K1, K2, K3, K5 and K6 on one card, each from
+a patched copy of ``gnn_fluid_dynamics_tpu_torch/csrc`` under the ignored
 ``build/studies/``; the shipped sources are read, never changed.
 
-    python3 scripts/torch_kernel_studies.py
+    python3 scripts/torch_kernel_studies.py [study ...]   # default: all
+
 
 * ``w0_split``: K1 and K2 with W0 copied in one piece (the shipped design)
   or in 16 KB pieces on barriers of their own, the first product starting
@@ -13,6 +14,30 @@ patched copy of ``gnn_fluid_dynamics_tpu_torch/csrc`` under the ignored
   shipped and with one part taken out: the output stores, the products, or
   the L2 policies (the table copies' evict-first policy and the streaming
   stores); in turns.
+* ``k35``: K3 alone, K5 alone and the pair K3 -> K5, at the FvgnF mesh and
+  at the FluxD-valid batch on its index route, shipped (``base``) and as
+  commit 25f4ea5 had them (``previous``: its ``edge_vertex.cu`` and
+  ``vertex_cell.cu``, read by ``git show`` where the checkout has its history
+  and cached under ``build/studies/sources/``, so run the script once in
+  such a checkout before a copy without it), and K3 and K5 fused into one
+  launch (``fused``: a warp per cell sums its three vertices' half-rows
+  from the CSR); in turns. Where the variant launches by programmatic
+  dependent launch, each reading is taken with the attribute and without
+  (``_no_pdl``, through ``kernels.without_pdl``), and the launch floor (an
+  empty kernel back to back) both ways.
+* ``pdl_host``: what launching by programmatic dependent launch costs the
+  host, shipped (``base``) and with commit 25f4ea5's K3 and K5
+  (``previous``), in turns: host microseconds to issue one K3 launch and
+  one K4 launch (plain; the card held busy behind a sleep so that no
+  launch waits), and the kernel route's steps/s over 100-step FluxD and
+  FvgnF rollouts; in ``base`` each with the attribute and without, in
+  turns within the process.
+* ``smoke_state``: whether what ``chip_smoke.py`` runs before its timed
+  rollouts slows them: FluxD's kernel-route steps/s over 100-step
+  rollouts, three before and three after running nothing (``control``),
+  the PDL hazard check (``hazard``), or the whole of phase 2
+  (``phase2``: ``kernel_phase``, ``table_phase``, the hazard check), in
+  turns; every variant holds the FluxD-valid batch, as the smoke does.
 
 Each variant runs in a process of its own (two copies of one library in
 one process fail to launch). Prints one JSON line per study, with the
@@ -23,11 +48,13 @@ import ctypes
 import json
 import shutil
 import subprocess
+import time
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
+PREVIOUS = "25f4ea5"  # the commit whose K3 and K5 the k35 study reads
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -35,6 +62,8 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 from gnn_fluid_dynamics_tpu_torch.models.arch import MLP  # noqa: E402
 from gnn_fluid_dynamics_tpu_torch.ops import kernels  # noqa: E402
+
+_EXTRA_ENTRIES = kernels._EXTRA_ENTRIES
 
 STUDIES = ROOT / "build" / "studies"
 SRC = kernels.CSRC
@@ -62,6 +91,68 @@ _K6_PRODUCTS = """        if constexpr (ROLL)
           wgmma_rs64<true>(&acc[t][0][0], a[t][s], desc, 1);
         else
           wgmma_rs<true>(&acc[t][0][0], a[t][s], desc, 1);"""
+
+_FUSED = """namespace gfd {
+
+// K3 and K5 in one launch (a study): a warp per cell sums its three
+// vertices' half-rows from the CSR, each sum rounded to bf16 as K3 stores
+// it, then K5's mean in K5's order and rounding.
+__global__ void __launch_bounds__(WARPS * 32)
+edge_cell_kernel(const bf16* edge, const int* __restrict__ ptr,
+                 const int* __restrict__ inc_row, const int* __restrict__ v0,
+                 const int* __restrict__ v1, const int* __restrict__ v2,
+                 int n_cells, float* out) {
+  const int lane = threadIdx.x % 32;
+  const int c = blockIdx.x * WARPS + threadIdx.x / 32;
+  int start[3] = {0, 0, 0}, end[3] = {0, 0, 0}, ids[3] = {0, 0, 0};
+  if (c < n_cells) {
+    const int vs[3] = {v0[c], v1[c], v2[c]};
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      start[k] = ptr[vs[k]];
+      end[k] = ptr[vs[k] + 1];
+      if (start[k] + lane < end[k]) ids[k] = inc_row[start[k] + lane];
+    }
+  }
+  pdl_wait();
+  if (c >= n_cells) return;
+  float m[8];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    float s[8];
+    vertex_sum(edge, inc_row, start[k], end[k], ids[k], lane, s);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float x = __bfloat162float(__float2bfloat16(s[j]));
+      m[j] = k == 0 ? x : m[j] + x;
+    }
+  }
+  if (lane < ROW_LANES) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      m[j] = __bfloat162float(__float2bfloat16(m[j])) / 3.0f;
+    float4* dst = reinterpret_cast<float4*>(out + (size_t)c * HALF + lane * 8);
+    dst[0] = make_float4(m[0], m[1], m[2], m[3]);
+    dst[1] = make_float4(m[4], m[5], m[6], m[7]);
+  }
+}
+
+}  // namespace gfd
+
+extern "C" int gfd_edge_cell(int device, const void* edge, const void* ptr,
+                             const void* inc_row, const void* v0,
+                             const void* v1, const void* v2, int n_cells,
+                             void* out, void* stream) {
+  using namespace gfd;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (n_cells == 0) return cudaSuccess;
+  return launch_pdl(edge_cell_kernel, dim3((n_cells + WARPS - 1) / WARPS),
+                    dim3(WARPS * 32), (cudaStream_t)stream, (const bf16*)edge,
+                    (const int*)ptr, (const int*)inc_row, (const int*)v0,
+                    (const int*)v1, (const int*)v2, n_cells, (float*)out);
+}
+"""
 
 # variant -> [(file, text in the shipped source, its replacement)]
 VARIANTS = {
@@ -123,6 +214,11 @@ VARIANTS = {
         *reinterpret_cast<uint4*>(out + 8 * (j0 + q)) = v;""")],
     "k6_no_products": [("table_dual.cu", _K6_PRODUCTS, """        asm volatile("" ::"l"(desc), "r"(a[t][s][0]), "r"(a[t][s][1]),
                      "r"(a[t][s][2]), "r"(a[t][s][3]));""")],
+    "previous": [],       # edge_vertex.cu, vertex_cell.cu of PREVIOUS
+    # the shipped sources; these differ in what the process runs
+    "control": [], "hazard": [], "phase2": [],
+    "fused": [("edge_vertex.cu", "// Launches K3 on `stream`;",
+               _FUSED + "\n// Launches K3 on `stream`;")],
     "k6_no_l2_policy": [
         ("table_dual.cu", _K6_STORE, """      *reinterpret_cast<uint4*>(out + (size_t)(8 * h) * ld +
                                 8 * (j0 + q)) = v;"""),
@@ -133,7 +229,12 @@ VARIANTS = {
 STUDY_VARIANTS = {"w0_split": ("base", "w0_split"),
                   "k2_phases": ("k2_stamps",),
                   "k6": ("base", "k6_no_stores", "k6_no_products",
-                         "k6_no_l2_policy")}
+                         "k6_no_l2_policy"),
+                  "k35": ("base", "previous", "fused"),
+                  "pdl_host": ("base", "previous"),
+                  "smoke_state": ("control", "hazard", "phase2")}
+# variants whose sources are another commit's files
+FILES_FROM = {"previous": (PREVIOUS, ("edge_vertex.cu", "vertex_cell.cu"))}
 K2_PHASES = ("launch to gather issued", "gather landed", "to the W0 wait",
              "W0 wait", "product 1, SiLU", "product 2, SiLU",
              "product 3, LayerNorm", "stores")
@@ -144,6 +245,9 @@ def prepare(variant: str) -> Path:
     d = STUDIES / variant
     shutil.rmtree(d, ignore_errors=True)
     shutil.copytree(SRC, d / "csrc")
+    commit, files = FILES_FROM.get(variant, (None, ()))
+    for fname in files:
+        (d / "csrc" / fname).write_text(previous_source(commit, fname))
     for fname, old, new in VARIANTS[variant]:
         path = d / "csrc" / fname
         text = path.read_text()
@@ -156,10 +260,31 @@ def prepare(variant: str) -> Path:
     return d
 
 
+def previous_source(commit: str, fname: str) -> str:
+    """``fname`` of the port's csrc as ``commit`` had it: from git where the
+    checkout has its history (and then cached), else from the cache."""
+    cache = STUDIES / "sources" / commit / fname
+    rel = f"{SRC.relative_to(ROOT)}/{fname}"
+    try:
+        text = subprocess.run(["git", "show", f"{commit}:{rel}"], cwd=ROOT,
+                              capture_output=True, text=True, check=True).stdout
+    except (OSError, subprocess.CalledProcessError):
+        if not cache.exists():
+            raise SystemExit(f"{rel} of {commit}: no git history here and no "
+                             f"cached copy at {cache}; run this script once "
+                             "in a checkout with its history")
+        return cache.read_text()
+    cache.parent.mkdir(parents=True, exist_ok=True)
+    cache.write_text(text)
+    return text
+
+
 def use(variant: str) -> None:
     kernels.CSRC = STUDIES / variant / "csrc"
     kernels.BUILD_DIR = STUDIES / variant / "lib"
     kernels._libs.clear()
+    # the previous K3 and K5 sources have no entry points but their launchers
+    kernels._EXTRA_ENTRIES = {} if variant == "previous" else _EXTRA_ENTRIES
 
 
 def measure(study: str, variant: str) -> dict:
@@ -173,6 +298,12 @@ def measure(study: str, variant: str) -> dict:
             np.float32)).to(dev, torch.bfloat16)
 
     out = {}
+    if study == "k35":
+        return measure_k35(variant, latents)
+    if study == "pdl_host":
+        return measure_pdl_host(variant, latents)
+    if study == "smoke_state":
+        return measure_smoke_state(variant)
     if study == "k6":
         _, vg = cs.valid_data(dev)
         edges, cells = latents(vg.num_faces), latents(vg.num_cells)
@@ -223,17 +354,164 @@ def measure(study: str, variant: str) -> dict:
     return out
 
 
+def measure_k35(variant: str, latents) -> dict:
+    """K3, K5 and the pair at both sizes, and the fused launch where the
+    variant has it (with its largest difference from the pair's output);
+    where the variant launches by PDL, each also without the attribute, and
+    the launch floor both ways. ms per launch."""
+    dev = torch.device("cuda", 0)
+    graph, _ = cs.bench_mesh(dev)
+    _, vg = cs.valid_data(dev)
+    big = cs.to_static_bands(vg, derive_idx=True)
+    pdl = variant != "previous"
+    calls = {}
+    for g in (graph, big):
+        e = latents(g.num_faces)
+        vtx = kernels.edges_to_vertices(e, g)
+        calls.update({
+            f"K3_{g.num_vertices}": lambda e=e, g=g: kernels.edges_to_vertices(e, g),
+            f"K5_{g.num_cells}": lambda vtx=vtx, g=g: kernels.vertices_to_cells(vtx, g),
+            f"pair_{g.num_cells}": lambda e=e, g=g: kernels.vertices_to_cells(
+                kernels.edges_to_vertices(e, g), g)})
+        if variant == "fused":
+            calls[f"fused_{g.num_cells}"] = fused_call(e, g)
+    out = {}
+    for name, call in calls.items():
+        if name.startswith("fused_"):
+            got, want = call(), calls["pair_" + name[6:]]()
+            torch.cuda.synchronize()
+            out[name + "_max_abs_err_vs_pair"] = float((got - want).abs().max())
+        call()
+        out[name] = cs.gpu_ms(call, ITERS)
+        if pdl:
+            with kernels.without_pdl():
+                out[name + "_no_pdl"] = cs.gpu_ms(call, ITERS)
+    if pdl:
+        for shape, (blocks, threads) in (("1x32", (1, 32)),
+                                         ("k3_grid", ((graph.num_vertices + 7)
+                                                      // 8, 256))):
+            run = lambda: kernels.launch_floor(dev, blocks, threads)  # noqa: E731
+            out[f"floor_pdl_{shape}"] = cs.gpu_ms(run, ITERS)
+            with kernels.without_pdl():
+                out[f"floor_plain_{shape}"] = cs.gpu_ms(run, ITERS)
+    return out
+
+
+def host_us(call, n: int = 300) -> float:
+    """Host microseconds to issue one ``call``, the card held busy behind a
+    sleep kernel (~100 ms) so that no launch waits for it."""
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        call()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
+
+
+def measure_pdl_host(variant: str, latents) -> dict:
+    """Host cost of a K3 launch and of a plain K4 launch, and FluxD's and
+    FvgnF's kernel-route steps/s; where the variant launches by PDL, with
+    the attribute and without, in turns (on, off, off, on, on, off)."""
+    dev = torch.device("cuda", 0)
+    graph, _ = cs.bench_mesh(dev)
+    modes = (True, False, False, True, True, False)
+    if variant == "previous":
+        modes = (True,) * 3
+
+    def timed(mode, fn):
+        if mode:
+            return fn()
+        with kernels.without_pdl():
+            return fn()
+
+    e, cells = latents(graph.num_faces), latents(graph.num_cells)
+    runs = {"K3_host_us": (lambda: kernels.edges_to_vertices(e, graph), host_us),
+            "K4_host_us": (lambda: kernels.gather_face_cells(cells, graph),
+                           host_us)}
+    for path in ("FluxD", "FvgnF"):
+        kern, _, feats = cs.path_models(path, graph)
+        cs.rollout_scan(kern, graph, feats, config=cs.RolloutConfig(
+            num_steps=5, compute_error=False))
+        runs[f"{path}_steps_per_s"] = (
+            lambda kern=kern, feats=feats: cs.timed_rollout(kern, graph, feats),
+            lambda fn: cs.STEPS / fn())
+    out = {}
+    for name, (call, reading) in runs.items():
+        call()
+        for mode in modes:
+            key = name + ("" if mode else "_no_pdl")
+            out.setdefault(key, []).append(timed(mode, lambda: reading(call)))
+    return out
+
+
+def measure_smoke_state(variant: str) -> dict:
+    """FluxD's kernel-route steps/s, three rollouts before and three after
+    the part of ``chip_smoke.py``'s phase 2 that ``variant`` names."""
+    dev = torch.device("cuda", 0)
+    graph, _ = cs.bench_mesh(dev)
+    _, vgraph = cs.valid_data(dev)
+    vindex = cs.to_static_bands(vgraph, derive_idx=True)
+    kern, _, feats = cs.path_models("FluxD", graph)
+    cs.rollout_scan(kern, graph, feats, config=cs.RolloutConfig(
+        num_steps=5, compute_error=False))
+
+    def steps_per_s():
+        return [cs.STEPS / cs.timed_rollout(kern, graph, feats)
+                for _ in range(3)]
+
+    out = {"FluxD_steps_per_s_before": steps_per_s()}
+    if variant == "phase2":
+        cs.kernel_phase(graph, vindex)
+        cs.table_phase(vgraph)
+    if variant in ("hazard", "phase2"):
+        cs.pdl_hazard_check(graph)
+    out["FluxD_steps_per_s_after"] = steps_per_s()
+    return out
+
+
+def fused_call(e, g):
+    """The fused variant's one launch of K3 and K5 on edges ``e`` of ``g``,
+    returning its (C, 64) f32 output."""
+    fn = kernels._library("edge_vertex").gfd_edge_cell
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [
+        ctypes.c_int] + [ctypes.c_void_p] * 2
+    vf = g.vertex_face
+    out = torch.empty(g.num_cells, 64, device=e.device)
+
+    def fused():
+        rc = fn(0, e.data_ptr(), g.vertex_inc_ptr.data_ptr(),
+                g.vertex_inc_row.data_ptr(), vf[0].data_ptr(), vf[1].data_ptr(),
+                vf[2].data_ptr(), g.num_cells, out.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"fused K3+K5 failed: CUDA error {rc}")
+        return out
+    return fused
+
+
 def main() -> int:
     if len(sys.argv) == 4 and sys.argv[1] == "--measure":
         print("RESULT " + json.dumps(measure(sys.argv[2], sys.argv[3])))
         return 0
+    studies = sys.argv[1:] or list(STUDY_VARIANTS)
+    unknown = set(studies) - set(STUDY_VARIANTS)
+    if unknown:
+        print(f"unknown studies {sorted(unknown)}; the studies are "
+              f"{list(STUDY_VARIANTS)}", file=sys.stderr)
+        return 2
+    for commit, files in FILES_FROM.values():   # before the card check, so a
+        for fname in files:                      # checkout with git caches them
+            previous_source(commit, fname)
     if not torch.cuda.is_available():
         print("no CUDA device: the studies run on the card", file=sys.stderr)
         return 2
     line = cs.card_line()
-    for variant in VARIANTS:
+    for variant in {v for s in studies for v in STUDY_VARIANTS[s]}:
         prepare(variant)
-    for study, variants in STUDY_VARIANTS.items():
+    for study in studies:
+        variants = STUDY_VARIANTS[study]
         order = variants + variants[::-1] if len(variants) > 1 else variants
         readings = {}
         for variant in order:
@@ -247,8 +525,10 @@ def main() -> int:
                 return 1
             for key, value in json.loads(found[0][7:]).items():
                 readings.setdefault(key, {}).setdefault(variant, []).append(value)
-        unit = ("cycles per tile" if study == "k2_phases"
-                else "ms per launch, in turns")
+        unit = {"k2_phases": "cycles per tile",
+                "pdl_host": "host us per launch and steps/s, in turns",
+                "smoke_state": "steps/s, in turns"}.get(
+                    study, "ms per launch, in turns")
         print(json.dumps({"study": study, "card": line, "unit": unit,
                           "readings": readings}), flush=True)
     return 0
