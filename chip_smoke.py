@@ -12,7 +12,10 @@ Phases (each prints one flushed line; any failure exits non-zero):
    forms, single- and dual-output at the FluxD mesh and at the FluxD-valid
    batch on its index route, each also read against an f64 evaluation; K3,
    K5 and the pair K3 -> K5 also at that batch, whose pad vertex has a CSR
-   row longer than one of K3's rounds) and
+   row longer than one of K3's rounds; K4 on f32 latents that are not
+   bf16-exact and on bf16 ones, at the FvgnF mesh and at that batch, and on
+   latents at the edges of bf16 rounding, each exactly; timed beside the
+   sequence it replaces, cast to bf16, K4, both rows widened to f32) and
    K6/K7 on the FluxD-valid batch's own tables (int8, and once more cast to
    bf16 and to f32; K6's roll form also on the tables widened to a band of
    896, K7 on the tables widened to 384), on seeded inputs; K6 and K7 also
@@ -103,8 +106,8 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 # kernel vs its plain version, elementwise on bf16 outputs: one bf16
 # rounding step (2**-8 relative) taken on the other side of a boundary,
-# from f32 sums in another order, plus its effect downstream. K4 copies
-# rows and is held exactly.
+# from f32 sums in another order, plus its effect downstream. K4 rounds
+# each value to bf16 once, as its plain version does, and is held exactly.
 KERNEL_RTOL = KERNEL_ATOL = 2.0 ** -7
 # kernel vs plain route of the same model on the same inputs, as the
 # largest difference relative to the field's largest magnitude: bf16
@@ -113,7 +116,8 @@ KERNEL_RTOL = KERNEL_ATOL = 2.0 ** -7
 STEP_TOL = 5e-2
 HAZARD_ROUNDS = 200
 HAZARD_CYCLES = 100_000   # the hazard writer's idle cycles (~50 us) before it writes
-FLOOR_ITERS = 200         # launches per timed batch of K3, K5, the pair, the floor
+FLOOR_ITERS = 200         # launches per timed batch of K3, K4, K5, the pair, the floor
+K4_FACES_PER_BLOCK = 16   # K4's grid: 16 lanes per face (csrc/face_gather.cu)
 
 KERNELS = {
     "K1_fused_face_block": dict(
@@ -135,7 +139,9 @@ KERNELS = {
         wrapper=kernels.gather_face_cells,
         source="gnn_fluid_dynamics_tpu_torch/csrc/face_gather.cu",
         replaces="gnn_fluid_dynamics_tpu/ops/pallas_agg.py:221 "
-                 "(_dual_rowidx_kernel; banded_dual_rowidx_pallas :259)"),
+                 "(_dual_rowidx_kernel; banded_dual_rowidx_pallas :259, "
+                 "pallas_call :281; with gather_face_cells_pallas's cast "
+                 ":485)"),
     "K5_vertices_to_cells": dict(
         wrapper=kernels.vertices_to_cells,
         source="gnn_fluid_dynamics_tpu_torch/csrc/vertex_cell.cu",
@@ -284,8 +290,9 @@ def bounds(graph) -> dict:
     its bytes (each input read once, each output written once) over the
     memory rate and its operations over the peak rate for their type (the
     three products in bf16 on the tensor cores for K1/K2, the f32 adds of
-    K3 and K5; K4 does none). K1 runs single-output and K2 dual-output on
-    the main path; K5 stores its f32 mean."""
+    K3 and K5; K4 does none: its rounding is a conversion). K1 runs
+    single-output and K2 dual-output on the main path; K4 reads f32 latents
+    there (the FvgnF path's cell MLP output) and K5 stores its f32 mean."""
     F, C, V = graph.num_faces, graph.num_cells, graph.num_vertices
     vec = 5 * H * 2                                   # b0,b1,b2,ln_g,ln_b
     k1_bytes = (F * H * 2 + C * H * 2 + 2 * F * 4
@@ -296,7 +303,7 @@ def bounds(graph) -> dict:
     k2_flops = 2 * C * H * (H + H // 2 + 2 * H)
     k3_bytes = F * H * 2 + (V + 1) * 4 + 2 * F * 4 + V * (H // 2) * 2
     k3_flops = 2 * F * (H // 2)
-    k4_bytes = C * H * 2 + 2 * F * 4 + 2 * F * H * 2
+    k4_bytes = C * H * 4 + 2 * F * 4 + 2 * F * H * 2
     k5_bytes = V * (H // 2) * 2 + 3 * C * 4 + C * (H // 2) * 4
     k5_flops = 3 * C * (H // 2)                       # 2 adds + 1 division
 
@@ -472,7 +479,8 @@ def kernel_phase(graph, index_graph) -> dict:
     in four forms each, single- and dual-output at the FluxD mesh and at
     ``index_graph`` (the FluxD-valid batch on its index route), also held
     against an f64 evaluation (``block_forms``); K3, K5 and the pair K3 ->
-    K5 at both (``chain_forms``), and the launch floor."""
+    K5 at both (``chain_forms``), and the launch floor; K4 in both input
+    forms at both (``gather_forms``)."""
     dev = graph.device
     rng = np.random.default_rng(0)
 
@@ -484,15 +492,9 @@ def kernel_phase(graph, index_graph) -> dict:
     w_face = MLP(3 * H, H, H, generator=gen).to(dev).kernel_weights(packed=True)
     w_cell = MLP(H + H // 2, H, H, generator=gen).to(dev).kernel_weights(
         packed=True)
-    cells, edges = latents(graph.num_cells), latents(graph.num_faces)
+    edges = latents(graph.num_faces)
     vtx = kernels.edges_to_vertices_ref(edges, graph)
-    run = functools.partial(kernels.gather_face_cells, cells, graph)
-    ref = functools.partial(kernels.gather_face_cells_ref, cells, graph)
-    got, want = run(), ref()
-    torch.cuda.synchronize()
-    results = {"K4_gather_face_cells": {
-        "max_abs_err": _compare("K4_gather_face_cells", got, want, exact=True),
-        "ms": gpu_ms(run), "plain_ms": gpu_ms(ref)}}
+    results = {"K4_gather_face_cells": gather_forms(graph, index_graph)}
     chain = chain_forms(graph, index_graph, latents)
     floor = floor_times(graph)
     for name, rows in (("K3_edges_to_vertices", graph.num_vertices),
@@ -519,9 +521,6 @@ def kernel_phase(graph, index_graph) -> dict:
     library = {
         "K3_edges_to_vertices": lambda: out.index_add_(0, owner_of_row,
                                                        half_rows),
-        # K4: both rows of every face in one (2F, H) row selection
-        "K4_gather_face_cells": lambda: torch.index_select(
-            cells, 0, graph.cell_edge_index.view(-1)),
         # K5: the 3-vertex bag sum (bf16 out, without K5's division by 3)
         "K5_vertices_to_cells": lambda: F.embedding_bag(
             cell_vertices, vtx, mode="sum"),
@@ -532,6 +531,117 @@ def kernel_phase(graph, index_graph) -> dict:
                     ("K2_fused_cell_block", w_cell)):
         results[name] = block_forms(name, graph, index_graph, w, latents)
     return results
+
+
+def rounding_cases(rows: int) -> torch.Tensor:
+    """(rows, H) f32 latents at the edges of rounding to bf16, each row the
+    one before rolled by one channel: ties between two bf16 values (to the
+    even one, down and up, of either sign), values just off a tie, the
+    largest finite bf16 and values beyond it (to +-Inf), subnormals (ties
+    among them, and the largest, which rounds to the smallest normal), +-0,
+    +-Inf and NaNs of several payloads (one whose low bits alone are set,
+    which a bare round-to-nearest of the bits would make Inf); the rest of
+    the row seeded normal values over many binades."""
+    edges = np.array([
+        0x3F808000, 0x3F818000, 0xBF808000, 0xBF818000,      # ties
+        0x3F808001, 0x3F807FFF, 0x4049_0FDB, 0xC2F6_E979,    # off a tie
+        0x7F7F0000, 0x7F7F7FFF, 0x7F7F8000, 0x7F7FFFFF,      # to bf16 max, Inf
+        0xFF7F8000, 0xFF7FFFFF,
+        0x00000001, 0x00008000, 0x00018000, 0x00010000,      # subnormals
+        0x007FFFFF, 0x807F8000, 0x80018000,
+        0x00000000, 0x80000000, 0x7F800000, 0xFF800000,      # +-0, +-Inf
+        0x7FC00000, 0x7F800001, 0xFFC00001, 0x7FFFFFFF,      # NaNs
+    ], dtype=np.uint32).view(np.float32)
+    rng = np.random.default_rng(4)
+    rest = (rng.normal(size=H - len(edges))
+            * np.exp2(rng.integers(-120, 120, size=H - len(edges))))
+    row = np.concatenate([edges, rest.astype(np.float32)])
+    return torch.from_numpy(np.stack([np.roll(row, r) for r in range(rows)]))
+
+
+def gather_forms(graph, index_graph) -> dict:
+    """K4 at the FvgnF mesh and at ``index_graph`` (the FluxD-valid batch on
+    its index route), on seeded f32 latents, which are not bf16-exact, and
+    on the same rounded to bf16: each form held exactly against its plain
+    version, then timed back to back beside it, and on f32 beside the
+    sequence it replaces (the cast to bf16, K4 on bf16, both rows widened
+    to f32, which FvgnF's face block ran before K4 rounded its input), one
+    ``index_select`` of the f32 latents (both rows of every face, unrounded)
+    and the launch floor at K4's grid (an empty kernel without the PDL
+    attribute, as K4 launches). Also at the mesh on ``rounding_cases``
+    (``rounding_check``). The top-level numbers are the FvgnF path's form,
+    f32 at the mesh."""
+    rng = np.random.default_rng(2)
+    forms, floor = {}, {}
+    for g in (graph, index_graph):
+        nf = g.num_faces
+        x32 = torch.from_numpy(rng.normal(size=(g.num_cells, H)).astype(
+            np.float32)).to(g.device)
+        f32_bytes = bounds(g)["K4_gather_face_cells"][2]
+        for dname, x in (("f32", x32), ("bf16", x32.to(torch.bfloat16))):
+            run = functools.partial(kernels.gather_face_cells, x, g)
+            ref = functools.partial(kernels.gather_face_cells_ref, x, g)
+            got, want = run(), ref()
+            torch.cuda.synchronize()
+            nbytes = f32_bytes - (g.num_cells * H * 2 if dname == "bf16" else 0)
+            b_ms, b_by, _, _ = _bound(nbytes, 0, PEAK_F32_FLOPS)
+            forms[f"{dname}_{nf}"] = {
+                "max_abs_err": _compare(f"K4_gather_face_cells {dname} at {nf} "
+                                        "faces", got, want, exact=True),
+                "ms": gpu_ms(run, FLOOR_ITERS), "plain_ms": gpu_ms(ref),
+                "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
+
+        def replaced(x32=x32, g=g):
+            own, nbr = kernels.gather_face_cells(x32.to(torch.bfloat16), g)
+            return own.float(), nbr.float()
+
+        form = forms[f"f32_{nf}"]
+        form["replaced_ms"] = gpu_ms(replaced, FLOOR_ITERS)
+        form["library_ms"] = gpu_ms(functools.partial(
+            torch.index_select, x32, 0, g.cell_edge_index.view(-1)), FLOOR_ITERS)
+        run = functools.partial(kernels.launch_floor, g.device,
+                                -(-nf // K4_FACES_PER_BLOCK), 256)
+        with kernels.without_pdl():
+            floor[str(nf)] = gpu_ms(run, FLOOR_ITERS)
+    main = forms[f"f32_{graph.num_faces}"]
+    return {
+        "max_abs_err": max(f["max_abs_err"] for f in forms.values()),
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "library_ms": main["library_ms"], "replaced_ms": main["replaced_ms"],
+        "forms": forms, "launch_floor_ms": floor,
+        "rounding_cases": rounding_check(graph),
+        "unit": "per launch at the FvgnF mesh on f32 latents (the path's "
+                "form), back to back; forms by input dtype and faces; "
+                "replaced_ms: cast to bf16, K4 on bf16, both rows widened to "
+                "f32; launch floor by faces, an empty kernel at K4's grid"}
+
+
+def rounding_check(graph) -> dict:
+    """K4 on ``rounding_cases`` at ``graph``'s cells against its plain version:
+    NaN at the same places, every other output identical bit for bit. Fails
+    unless the plain outputs hold NaN, +-Inf from finite inputs beyond
+    bf16's range, and nonzero subnormals. Returns those counts."""
+    x = rounding_cases(graph.num_cells).to(graph.device)
+    got = kernels.gather_face_cells(x, graph)
+    want = kernels.gather_face_cells_ref(x, graph)
+    for out, a, b in zip(("own", "nbr"), got, want):
+        nan = torch.isnan(b)
+        if not torch.equal(torch.isnan(a), nan):
+            fail(f"K4 on the rounding cases: NaN at {int(torch.isnan(a).sum())} "
+                 f"{out} outputs where the plain version has {int(nan.sum())}")
+        differ = int((a.view(torch.int16) != b.view(torch.int16))[~nan].sum())
+        if differ:
+            fail(f"K4 on the rounding cases: {differ} {out} outputs differ "
+                 "from the plain version's in their bits")
+    b = want[0]
+    counts = {"nan": int(torch.isnan(b).sum()),
+              "inf_from_finite": int((torch.isinf(b)
+                                      & torch.isfinite(x[graph.cell_edge_index[0]])
+                                      ).sum()),
+              "subnormal": int(((b != 0) & (b.abs() < 2.0 ** -126)).sum())}
+    if not all(counts.values()):
+        fail(f"K4 on the rounding cases: an edge is not reached {counts}")
+    return counts
 
 
 def csr_longest_row(g) -> int:
@@ -1041,9 +1151,14 @@ def main() -> int:
     say("phase 2 kernel vs plain: ok " + json.dumps(
         {k: round(v["max_abs_err"], 6) for k, v in per_kernel.items()}))
     for name in ("K1_fused_face_block", "K2_fused_cell_block",
-                 "K3_edges_to_vertices", "K5_vertices_to_cells", "K6_table_dual",
-                 "K7_table_single"):
+                 "K3_edges_to_vertices", "K4_gather_face_cells",
+                 "K5_vertices_to_cells", "K6_table_dual", "K7_table_single"):
         say(f"phase 2 {name} by form: " + json.dumps(per_kernel[name]["forms"]))
+    k4 = per_kernel["K4_gather_face_cells"]
+    say("phase 2 K4 on the rounding cases, bit for bit (NaN by place): ok "
+        + json.dumps(k4["rounding_cases"]) + "; launch floor at K4's grid, "
+        "ms per empty launch back to back, by faces: "
+        + json.dumps(k4["launch_floor_ms"]))
     say("phase 2 K3 -> K5 pair by cells: "
         + json.dumps(per_kernel["K3_edges_to_vertices"]["pair"])
         + "; launch floor, ms per empty launch back to back: "
@@ -1079,10 +1194,13 @@ def main() -> int:
             "library_ms": r.get("library_ms"), "bytes": nbytes, "flops": flops,
             **({"forms": r["forms"], "unit": r["unit"]}
                if "forms" in r else {}),
-            **{k: r[k] for k in ("pair", "launch_floor_ms") if k in r},
+            **{k: r[k] for k in ("pair", "launch_floor_ms", "replaced_ms",
+                                 "rounding_cases") if k in r},
         })
     say(f"phase 4 card {line}; " + "; ".join(
-        f"{path} {p['steps_per_s']:.1f} steps/s, {p['ms_per_step']:.4f} ms/step"
+        f"{path} {p['steps_per_s']:.1f} steps/s, {p['ms_per_step']:.4f} ms/step, "
+        + ("kernels per step not measured" if p["profile"] is None else
+           f"{p['profile']['kernels_per_step']:g} kernels per step")
         for path, p in paths.items()))
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {

@@ -191,23 +191,27 @@ def aggregate_twice_mp(edge_attr: torch.Tensor, graph,
 def gather_face_cells(cell_attr: torch.Tensor, graph,
                       use_kernels: bool = False):
     """(x[owner], x[neighbour]) per face, (F, H) each. With ``use_kernels``
-    from the bf16 latents through K6 (cf tables) on a graph on the table
-    route or K4 on the index route, cast to f32 as the JAX wrapper does."""
+    the rows of the latents rounded to bf16, in bf16: through K4 on a graph
+    on the index route, which rounds f32 latents itself, or through K6 (cf
+    tables) on the latents cast to bf16 on a graph on the table route. The
+    JAX wrapper widens them to f32; here the face block's concatenation
+    does (:func:`_with_extra`)."""
     if not use_kernels:
         return (cell_attr[graph.cell_edge_index[0]],
                 cell_attr[graph.cell_edge_index[1]])
-    c = cell_attr.to(torch.bfloat16)
     if graph.table_route:
-        own, nbr = kernels.table_dual(graph.cf_row_onehot, graph.cf_col_onehot,
-                                      graph.cf_off, c)
-    else:
-        own, nbr = kernels.gather_face_cells(c, graph)
-    return own.float(), nbr.float()
+        return kernels.table_dual(graph.cf_row_onehot, graph.cf_col_onehot,
+                                  graph.cf_off, cell_attr.to(torch.bfloat16))
+    return kernels.gather_face_cells(cell_attr, graph)
 
 
 def _with_extra(parts: list, extra, rows: int) -> torch.Tensor:
     """``parts`` concatenated along channels, with the (1, E) step scalar
-    ``extra`` broadcast over the rows appended when given."""
+    ``extra`` broadcast over the rows appended when given. Parts of mixed
+    dtypes are promoted by the concatenation itself (the kernel route's
+    bf16 rows beside the f32 edge latents become f32, exactly); on the card
+    it then copies each part with a kernel of its own, where parts of one
+    dtype share one kernel."""
     if extra is not None:
         parts = parts + [extra.expand(rows, extra.shape[-1])]
     return torch.cat(parts, dim=-1)
@@ -237,7 +241,9 @@ class CellBlock(nn.Module):
 
 class FaceBlock(nn.Module):
     """[edge | cell_owner | cell_neighbour] -> face MLP (reference
-    ``Face_Block``, Fvgn.py:286-296)."""
+    ``Face_Block``, Fvgn.py:286-296). Unfused, the kernel route gathers the
+    cell rows in bf16 and the concatenation widens them to f32, as the JAX
+    wrapper's cast does."""
 
     def __init__(self, cfg: ArchConfig, generator: torch.Generator = None):
         super().__init__()

@@ -74,7 +74,7 @@ _ARGTYPES = {
     "gfd_face_block": [_I] + [_P] * 4 + [_I] + [_P] * 11,
     "gfd_cell_block": [_I] + [_P] * 5 + [_I] + [_P] * 11,
     "gfd_edge_vertex": [_I] + [_P] * 3 + [_I] + [_P] * 2,
-    "gfd_face_gather": [_I] + [_P] * 3 + [_I] + [_P] * 3,
+    "gfd_face_gather": [_I] + [_P] * 3 + [_I] * 2 + [_P] * 3,
     "gfd_vertex_cell": [_I] + [_P] * 4 + [_I] + [_P] * 2,
     "gfd_table_dual": [_I] + [_P] * 4 + [_I] * 5 + [_P] * 3,
     "gfd_table_single": [_I] + [_P] * 3 + [_I] * 4 + [_P] * 2,
@@ -88,6 +88,8 @@ TABLE_TILE = 128  # target rows per table tile
 TABLE_MAX_BAND = 1792
 # the table dtypes K6/K7 read, by the code their C entry points take
 TABLE_DTYPES = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
+# the cell latents K4 reads, by the code its C entry point takes
+GATHER_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _ENTRY = {name: "gfd_" + name for name in SOURCES}
 # entry points beside a library's kernel, for measuring and checking: the
 # empty kernel of K3's launch path (the launch floor), the PDL hazard check's
@@ -353,10 +355,11 @@ def edges_to_vertices_ref(edge_attr, graph):
 
 
 def gather_face_cells_ref(cell_attr, graph):
-    """Plain version of K4: the owner and neighbour rows of the cell latents
-    per face, (C, H) -> two (F, H) in the latents' dtype."""
-    return (cell_attr[graph.cell_edge_index[0]],
-            cell_attr[graph.cell_edge_index[1]])
+    """Plain version of K4: the cell latents rounded to bf16 (to nearest,
+    ties to even: ``gather_face_cells_pallas``'s cast), then the owner and
+    neighbour rows per face, (C, H) -> two (F, H) bf16."""
+    x = cell_attr.to(torch.bfloat16)
+    return x[graph.cell_edge_index[0]], x[graph.cell_edge_index[1]]
 
 
 def vertices_to_cells_ref(vtx, graph):
@@ -467,17 +470,23 @@ def edges_to_vertices(edge_attr, graph):
 
 
 def gather_face_cells(cell_attr, graph):
-    """K4: the owner/neighbour gather. See :func:`gather_face_cells_ref`."""
+    """K4: the owner/neighbour gather of the latents rounded to bf16. See
+    :func:`gather_face_cells_ref`. On the card the latents are f32 (rounded
+    in the kernel) or bf16 (copied)."""
     if cell_attr.device.type == "cpu":
         return gather_face_cells_ref(cell_attr, graph)
     dev = cell_attr.device
     nf, nc = graph.num_faces, graph.num_cells
-    _check(cell_attr, "cell_attr", dev, torch.bfloat16, (nc, H))
+    if cell_attr.dtype not in GATHER_DTYPES:
+        raise ValueError(f"cell_attr has dtype {cell_attr.dtype}, expected one "
+                         f"of {tuple(GATHER_DTYPES)}")
+    _check(cell_attr, "cell_attr", dev, cell_attr.dtype, (nc, H))
     _check(graph.cell_edge_index, "cell_edge_index", dev, torch.int32, (2, nf))
     own = torch.empty((nf, H), dtype=torch.bfloat16, device=dev)
     nbr = torch.empty_like(own)
     _launch("face_gather", dev, _ptr(cell_attr), _ptr(graph.cell_edge_index[0]),
-            _ptr(graph.cell_edge_index[1]), nf, _ptr(own), _ptr(nbr))
+            _ptr(graph.cell_edge_index[1]), nf, GATHER_DTYPES[cell_attr.dtype],
+            _ptr(own), _ptr(nbr))
     gather_face_cells.launches += 1
     return own, nbr
 

@@ -1,4 +1,4 @@
-"""Design studies of the port's K1, K2, K3, K5 and K6 on one card, each from
+"""Design studies of the port's K1-K6 on one card, each from
 a patched copy of ``gnn_fluid_dynamics_tpu_torch/csrc`` under the ignored
 ``build/studies/``; the shipped sources are read, never changed.
 
@@ -32,6 +32,20 @@ a patched copy of ``gnn_fluid_dynamics_tpu_torch/csrc`` under the ignored
   launch waits), and the kernel route's steps/s over 100-step FluxD and
   FvgnF rollouts; in ``base`` each with the attribute and without, in
   turns within the process.
+* ``k4``: K4 on f32 latents and on bf16 ones, at the FvgnF mesh and at the
+  FluxD-valid batch on its index route, shipped (``base``: 16 lanes per
+  face, two 16-byte f32 loads per row a lane, 256-thread blocks, every lane
+  loading both ids), with a warp per face (``k4_warp``: one 16-byte f32
+  load per row a lane; ``k4_warp_t1024`` with 1024-thread blocks), with
+  512- and 1024-thread blocks (``k4_t512``, ``k4_t1024``), with the ids
+  loaded by one lane and shuffled to the others (``k4_shuffle``), and as
+  commit 3dfe0b7 had it (``k4_previous``: its ``face_gather.cu``, bf16
+  only, read as ``previous`` is); in turns, each held bit for bit against
+  its plain version, with the launch floor at each variant's grid.
+* ``face_input``: the unfused face block's gather, concatenation and MLP
+  input cast on the FvgnF mesh, as run before K4 rounded its own input,
+  as run now, and with the concatenation in bf16: kernels and device time
+  per application (``measure_face_input``).
 * ``smoke_state``: whether what ``chip_smoke.py`` runs before its timed
   rollouts slows them: FluxD's kernel-route steps/s over 100-step
   rollouts, three before and three after running nothing (``control``),
@@ -46,6 +60,7 @@ card's name and power limit.
 
 import ctypes
 import json
+import re
 import shutil
 import subprocess
 import time
@@ -55,15 +70,18 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 PREVIOUS = "25f4ea5"  # the commit whose K3 and K5 the k35 study reads
+K4_PREVIOUS = "3dfe0b7"  # the commit whose K4 the k4 study reads
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
+from gnn_fluid_dynamics_tpu_torch.models import arch  # noqa: E402
 from gnn_fluid_dynamics_tpu_torch.models.arch import MLP  # noqa: E402
 from gnn_fluid_dynamics_tpu_torch.ops import kernels  # noqa: E402
 
 _EXTRA_ENTRIES = kernels._EXTRA_ENTRIES
+_ARGTYPES = kernels._ARGTYPES
 
 STUDIES = ROOT / "build" / "studies"
 SRC = kernels.CSRC
@@ -154,6 +172,15 @@ extern "C" int gfd_edge_cell(int device, const void* edge, const void* ptr,
 }
 """
 
+_K4_WARP = ("face_gather.cu", "constexpr int FACE_LANES = 16;",
+            "constexpr int FACE_LANES = 32;")
+
+
+def _k4_threads(n):
+    return ("face_gather.cu", "constexpr int GATHER_THREADS = 256;",
+            f"constexpr int GATHER_THREADS = {n};")
+
+
 # variant -> [(file, text in the shipped source, its replacement)]
 VARIANTS = {
     "base": [],
@@ -219,6 +246,23 @@ VARIANTS = {
     "control": [], "hazard": [], "phase2": [],
     "fused": [("edge_vertex.cu", "// Launches K3 on `stream`;",
                _FUSED + "\n// Launches K3 on `stream`;")],
+    "k4_warp": [_K4_WARP],
+    "k4_warp_t1024": [_K4_WARP, _k4_threads(1024)],
+    "k4_t512": [_k4_threads(512)],
+    "k4_t1024": [_k4_threads(1024)],
+    # every lane of a warp takes part in the shuffles: the check of the face
+    # against n_faces moves after them
+    "k4_shuffle": [("face_gather.cu", """  if (f >= n_faces) return;
+  const int o = __ldg(owner + f), n = __ldg(nbr + f);""",
+                    """  int o = 0, n = 0;
+  if (lane == 0 && f < n_faces) {
+    o = __ldg(owner + f);
+    n = __ldg(nbr + f);
+  }
+  o = __shfl_sync(0xffffffffu, o, 0, FACE_LANES);
+  n = __shfl_sync(0xffffffffu, n, 0, FACE_LANES);
+  if (f >= n_faces) return;""")],
+    "k4_previous": [],    # face_gather.cu of K4_PREVIOUS
     "k6_no_l2_policy": [
         ("table_dual.cu", _K6_STORE, """      *reinterpret_cast<uint4*>(out + (size_t)(8 * h) * ld +
                                 8 * (j0 + q)) = v;"""),
@@ -231,10 +275,17 @@ STUDY_VARIANTS = {"w0_split": ("base", "w0_split"),
                   "k6": ("base", "k6_no_stores", "k6_no_products",
                          "k6_no_l2_policy"),
                   "k35": ("base", "previous", "fused"),
+                  "k4": ("base", "k4_warp", "k4_warp_t1024", "k4_t512",
+                         "k4_t1024", "k4_shuffle", "k4_previous"),
+                  "face_input": ("base",),
                   "pdl_host": ("base", "previous"),
                   "smoke_state": ("control", "hazard", "phase2")}
 # variants whose sources are another commit's files
-FILES_FROM = {"previous": (PREVIOUS, ("edge_vertex.cu", "vertex_cell.cu"))}
+FILES_FROM = {"previous": (PREVIOUS, ("edge_vertex.cu", "vertex_cell.cu")),
+              "k4_previous": (K4_PREVIOUS, ("face_gather.cu",))}
+# the C signature of K4_PREVIOUS's gfd_face_gather: bf16 latents only
+K4_PREVIOUS_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [
+    ctypes.c_int] + [ctypes.c_void_p] * 3
 K2_PHASES = ("launch to gather issued", "gather landed", "to the W0 wait",
              "W0 wait", "product 1, SiLU", "product 2, SiLU",
              "product 3, LayerNorm", "stores")
@@ -285,6 +336,9 @@ def use(variant: str) -> None:
     kernels._libs.clear()
     # the previous K3 and K5 sources have no entry points but their launchers
     kernels._EXTRA_ENTRIES = {} if variant == "previous" else _EXTRA_ENTRIES
+    kernels._ARGTYPES = dict(_ARGTYPES)
+    if variant == "k4_previous":
+        kernels._ARGTYPES["gfd_face_gather"] = K4_PREVIOUS_ARGTYPES
 
 
 def measure(study: str, variant: str) -> dict:
@@ -300,6 +354,10 @@ def measure(study: str, variant: str) -> dict:
     out = {}
     if study == "k35":
         return measure_k35(variant, latents)
+    if study == "k4":
+        return measure_k4(variant)
+    if study == "face_input":
+        return measure_face_input(variant)
     if study == "pdl_host":
         return measure_pdl_host(variant, latents)
     if study == "smoke_state":
@@ -395,6 +453,127 @@ def measure_k35(variant: str, latents) -> dict:
             with kernels.without_pdl():
                 out[f"floor_plain_{shape}"] = cs.gpu_ms(run, ITERS)
     return out
+
+
+def measure_k4(variant: str) -> dict:
+    """K4 per launch on f32 and bf16 latents (bf16 only for
+    ``k4_previous``) at the FvgnF mesh and the FluxD-valid batch on its
+    index route, each first held bit for bit against its plain version; and
+    the launch floor (an empty kernel, no PDL attribute) at the variant's
+    grid. ms per launch."""
+    dev = torch.device("cuda", 0)
+    graph, _ = cs.bench_mesh(dev)
+    _, vg = cs.valid_data(dev)
+    big = cs.to_static_bands(vg, derive_idx=True)
+    rng = np.random.default_rng(2)
+    faces_per_block = k4_faces_per_block(variant)
+    out = {}
+    for g in (graph, big):
+        nf = g.num_faces
+        x32 = torch.from_numpy(rng.normal(size=(g.num_cells, 128)).astype(
+            np.float32)).to(dev)
+        forms = {"bf16": x32.to(torch.bfloat16)}
+        if variant != "k4_previous":
+            forms["f32"] = x32
+        for dname, x in forms.items():
+            if variant == "k4_previous":
+                call = previous_k4(x, g)
+            else:
+                call = lambda x=x, g=g: kernels.gather_face_cells(x, g)  # noqa: E731
+            got, want = call(), kernels.gather_face_cells_ref(x, g)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a.view(torch.int16), b.view(torch.int16))
+                       for a, b in zip(got, want)):
+                raise SystemExit(f"{variant}: K4 {dname} at {nf} faces "
+                                 "differs from its plain version")
+            out[f"K4_{dname}_{nf}"] = cs.gpu_ms(call, ITERS)
+        with kernels.without_pdl():
+            out[f"floor_k4_grid_{nf}"] = cs.gpu_ms(
+                lambda nf=nf: kernels.launch_floor(
+                    dev, -(-nf // faces_per_block), 256), ITERS)
+    return out
+
+
+def k4_faces_per_block(variant: str) -> int:
+    """Faces per block of the variant's K4 grid, read from its source (the
+    previous design gave 16 threads to a face)."""
+    text = (STUDIES / variant / "csrc" / "face_gather.cu").read_text()
+    threads = int(re.search(r"GATHER_THREADS = (\d+);", text).group(1))
+    lanes = re.search(r"FACE_LANES = (\d+);", text)
+    return threads // (int(lanes.group(1)) if lanes else 16)
+
+
+def measure_face_input(variant: str) -> dict:
+    """What the unfused face block runs around its gather up to its MLP's
+    first product, on the FvgnF mesh: the gather, the concatenation with the
+    edge latents and the step scalar, and the MLP's cast of that input to
+    bf16. ``before``: the latents cast to bf16, K4, both rows widened to
+    f32, the f32 concatenation; ``now``: K4 on the f32 latents, the
+    concatenation widening its bf16 rows; ``bf16_concat``: the edge latents
+    and the step scalar cast to bf16 and everything concatenated in bf16,
+    which the MLP's cast then leaves alone. Each must give the same bf16
+    MLP input bit for bit. Per form: CUDA kernels per application and their
+    device microseconds per application (torch.profiler over 20
+    applications), and ms per application back to back."""
+    from torch.profiler import ProfilerActivity, profile
+    dev = torch.device("cuda", 0)
+    graph, _ = cs.bench_mesh(dev)
+    rng = np.random.default_rng(3)
+    nf = graph.num_faces
+    cell = torch.from_numpy(rng.normal(size=(graph.num_cells, 128)).astype(
+        np.float32)).to(dev)
+    edge = torch.from_numpy(rng.normal(size=(nf, 128)).astype(np.float32)).to(dev)
+    extra = torch.tensor([[0.4]], device=dev)
+    extra_b = extra.to(torch.bfloat16)
+
+    def before():
+        own, nbr = kernels.gather_face_cells(cell.to(torch.bfloat16), graph)
+        return arch._with_extra([edge, own.float(), nbr.float()], extra,
+                                nf).to(torch.bfloat16)
+
+    def now():
+        return arch._with_extra([edge, *kernels.gather_face_cells(cell, graph)],
+                                extra, nf).to(torch.bfloat16)
+
+    def bf16_concat():
+        return torch.cat([edge.to(torch.bfloat16),
+                          *kernels.gather_face_cells(cell, graph),
+                          extra_b.expand(nf, 1)], dim=-1).to(torch.bfloat16)
+
+    forms = {"before": before, "now": now, "bf16_concat": bf16_concat}
+    want = before()
+    out = {}
+    for name, fn in forms.items():
+        if not torch.equal(fn().view(torch.int16), want.view(torch.int16)):
+            raise SystemExit(f"face_input: {name} gives another MLP input")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        out[f"{name}_kernels"] = len(events) / 20
+        out[f"{name}_device_us"] = sum(
+            e.time_range.end - e.time_range.start for e in events) / 20
+        out[f"{name}_names"] = sorted({e.name[:50] for e in events})
+        out[f"{name}_ms"] = cs.gpu_ms(fn, ITERS)
+    return out
+
+
+def previous_k4(x, g):
+    """K4 as commit K4_PREVIOUS launched it, on bf16 latents ``x`` of ``g``:
+    its entry point has no dtype argument."""
+    own = torch.empty(g.num_faces, 128, dtype=torch.bfloat16, device=x.device)
+    nbr = torch.empty_like(own)
+    idx = g.cell_edge_index
+
+    def call():
+        kernels._launch("face_gather", x.device, x.data_ptr(),
+                        idx[0].data_ptr(), idx[1].data_ptr(), g.num_faces,
+                        own.data_ptr(), nbr.data_ptr())
+        return own, nbr
+    return call
 
 
 def host_us(call, n: int = 300) -> float:

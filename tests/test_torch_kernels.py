@@ -12,8 +12,9 @@ Inputs and weights come from a numpy seed; the weights reach the port through
 * bf16, against the Pallas kernels: 2**-7 relative plus 2**-7 absolute — one
   bf16 rounding step (8 bits of mantissa) where an f32 sum taken in another
   order lands on the other side of a rounding boundary;
-* K4, against its Pallas kernel: exact. A gather copies rows, and the TPU's
-  one-hot product (one nonzero per row, f32 accumulation) copies them too.
+* K4, against its Pallas kernel: exact. A gather copies rows rounded to
+  bf16 once (the wrapper's cast), and the TPU's one-hot product (one
+  nonzero per row, f32 accumulation) copies them too.
 """
 
 import jax.numpy as jnp
@@ -179,10 +180,13 @@ def test_fused_cell_block_bf16_matches_pallas(graphs, dual_out):
 
 # ---- K4: owner/neighbour gather ----------------------------------------------
 
-def test_gather_face_cells_matches_pallas_exactly(graphs):
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_gather_face_cells_matches_pallas_exactly(graphs, dtype):
+    """bf16 latents are copied; f32 ones (not bf16-exact) are rounded to
+    bf16 first, by the plain version as by the Pallas wrapper's cast."""
     gj, gt = graphs
     rng = np.random.default_rng(7)
-    cj, ct = _latents(rng, gt.num_cells, "bfloat16")
+    cj, ct = _latents(rng, gt.num_cells, dtype)
     want = pallas_agg.gather_face_cells_pallas(cj, gj)
     got = kernels.gather_face_cells(ct, gt)        # CPU tensors: plain version
     live = gt.face_mask.numpy()
@@ -286,20 +290,24 @@ def test_cpu_tensors_take_the_plain_version_unfused(graphs):
 @pytest.mark.parametrize("kernel", ["K4", "K5"])
 def test_other_devices_never_take_the_plain_version(graphs, kernel):
     """A tensor off the CPU goes to the kernel's argument checks, which
-    refuse what the kernel does not take; nothing falls back."""
+    refuse what the kernel does not take; nothing falls back. K4 takes f32
+    and bf16 latents, K5 bf16 vertex sums: each refuses another dtype, and
+    on a dtype it takes, the graph's index vectors on the CPU."""
     _, gt = graphs
     if kernel == "K4":
-        x = torch.empty((gt.num_cells, H), dtype=torch.float32, device="meta")
+        x = torch.empty((gt.num_cells, H), dtype=torch.float16, device="meta")
+        taken = x.to(torch.float32)
         call = kernels.gather_face_cells
     else:
         x = torch.empty((gt.num_vertices, H // 2), dtype=torch.float32,
                         device="meta")
+        taken = x.to(torch.bfloat16)
         call = kernels.vertices_to_cells
     before = call.launches
     with pytest.raises(ValueError, match="dtype"):
         call(x, gt)
     with pytest.raises(ValueError, match="is on cpu"):
-        call(x.to(torch.bfloat16), gt)
+        call(taken, gt)
     assert call.launches == before
 
 

@@ -368,7 +368,8 @@ def test_kernel_bounds_count_each_input_and_output_once(small_graph):
                                 + 512 * C, 2 * C * 128 * 448),
         "K3_edges_to_vertices": (256 * F + 4 * (V + 1) + 8 * F + 128 * V,
                                  128 * F),
-        "K4_gather_face_cells": (256 * C + 8 * F + 512 * F, 0),
+        # f32 latents read once (the FvgnF path's form), 2 indices, 2 bf16 rows
+        "K4_gather_face_cells": (512 * C + 8 * F + 512 * F, 0),
         "K5_vertices_to_cells": (128 * V + 12 * C + 256 * C, 192 * C),
     }
     for name, (nbytes, flops) in want.items():
