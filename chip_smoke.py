@@ -52,9 +52,31 @@ Phases (each prints one flushed line; any failure exits non-zero):
    each kernel must have launched as often per step as its path runs it
    (15, K6 30) and never on another path; last a device profile of 10
    steps;
-4. the ``kernels`` line: per kernel its time per launch, launches, bound,
-   plain time and library time (K3 and K5 also the pair's time and the
-   launch floor).
+4. a summary line of the three paths;
+5. training on the card, through ``Trainer.run`` (no kernel runs in a train
+   step: ``train`` refuses the kernel route, as in the JAX package):
+
+   * 5a FluxD at hidden 128, 15 blocks, bf16, ``config/train.json``'s
+     optimizer (AdamW, clip 10), schedule, loss weights and noise, batch 4
+     of four RCM-ordered 2,400-point cylinder meshes (about 3.5k cells
+     each) with channel-flow trajectories, TRAIN_STEPS steps of one
+     mini-epoch each, validated on the FluxD-valid dataset before and
+     after (K6 30 and K7 15 launches per validation step, none in a train
+     step; its errors against the plain route's within 5e-2), one
+     checkpoint written and read back; then ms per train step (host clock
+     over TIMED_STEPS steps after TIMED_WARMUP, ending in a synchronize), a
+     device profile of TRAIN_PROFILE_STEPS steps, the peak device memory,
+     and the mean loss of the first and the last LOSS_WINDOW steps (the
+     last must be lower);
+   * 5b one FluxD train step in f32 without noise, flip or dropout on the
+     bench mesh, with the same weights and batch on the card and on the
+     CPU: loss, gradient norm and parameters held against each other;
+   * 5c FvgnF, as 5a for FVGNF_TRAIN_STEPS steps without validation: finite
+     losses, and its BatchNorm's running statistics moved and finite;
+
+then the ``kernels`` line: per kernel its time per launch, launches, bound,
+plain time and library time (K3 and K5 also the pair's time and the launch
+floor).
 
 The last line is ``{"ok": true, "device": {...}}``. Without a card the script
 exits non-zero and prints no result.
@@ -62,9 +84,12 @@ exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import functools
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -73,6 +98,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from gnn_fluid_dynamics_tpu_torch.data.samplers import get_sampler
 from gnn_fluid_dynamics_tpu_torch.data.pipeline import (MeshDataset, Trajectory,
                                                         rollout_batch)
 from gnn_fluid_dynamics_tpu_torch.data.synthetic import (channel_flow_trajectory,
@@ -89,6 +115,12 @@ from gnn_fluid_dynamics_tpu_torch.ops.reorder import rcm_reorder_geometry
 from gnn_fluid_dynamics_tpu_torch.rollout.engine import (SAVABLE_FIELDS,
                                                          RolloutConfig,
                                                          rollout_scan)
+from gnn_fluid_dynamics_tpu_torch.training import train as train_cli
+from gnn_fluid_dynamics_tpu_torch.training.checkpoint import Checkpointer
+from gnn_fluid_dynamics_tpu_torch.training.config import load_config
+from gnn_fluid_dynamics_tpu_torch.training.logging import Logger
+from gnn_fluid_dynamics_tpu_torch.training.lr_schedule import get_schedule
+from gnn_fluid_dynamics_tpu_torch.training.trainer import Trainer, optimizer_step
 from gnn_fluid_dynamics_tpu_torch.training.validate import (validate,
                                                             validation_errors)
 
@@ -118,6 +150,23 @@ HAZARD_ROUNDS = 200
 HAZARD_CYCLES = 100_000   # the hazard writer's idle cycles (~50 us) before it writes
 FLOOR_ITERS = 200         # launches per timed batch of K3, K4, K5, the pair, the floor
 K4_FACES_PER_BLOCK = 16   # K4's grid: 16 lanes per face (csrc/face_gather.cu)
+# phase 5: training on the card
+ROOT = os.path.dirname(os.path.abspath(__file__))
+TRAIN_CONFIG = os.path.join(ROOT, "config", "train.json")
+SMOKE_DIR = os.path.join(ROOT, "build", "chip_smoke")   # logs and checkpoints
+TRAIN_POINTS = 2400        # the bench mesh's generator: ~3.5k cells a mesh
+TRAIN_SEEDS = (0, 1, 2, 3)  # one mesh per seed, batch 4
+TRAIN_STEPS = 40           # Trainer.run's steps, one mini-epoch each
+TIMED_WARMUP, TIMED_STEPS = 5, 30
+TRAIN_PROFILE_STEPS = 5
+FVGNF_TRAIN_STEPS = 10
+LOSS_WINDOW = 10           # steps averaged at the start and at the end
+# card against CPU, one f32 step: the loss within 1e-4 relative and the
+# gradients' global norm within 1e-3 (f32 sums in another order, atomics on
+# the card); each parameter within 2 lr (1 + 1e-4) + 1e-6: a first AdamW
+# step moves an element by lr * g / (|g| + eps), about lr in the sign of g,
+# so an element whose gradient is near 0 may move lr either way
+CPU_LOSS_RTOL, CPU_GRAD_NORM_RTOL = 1e-4, 1e-3
 
 KERNELS = {
     "K1_fused_face_block": dict(
@@ -951,7 +1000,7 @@ def rollout_errors_check(fields):
     return check
 
 
-def validate_check(ds):
+def validate_check(ds, phase: str = "3a'"):
     """FluxD-valid: ``validate(model, ds, CHECK_STEPS)`` on both routes, the
     trainer's validation run free for CHECK_STEPS steps; every error finite,
     and the two routes' ``total_mean_error`` and each trajectory's mean
@@ -984,7 +1033,7 @@ def validate_check(ds):
             if r > STEP_TOL:
                 fail(f"{path} validate: {name} {pairs[name][0]} (kernel) vs "
                      f"{pairs[name][1]} (plain), {r:.3g} > {STEP_TOL}")
-        say(f"phase 3a' {path} validate(model, ds, {CHECK_STEPS}) on both "
+        say(f"phase {phase} {path} validate(model, ds, {CHECK_STEPS}) on both "
             "routes: ok, relative differences "
             + json.dumps({k: round(v, 6) for k, v in rel.items()}) + " "
             + json.dumps(out))
@@ -1012,6 +1061,15 @@ def path_models(path: str, graph):
     return kern, plain, feats
 
 
+def zero_launches() -> None:
+    for spec in KERNELS.values():
+        spec["wrapper"].launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: spec["wrapper"].launches for name, spec in KERNELS.items()}
+
+
 def slice_phase(path: str, graph, errors_check, device_line: str,
                 index_graph=None) -> dict:
     """One path's rollout through the kernels: first held against the plain
@@ -1032,10 +1090,9 @@ def slice_phase(path: str, graph, errors_check, device_line: str,
         rollout_scan(model, graph, feats, config=RolloutConfig(
             num_steps=5, compute_error=False))
     walls = {"plain": [timed_rollout(plain, graph, feats)]}
-    for spec in KERNELS.values():
-        spec["wrapper"].launches = 0
+    zero_launches()
     walls["kernel"] = [timed_rollout(kern, graph, feats)]
-    launches = {name: spec["wrapper"].launches for name, spec in KERNELS.items()}
+    launches = launch_counts()
     walls["kernel"].append(timed_rollout(kern, graph, feats))
     walls["plain"].append(timed_rollout(plain, graph, feats))
     for name, n in launches.items():
@@ -1076,19 +1133,27 @@ def timed_rollout(model, graph, feats) -> float:
 
 
 def device_profile(model, graph, feats, steps: int = 10):
-    """Device time per step by kernel name over a short rollout (the 8
-    largest, and each of this package's kernels), and the share of the
-    window's wall time with a kernel running, from torch.profiler (device
-    activity only); None where the profiler shows no device time. The
-    device time per step is the sum of the kernels' spans, and also their
-    union: a kernel launched by PDL starts before the one ahead of it ends
-    (its prologue, then its wait), so the sum counts that overlap twice."""
-    from torch.profiler import ProfilerActivity, profile
+    """``profile_steps`` over a short rollout of ``steps`` steps."""
     cfg = RolloutConfig(num_steps=steps, compute_error=False)
+    return profile_steps(
+        lambda: rollout_scan(model, graph, feats, config=cfg), steps)
+
+
+def profile_steps(run, steps: int):
+    """Device time per step by kernel name over ``run()``, which takes
+    ``steps`` steps (the 8 largest kernels, and each of this package's), and
+    the share of the window's wall time with a kernel running, from
+    torch.profiler (device activity only); None where the profiler shows no
+    device time. The device time per step is the sum of the kernels' spans,
+    and also their union: a kernel launched by PDL starts before the one
+    ahead of it ends (its prologue, then its wait), so the sum counts that
+    overlap twice."""
+    from torch.profiler import ProfilerActivity, profile
     try:
+        torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            rollout_scan(model, graph, feats, config=cfg)
+            run()
             torch.cuda.synchronize()
             wall_us = 1e6 * (time.perf_counter() - t0)
         events = [e for e in prof.events()
@@ -1121,6 +1186,266 @@ def device_profile(model, graph, feats, steps: int = 10):
             "kernels_per_step": len(events) / steps,
             "top_ms_per_step": {n[:60]: t / steps / 1e3 for n, t in top},
             "gfd_ms_per_step": {n: t / steps / 1e3 for n, t in ours.items()}}
+
+
+# ---- phase 5: training ------------------------------------------------------
+
+def train_data(device, steps: int = TRAIN_STEPS) -> MeshDataset:
+    """Phase 5's training set: one RCM-ordered TRAIN_POINTS-point cylinder
+    mesh per seed of TRAIN_SEEDS, each with a channel-flow trajectory of
+    ``steps`` + 1 states, so that an epoch of ``balanced_chunked`` batches
+    of 4 (one sample of each mesh) is ``steps`` steps."""
+    trajs = []
+    for seed in TRAIN_SEEDS:
+        geom = rcm_reorder_geometry(make_geometry(
+            "cylinder", n_points=TRAIN_POINTS, seed=seed))
+        fields = channel_flow_trajectory(geom, num_timesteps=steps + 1,
+                                         dt=0.01)
+        trajs.append(Trajectory(mesh_id=f"cyl{seed}", geom=geom, fields=fields))
+    return MeshDataset(trajs, device=device)
+
+
+def train_config(name: str, steps: int):
+    """``config/train.json`` as phase 5 trains it: model ``name`` at its
+    shipped width and depth, bf16, its optimizer, clip, schedule, loss
+    weights and noise; the ``auto`` aggregation, so that its validation
+    rollout takes the kernel route (a train step never does); one epoch of
+    ``steps`` steps of batch 4, a mini-epoch per step, validation and a
+    checkpoint at the last; statistics over every 4th sample, not cached."""
+    cfg = load_config(TRAIN_CONFIG)
+    cfg.model.name = name
+    cfg.model.aggregation = "auto"
+    cfg.model.compute_dtype = "bfloat16"
+    cfg.training.epochs = 1
+    cfg.training.batch_size = cfg.training.mini_epoch_size = len(TRAIN_SEEDS)
+    cfg.logging.valid_frequency = cfg.logging.save_frequency = steps
+    cfg.logging.name = f"{name}-chip-smoke"
+    cfg.dataset.stats_fpath = None
+    cfg.dataset.stats_stride = 4
+    return cfg
+
+
+def build_trainer(cfg, ds, checkpointer=None):
+    """The model of ``cfg`` on ``ds``'s device with statistics from ``ds``,
+    a trainer logging to SMOKE_DIR, and its initial state."""
+    model = train_cli.build_model(cfg, ds.device)
+    stats = train_cli.compute_stats(cfg, model, ds)
+    model.set_stats(stats)
+    train_cli.set_noise_std(cfg, stats)
+    logger = Logger(cfg, base_dir=os.path.join(SMOKE_DIR, "runs"))
+    trainer = Trainer(cfg, model, logger=logger, checkpointer=checkpointer)
+    return trainer, trainer.init_state()
+
+
+def logged(trainer, key: str) -> list:
+    """Every value of ``key`` in the trainer's metrics, in order."""
+    with open(trainer.logger.metrics_path) as f:
+        return [r[key] for r in map(json.loads, f) if key in r]
+
+
+def fluxd_training(train_ds, valid_ds, device_line: str) -> dict:
+    """Phase 5a: ``Trainer.run`` of FluxD, its kernel launches counted
+    around each validation and across the train steps, the losses read from
+    its log, the checkpoint read back, the validation held against the
+    plain route; then the timed steps, their profile and peak memory."""
+    cfg = train_config("FluxD", TRAIN_STEPS)
+    ckpt = Checkpointer(os.path.join(SMOKE_DIR, "ckpt"))
+    trainer, state = build_trainer(cfg, train_ds, ckpt)
+    t = cfg.training
+    sched = get_schedule(t.lr_class, t, TRAIN_STEPS)
+    say(f"phase 5a FluxD h{H} mp{MP_NUM} bf16, {trainer.model.count_parameters():,}"
+        f" parameters, {t.optimizer_name} clip {t.clip_grad_norm}, noise std "
+        f"{t.noise_std:.6g}; {t.lr_class} over {TRAIN_STEPS} mini-epochs of one "
+        "step, lr by mini-epoch: "
+        + json.dumps([float(f"{sched(i):.4g}") for i in range(TRAIN_STEPS)]))
+
+    valid_launches = []
+    validate_fn = trainer.validate
+
+    def counted_validate(*args, **kw):
+        before = launch_counts()
+        out = validate_fn(*args, **kw)
+        valid_launches.append({k: v - before[k]
+                               for k, v in launch_counts().items()})
+        return out
+
+    trainer.validate = counted_validate
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    trainer.run(state, train_ds, valid_ds, num_valid_steps=CHECK_STEPS)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    run_launches = launch_counts()
+    run_peak = torch.cuda.max_memory_allocated()
+    trainer.validate = validate_fn
+
+    per_valid = {name: PATHS["FluxD-valid"][1].get(name, 0) * CHECK_STEPS
+                 for name in KERNELS}
+    if len(valid_launches) != 2 or any(v != per_valid for v in valid_launches):
+        fail(f"FluxD-train: launches per validation {valid_launches}, expected "
+             f"2 validations of {per_valid}")
+    in_steps = {k: n - sum(v[k] for v in valid_launches)
+                for k, n in run_launches.items()}
+    if any(in_steps.values()):
+        fail(f"FluxD-train: kernels launched in train steps {in_steps}")
+    losses = logged(trainer, "train/total_log_loss")
+    if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
+        fail(f"FluxD-train: {len(losses)} logged losses {losses}")
+    first = float(np.mean(losses[:LOSS_WINDOW]))
+    last = float(np.mean(losses[-LOSS_WINDOW:]))
+    if not last < first:
+        fail(f"FluxD-train: mean loss of the last {LOSS_WINDOW} steps {last} "
+             f"not below the first {LOSS_WINDOW} {first}")
+    tree, meta = ckpt.load("latest")
+    saved = state.module.state_dict()
+    if (meta["step"] != TRAIN_STEPS or tree["module"].keys() != saved.keys()
+            or not all(torch.equal(tree["module"][k], v.cpu())
+                       for k, v in saved.items())):
+        fail("FluxD-train: the checkpoint read back differs from the state")
+    step_ms = [1e3 * v for v in logged(trainer, "performance/train_step_time")]
+    say(f"phase 5a FluxD Trainer.run: {TRAIN_STEPS} steps in {run_s:.2f} s "
+        "(two validations included); launches per validation "
+        + json.dumps({k: v for k, v in valid_launches[0].items() if v})
+        + f" ({CHECK_STEPS} rollout steps each); launches in the train steps "
+        + json.dumps(in_steps) + f"; mean loss of the first {LOSS_WINDOW} "
+        f"steps {first:.6f}, of the last {LOSS_WINDOW} {last:.6f}; losses "
+        + json.dumps([round(v, 6) for v in losses])
+        + f"; checkpoint {os.path.basename(ckpt.resolve('latest'))} read back; "
+        f"peak memory over the run {run_peak / 2**30:.3f} GiB; the run's own "
+        f"ms per step (batch assembly and the loss read at each mini-epoch "
+        f"included): median {float(np.median(step_ms)):.3f}")
+
+    plain_cfg = copy.deepcopy(cfg)
+    plain_cfg.model.aggregation = "segment"
+    plain = train_cli.build_model(plain_cfg, train_ds.device)
+    plain.set_stats(trainer.model.stats)
+    plain.module.load_state_dict(state.module.state_dict())
+    validate_check(valid_ds, phase="5a'")("FluxD-train", trainer.model, plain,
+                                          None, None)
+
+    batches = [train_ds.get_batch(s) for s, _ in zip(
+        get_sampler(cfg.dataset.sampler)(train_ds, t.batch_size,
+                                         np.random.default_rng(0)),
+        range(TIMED_WARMUP + TIMED_STEPS))]
+    g0 = batches[0]
+    lr = t.lr_max
+    zero_launches()
+    for g in batches[:TIMED_WARMUP]:
+        trainer.train_step(state, g, lr)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for g in batches[TIMED_WARMUP:]:
+        trainer.train_step(state, g, lr)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / TIMED_STEPS
+    step_peak = torch.cuda.max_memory_allocated()
+    if any(launch_counts().values()):
+        fail(f"FluxD-train: kernels launched in timed steps {launch_counts()}")
+    prof = profile_steps(lambda: [trainer.train_step(state, g, lr)
+                                  for g in batches[:TRAIN_PROFILE_STEPS]],
+                         TRAIN_PROFILE_STEPS)
+    say(f"phase 5a FluxD train step h{H} mp{MP_NUM} bf16 batch "
+        f"{t.batch_size} ({g0.num_cells} cells {g0.num_faces} faces "
+        f"{g0.num_vertices} vertices): {ms:.3f} ms per step over "
+        f"{TIMED_STEPS} steps after {TIMED_WARMUP} warm-up (host clock, "
+        "batches assembled beforehand, ending in a synchronize); peak memory "
+        f"over them {step_peak / 2**30:.3f} GiB; card {device_line}")
+    say(f"phase 5a FluxD device profile of {TRAIN_PROFILE_STEPS} train "
+        "steps: " + ("not measured" if prof is None else json.dumps(prof)))
+    return {"launches": run_launches, "rollout_steps": 2 * CHECK_STEPS,
+            "ms_per_step": ms, "profile": prof, "loss_first": first,
+            "loss_last": last, "peak_bytes_run": run_peak,
+            "peak_bytes_steps": step_peak}
+
+
+def graph_to(graph, device):
+    """``graph`` with every tensor moved to ``device``."""
+    return graph.replace(**{
+        f.name: getattr(graph, f.name).to(device)
+        for f in dataclasses.fields(graph)
+        if isinstance(getattr(graph, f.name), torch.Tensor)})
+
+
+def card_vs_cpu(graph) -> dict:
+    """Phase 5b: one FluxD train step in f32 (segment aggregation, no
+    noise, flip or dropout) on ``graph`` with the same weights, statistics
+    and batch on the card and on the CPU; fails beyond CPU_LOSS_RTOL,
+    CPU_GRAD_NORM_RTOL or the parameters' bound (see there)."""
+    cfg = train_config("FluxD", 1)
+    cfg.model.compute_dtype = "float32"
+    cfg.model.aggregation = "segment"
+    lr = cfg.training.lr_max
+    out, weights, stats = [], None, None
+    for g in (graph, graph_to(graph, "cpu")):
+        model = train_cli.build_model(cfg, g.device)
+        if stats is None:
+            _, feats = model.transform_rollout(g)
+            acc = StatsAccumulator(model.nmap)
+            acc.update(feats, feature_masks(g, feats))
+            stats = acc.finalize()
+            weights = {k: v.detach().cpu().clone()
+                       for k, v in model.module.state_dict().items()}
+        model.set_stats(stats)
+        model.module.load_state_dict(weights)
+        state = Trainer(cfg, model).init_state()
+        tg, feats = model.transform_features(g, None, mode="train")
+        state.module.train()
+        loss = model.loss(model.forward(tg, feats, mode="train"), feats,
+                          tg)["total_log_loss"]
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        norm = optimizer_step(state.optimizer, lr, cfg.training.clip_grad_norm)
+        out.append((loss.item(), norm.item(), {
+            k: v.detach().cpu() for k, v in state.module.state_dict().items()}))
+    (lc, nc, pc), (lh, nh, ph) = out
+    diff = torch.cat([(pc[k] - ph[k]).abs().reshape(-1) for k in pc])
+    bound = 2 * lr * (1 + 1e-4) + 1e-6
+    res = {"loss_card": lc, "loss_cpu": lh, "loss_rel": abs(lc - lh) / abs(lh),
+           "grad_norm_card": nc, "grad_norm_cpu": nh,
+           "grad_norm_rel": abs(nc - nh) / abs(nh),
+           "param_max_abs_diff": float(diff.max()), "param_bound": bound,
+           "params_beyond_1e-6": int((diff > 1e-6).sum()),
+           "params": diff.numel()}
+    if (res["loss_rel"] > CPU_LOSS_RTOL or res["grad_norm_rel"] > CPU_GRAD_NORM_RTOL
+            or res["param_max_abs_diff"] > bound):
+        fail(f"FluxD train step, card against CPU: {res}")
+    say(f"phase 5b FluxD train step in f32 on the {graph.num_cells}-cell mesh, "
+        f"card against CPU (loss within {CPU_LOSS_RTOL}, gradient norm within "
+        f"{CPU_GRAD_NORM_RTOL} relative, parameters within {bound:.6g}): ok "
+        + json.dumps(res))
+
+
+def fvgnf_training(train_ds) -> dict:
+    """Phase 5c: ``Trainer.run`` of FvgnF for FVGNF_TRAIN_STEPS steps on
+    the first states of phase 5a's trajectories, no validation: no kernel
+    launched, finite losses, the integrator's BatchNorm statistics moved
+    from their init and finite."""
+    ds = MeshDataset(train_ds.trajectories, timestep_range=(0, FVGNF_TRAIN_STEPS),
+                     device=train_ds.device)
+    cfg = train_config("FvgnF", FVGNF_TRAIN_STEPS)
+    trainer, state = build_trainer(cfg, ds)
+    bn = state.module.integrator.face_area_norm.masked_batch_norm.batch_norm
+    init = (bn.running_mean.clone(), bn.running_var.clone())
+    zero_launches()
+    trainer.run(state, ds)
+    losses = logged(trainer, "train/total_log_loss")
+    stats = {"running_mean": bn.running_mean.item(),
+             "running_var": bn.running_var.item()}
+    if any(launch_counts().values()):
+        fail(f"FvgnF training launched kernels {launch_counts()}")
+    if len(losses) != FVGNF_TRAIN_STEPS or not np.isfinite(losses).all():
+        fail(f"FvgnF training: losses {losses}")
+    if (not np.isfinite(list(stats.values())).all()
+            or torch.equal(bn.running_mean, init[0])
+            or torch.equal(bn.running_var, init[1])):
+        fail(f"FvgnF training: BatchNorm statistics {stats} (init 0, 1)")
+    say(f"phase 5c FvgnF h{H} mp{MP_NUM} bf16 batch {cfg.training.batch_size}, "
+        f"{FVGNF_TRAIN_STEPS} steps: ok, no kernel launched; losses "
+        + json.dumps([round(v, 6) for v in losses])
+        + "; the integrator's BatchNorm " + json.dumps(stats) + " (init 0, 1)")
 
 
 def main() -> int:
@@ -1178,6 +1503,20 @@ def main() -> int:
                     slice_phase(path, graph, checks[path], line))
              for path in PATHS}
 
+    say(f"phase 4 card {line}; " + "; ".join(
+        f"{path} {p['steps_per_s']:.1f} steps/s, {p['ms_per_step']:.4f} ms/step, "
+        + ("kernels per step not measured" if p["profile"] is None else
+           f"{p['profile']['kernels_per_step']:g} kernels per step")
+        for path, p in paths.items()))
+
+    t5 = time.perf_counter()
+    shutil.rmtree(SMOKE_DIR, ignore_errors=True)
+    train_ds = train_data(dev)
+    paths["FluxD-train"] = fluxd_training(train_ds, ds, line)
+    card_vs_cpu(graph)
+    fvgnf_training(train_ds)
+    say(f"phase 5 wall time {time.perf_counter() - t5:.1f} s")
+
     bnd = bounds(graph)
     rows = []
     for name, spec in KERNELS.items():
@@ -1188,7 +1527,9 @@ def main() -> int:
             "name": name, "route": "cuda", "source": spec["source"],
             "replaces": spec["replaces"], "launches": sum(by_path.values()),
             "launches_by_path": by_path,
-            "launches_per_step": {p: n / STEPS for p, n in by_path.items()},
+            "launches_per_step": {
+                p: n / paths[p].get("rollout_steps", STEPS)
+                for p, n in by_path.items()},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": r.get("library_ms"), "bytes": nbytes, "flops": flops,
@@ -1197,11 +1538,6 @@ def main() -> int:
             **{k: r[k] for k in ("pair", "launch_floor_ms", "replaced_ms",
                                  "rounding_cases") if k in r},
         })
-    say(f"phase 4 card {line}; " + "; ".join(
-        f"{path} {p['steps_per_s']:.1f} steps/s, {p['ms_per_step']:.4f} ms/step, "
-        + ("kernels per step not measured" if p["profile"] is None else
-           f"{p['profile']['kernels_per_step']:g} kernels per step")
-        for path, p in paths.items()))
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

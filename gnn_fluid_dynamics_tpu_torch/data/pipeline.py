@@ -8,6 +8,10 @@ time-window fields in. With ``with_banded`` each mesh carries its own banded
 tables, and :func:`~gnn_fluid_dynamics_tpu_torch.graph.batch_graphs` brings a
 batch's tables to one band width.
 
+Training reads it through :func:`train_batches` or the samplers of
+:mod:`gnn_fluid_dynamics_tpu_torch.data.samplers`, one ``get_batch`` per step,
+in the training process (no prefetch thread).
+
 Not ported: the size buckets (``num_buckets``) and the per-pad canonical
 band offsets, which the JAX package keeps so that its compiled programs see
 few shapes; the out-of-core mode (``max_cached_graphs``), the prefetchers,
@@ -169,6 +173,9 @@ class MeshDataset:
                     np.ascontiguousarray(arr, np.float32)).to(self.device)
         return dataclasses.replace(g, **updates)
 
+    def get_item(self, idx: int) -> MeshGraph:
+        return self.get_batch([self.sample_map[idx]])
+
     # ---- rollout ground truth ----------------------------------------------
     def trajectory_fields(self, mesh_ids: Sequence[str], t0: int,
                           num_steps: int,
@@ -201,6 +208,18 @@ class MeshDataset:
         return tuple(torch.from_numpy(np.ascontiguousarray(
             f[k], np.float32)).to(self.device)
             for k in ("cell_velocity", "cell_pressure"))
+
+
+def train_batches(dataset: MeshDataset, batch_size: int,
+                  rng: np.random.Generator):
+    """Shuffled training batches of (mesh_id, ts) samples, the last partial
+    one dropped, in batch order shuffled (the JAX package's
+    ``train_batches``; without size buckets every sample is in one)."""
+    order = rng.permutation(len(dataset.sample_map))
+    batches = [[dataset.sample_map[j] for j in order[i:i + batch_size]]
+               for i in range(0, len(order) - batch_size + 1, batch_size)]
+    for i in rng.permutation(len(batches)):
+        yield batches[i]
 
 
 def rollout_batch(dataset: MeshDataset, t0: Optional[int] = None):

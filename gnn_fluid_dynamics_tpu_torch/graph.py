@@ -128,6 +128,11 @@ class MeshGraph:
     def device(self) -> torch.device:
         return self.cell_pos.device
 
+    def replace(self, **updates) -> "MeshGraph":
+        """A copy with the given fields replaced (``flax.struct``'s
+        ``replace``)."""
+        return dataclasses.replace(self, **updates)
+
 
 def _round_up(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m

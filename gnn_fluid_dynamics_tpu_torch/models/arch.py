@@ -23,6 +23,13 @@ The GN blocks take one of two routes, as in the JAX package:
   (``_fused_block_ok``, ``aggregate_twice_mp``, ``gather_face_cells``);
 * the **plain** route: segment aggregation, row gathers and the
   :class:`MLP` modules in the configured compute dtype.
+
+Every module takes ``train`` (and ``rng``, the ``torch.Generator`` dropout
+draws from), as the Flax modules do: in train mode the blocks take the plain
+route (the kernels have no backward), the MLPs apply dropout, the
+integrator's BatchNorm normalizes by the batch's statistics and updates its
+running ones, and with ``ArchConfig.remat`` each GN block application is
+recomputed in the backward pass instead of keeping its activations.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from gnn_fluid_dynamics_tpu_torch.ops import kernels
@@ -56,6 +64,10 @@ class ArchConfig:
     share_blocks: bool = False       # FvgnF: one GN block applied mp_num times
     step_scalar: bool = False        # FvgnF: (i+1)/mp_num appended to both
     #                                  block inputs of application i
+    dropout_rate: float = 0.0        # dropout after each SiLU of every MLP,
+    #                                  in train mode
+    remat: bool = False              # recompute each GN block application in
+    #                                  the backward pass (torch.utils.checkpoint)
 
     def __post_init__(self):
         if self.aggregation not in AGGREGATIONS:
@@ -69,10 +81,20 @@ class ArchConfig:
 
 def kernel_route(cfg: ArchConfig, latent: torch.Tensor,
                  train: bool = False) -> bool:
-    """Whether the GN blocks take the kernel route for latents ``latent``
-    (``_resolve_aggregation``). The kernels run rollouts only: with
+    """Whether the GN blocks take the kernel route for latents ``latent``;
+    the counterpart of the JAX package's ``_resolve_aggregation``
+    (``models/arch.py:157-172``). The kernels run rollouts only: with
     ``train`` the kernel route is refused, as the JAX package downgrades
-    ``"pallas"`` to its differentiable XLA path."""
+    ``"pallas"`` to its differentiable XLA path.
+
+    The two differ on ``"auto"``. Here it takes the kernel route whenever the
+    latents are on the card at the kernels' width (128), on any graph. The
+    JAX package takes ``"segment"`` on a graph without ``hv`` tables, and
+    its XLA ``"banded"`` backend off the TPU, or on a graph on the table
+    route below ``AUTO_PALLAS_MIN_CELLS`` (10,240) cells. So on a small
+    graph on the table route the port rounds the latents to bf16 in K6/K7
+    where the JAX package on f32 tables does not: a difference at bf16
+    level, and the card's crossover is its own to measure."""
     if train:
         return False
     if cfg.aggregation == "pallas":
@@ -114,15 +136,33 @@ def _flax_layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
     return y.to(x.dtype)
 
 
+def dropout(x: torch.Tensor, rate: float,
+            rng: torch.Generator) -> torch.Tensor:
+    """Flax ``nn.Dropout`` in train mode: each value kept with probability
+    1 - ``rate`` and scaled by 1 / (1 - ``rate``), the others 0. The keep
+    mask is drawn from ``rng`` (on ``x``'s device): ``F.dropout`` takes no
+    generator."""
+    if rng is None:
+        raise ValueError("dropout in train mode needs a generator")
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=rng, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
 class MLP(nn.Module):
-    """Linear-SiLU-Linear-SiLU-Linear [+LayerNorm] (reference
-    ``Model.build_mlp``). ``dtype`` is the compute dtype (parameters stay
-    f32); outputs are f32."""
+    """Linear-SiLU-[Dropout]-Linear-SiLU-[Dropout]-Linear [+LayerNorm]
+    (reference ``Model.build_mlp``). ``dtype`` is the compute dtype
+    (parameters stay f32, and so do their gradients); outputs are f32.
+    Dropout applies in train mode only."""
 
     def __init__(self, in_size: int, hidden: int, out_size: int,
                  layer_norm: bool = True, dtype=torch.float32,
+                 dropout_rate: float = 0.0,
                  generator: torch.Generator = None):
         super().__init__()
+        self.dropout_rate = dropout_rate
         self.dense0 = nn.Linear(in_size, hidden)
         self.dense1 = nn.Linear(hidden, hidden)
         self.dense2 = nn.Linear(hidden, out_size)
@@ -133,7 +173,8 @@ class MLP(nn.Module):
             _init_dense(layer, generator)
         self._kernel_cache = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                rng: torch.Generator = None) -> torch.Tensor:
         dt = self.dtype
         h = x.to(dt)
         for i, layer in enumerate((self.dense0, self.dense1, self.dense2)):
@@ -142,6 +183,8 @@ class MLP(nn.Module):
             h = F.linear(h, layer.weight.to(dt)) + layer.bias.to(dt)
             if i < 2:
                 h = F.silu(h)
+                if train and self.dropout_rate > 0:
+                    h = dropout(h, self.dropout_rate, rng)
         if self.layer_norm is not None:
             h = _flax_layer_norm(h, self.layer_norm)
         return h.float()
@@ -225,10 +268,11 @@ class CellBlock(nn.Module):
         super().__init__()
         self.mlp = MLP(cfg.hidden + cfg.hidden // 2 + int(cfg.step_scalar),
                        cfg.hidden, cfg.hidden, dtype=cfg.dtype,
-                       generator=generator)
+                       dropout_rate=cfg.dropout_rate, generator=generator)
 
     def forward(self, cell_attr, edge_attr, graph, extra=None,
-                route: str = "plain", dual_out: bool = False):
+                route: str = "plain", dual_out: bool = False,
+                train: bool = False, rng: torch.Generator = None):
         if route == "fused":
             vtx = kernels.edges_to_vertices(edge_attr.to(torch.bfloat16), graph)
             return kernels.fused_cell_block(
@@ -236,7 +280,7 @@ class CellBlock(nn.Module):
                 self.mlp.kernel_weights(packed=True), dual_out=dual_out)
         cell_agg = aggregate_twice_mp(edge_attr, graph, route == "unfused")
         return self.mlp(_with_extra([cell_attr, cell_agg], extra,
-                                    cell_attr.shape[0]))
+                                    cell_attr.shape[0]), train, rng)
 
 
 class FaceBlock(nn.Module):
@@ -248,10 +292,12 @@ class FaceBlock(nn.Module):
     def __init__(self, cfg: ArchConfig, generator: torch.Generator = None):
         super().__init__()
         self.mlp = MLP(3 * cfg.hidden + int(cfg.step_scalar), cfg.hidden,
-                       cfg.hidden, dtype=cfg.dtype, generator=generator)
+                       cfg.hidden, dtype=cfg.dtype,
+                       dropout_rate=cfg.dropout_rate, generator=generator)
 
     def forward(self, cell_attr, edge_attr, graph, extra=None,
-                route: str = "plain", dual_out: bool = False):
+                route: str = "plain", dual_out: bool = False,
+                train: bool = False, rng: torch.Generator = None):
         if route == "fused":
             return kernels.fused_face_block(cell_attr.to(torch.bfloat16),
                                             edge_attr.to(torch.bfloat16),
@@ -260,7 +306,7 @@ class FaceBlock(nn.Module):
                                             dual_out=dual_out)
         own, nbr = gather_face_cells(cell_attr, graph, route == "unfused")
         return self.mlp(_with_extra([edge_attr, own, nbr], extra,
-                                    edge_attr.shape[0]))
+                                    edge_attr.shape[0]), train, rng)
 
 
 class GNBlock(nn.Module):
@@ -273,7 +319,8 @@ class GNBlock(nn.Module):
         self.face_block = FaceBlock(cfg, generator)
 
     def forward(self, cell_attr, edge_attr, graph, extra=None,
-                route: str = "plain"):
+                route: str = "plain", train: bool = False,
+                rng: torch.Generator = None):
         if route == "fused":
             # residuals are applied inside the kernels; the face block reads
             # the cell block's RAW (pre-residual) output
@@ -281,9 +328,39 @@ class GNBlock(nn.Module):
                                            route=route, dual_out=True)
             e_res = self.face_block(c_raw, edge_attr, graph, route=route)
             return c_res, e_res
-        new_cell = self.cell_block(cell_attr, edge_attr, graph, extra, route)
-        new_edge = self.face_block(new_cell, edge_attr, graph, extra, route)
+        new_cell = self.cell_block(cell_attr, edge_attr, graph, extra, route,
+                                   train=train, rng=rng)
+        new_edge = self.face_block(new_cell, edge_attr, graph, extra, route,
+                                   train=train, rng=rng)
         return cell_attr + new_cell, edge_attr + new_edge
+
+
+def _remat_block(block: GNBlock, cell_attr, edge_attr, graph, extra,
+                 route: str, rng: torch.Generator = None):
+    """One training application of ``block`` under
+    ``torch.utils.checkpoint``: its activations are recomputed in the
+    backward pass instead of kept (Flax's ``nn.remat``). The recomputation
+    must draw the dropout masks the forward pass drew, so ``rng`` is set
+    back to its state at the call for it, and afterwards returned to where
+    the backward pass found it."""
+    start = None if rng is None else rng.get_state()
+    calls = []
+
+    def run(c, e):
+        resume = rng.get_state() if (calls and start is not None) else None
+        if resume is not None:
+            rng.set_state(start)
+        calls.append(1)
+        try:
+            return block(c, e, graph, extra, route, train=True, rng=rng)
+        finally:
+            # the recomputation may be stopped early, by an exception
+            if resume is not None:
+                rng.set_state(resume)
+
+    return torch.utils.checkpoint.checkpoint(run, cell_attr, edge_attr,
+                                             use_reentrant=False,
+                                             preserve_rng_state=False)
 
 
 class Encoder(nn.Module):
@@ -294,19 +371,23 @@ class Encoder(nn.Module):
                  generator: torch.Generator = None):
         super().__init__()
         self.face_mlp = MLP(face_in, cfg.hidden, cfg.hidden, dtype=cfg.dtype,
-                            generator=generator)
+                            dropout_rate=cfg.dropout_rate, generator=generator)
         self.cell_mlp = MLP(cell_in, cfg.hidden, cfg.hidden, dtype=cfg.dtype,
-                            generator=generator)
+                            dropout_rate=cfg.dropout_rate, generator=generator)
 
-    def forward(self, cell_x, face_x):
-        return self.cell_mlp(cell_x), self.face_mlp(face_x)
+    def forward(self, cell_x, face_x, train: bool = False,
+                rng: torch.Generator = None):
+        face_attr = self.face_mlp(face_x, train, rng)
+        return self.cell_mlp(cell_x, train, rng), face_attr
 
 
 class EncodeProcessDecode(nn.Module):
     """Encoder -> mp_num GN blocks -> the face decoder head (``decoder_face``,
     no LayerNorm). With ``share_blocks`` one block (``blocks.0``, Flax
     ``GNBlock_0``) is applied ``mp_num`` times; with ``step_scalar``
-    application ``i`` appends ``(i+1)/mp_num`` to both block inputs."""
+    application ``i`` appends ``(i+1)/mp_num`` to both block inputs. With
+    ``remat``, each training application runs under :func:`_remat_block`;
+    the parameter names stay those without it."""
 
     def __init__(self, cfg: ArchConfig, cell_in: int, face_in: int,
                  face_out: int, generator: torch.Generator = None):
@@ -318,6 +399,7 @@ class EncodeProcessDecode(nn.Module):
             for _ in range(1 if cfg.share_blocks else cfg.mp_num))
         self.decoder_face = MLP(cfg.hidden, cfg.hidden, face_out,
                                 layer_norm=False, dtype=cfg.dtype,
+                                dropout_rate=cfg.dropout_rate,
                                 generator=generator)
         # the step scalars, one (1, 1) row each, in the encoder's output
         # dtype (f32); not weights, so outside the state dict
@@ -325,16 +407,21 @@ class EncodeProcessDecode(nn.Module):
             [[(i + 1) / cfg.mp_num] for i in range(cfg.mp_num)],
             dtype=torch.float32), persistent=False)
 
-    def forward(self, cell_x, face_x, graph):
-        cell_attr, edge_attr = self.encoder(cell_x, face_x)
+    def forward(self, cell_x, face_x, graph, train: bool = False,
+                rng: torch.Generator = None):
+        cell_attr, edge_attr = self.encoder(cell_x, face_x, train, rng)
         for i in range(self.cfg.mp_num):
             block = self.blocks[0 if self.cfg.share_blocks else i]
             extra = (self.step_scalars[i:i + 1] if self.cfg.step_scalar
                      else None)
-            cell_attr, edge_attr = block(
-                cell_attr, edge_attr, graph, extra,
-                block_route(self.cfg, graph, cell_attr, extra))
-        return self.decoder_face(edge_attr)
+            route = block_route(self.cfg, graph, cell_attr, extra, train)
+            if train and self.cfg.remat:
+                cell_attr, edge_attr = _remat_block(
+                    block, cell_attr, edge_attr, graph, extra, route, rng)
+            else:
+                cell_attr, edge_attr = block(cell_attr, edge_attr, graph,
+                                             extra, route, train, rng)
+        return self.decoder_face(edge_attr, train, rng)
 
 
 def gather3(x: torch.Tensor, graph) -> torch.Tensor:
@@ -344,37 +431,58 @@ def gather3(x: torch.Tensor, graph) -> torch.Tensor:
 
 
 class BatchNorm(nn.Module):
-    """Flax ``BatchNorm`` over the last axis in eval mode (running
-    statistics): ``(x - mean) * (rsqrt(var + eps) * scale) + bias``, eps 1e-5.
-    Initialized as Flax does: scale 1, bias 0, mean 0, var 1. The port runs
-    rollouts only; batch statistics and their momentum-0.9 update come with
-    training."""
+    """Flax ``BatchNorm`` over the last axis: ``(x - mean) * (rsqrt(var +
+    eps) * scale) + bias``, eps 1e-5. Initialized as Flax does: scale 1, bias
+    0, mean 0, var 1.
 
-    def __init__(self, channels: int, eps: float = 1e-5):
+    In eval mode mean and var are the running statistics. In train mode
+    they are the batch's, over the rows ``mask`` selects, in f32, with var = E[x^2] - mean^2 (biased, clamped at 0: Flax's
+    ``use_fast_variance``, where ``nn.BatchNorm1d`` keeps an unbiased running
+    variance); the running statistics then move as ``r = momentum * r + (1 -
+    momentum) * batch``, momentum 0.9 in Flax's convention (torch's 0.1)."""
+
+    def __init__(self, channels: int, eps: float = 1e-5,
+                 momentum: float = 0.9):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
-    def forward(self, x):
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return (x - self.running_mean) * mul + self.bias
+    def forward(self, x, mask=None, train: bool = False):
+        if not train:
+            mean, var = self.running_mean, self.running_var
+        else:
+            xf = x.float()
+            m = mask.reshape(-1, 1).expand_as(xf)
+            xm = torch.where(m, xf, torch.zeros_like(xf))
+            n = m.sum(0)
+            mean = xm.sum(0) / n
+            var = torch.clamp((xm * xm).sum(0) / n - mean * mean, min=0.0)
+            with torch.no_grad():
+                for run, batch in ((self.running_mean, mean),
+                                   (self.running_var, var)):
+                    run.mul_(self.momentum).add_((1.0 - self.momentum)
+                                                 * batch.detach())
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean) * mul + self.bias
 
 
 class MaskedBatchNorm(nn.Module):
-    """1-channel batch norm over valid elements only (reference
-    ``torch.nn.BatchNorm1d(1)`` in the integrators, normalisation.py:325-365).
-    In eval mode the mask plays no part: the running statistics apply to
-    every row."""
+    """1-channel batch norm whose batch statistics cover valid elements only
+    (reference ``torch.nn.BatchNorm1d(1)`` in the integrators,
+    normalisation.py:325-365). In eval mode the mask plays no part: the
+    running statistics apply to every row; in train mode the batch's
+    normalize every row, padded ones too."""
 
     def __init__(self):
         super().__init__()
         self.batch_norm = BatchNorm(1)
 
-    def forward(self, x):
-        return self.batch_norm(x)
+    def forward(self, x, mask=None, train: bool = False):
+        return self.batch_norm(x, mask, train)
 
 
 def _vol_dt_coeff(graph) -> torch.Tensor:
@@ -395,9 +503,10 @@ class FaceAreaNorm(nn.Module):
         super().__init__()
         self.masked_batch_norm = MaskedBatchNorm()
 
-    def forward(self, graph):
+    def forward(self, graph, train: bool = False):
         return self.masked_batch_norm(graph.face_area.reshape(-1, 1)
-                                      * _vol_dt_coeff(graph))
+                                      * _vol_dt_coeff(graph), graph.face_mask,
+                                      train)
 
 
 class FvgnIntegrator(nn.Module):
@@ -411,8 +520,8 @@ class FvgnIntegrator(nn.Module):
         self.rho = rho
         self.face_area_norm = FaceAreaNorm()
 
-    def forward(self, edge_output, graph):
-        face_area = self.face_area_norm(graph)                # (F, 1)
+    def forward(self, edge_output, graph, train: bool = False):
+        face_area = self.face_area_norm(graph, train)         # (F, 1)
         unv = graph.cell_normal                               # (C, 3, 2)
         uv = edge_output[:, :2]
         p = edge_output[:, 2:3]

@@ -1,13 +1,20 @@
-"""The model protocol (counterpart of ``models/base.py``), for what the
-rollout runs: feature transformation, the forward pass, state derivation and
-the autoregressive feedback. Each model family owns a config, an
-``nn.Module`` (``.module``), a normalization map and the dataset statistics.
+"""The model protocol (counterpart of ``models/base.py``): feature
+transformation (rollout and train modes), the forward pass, the loss, state
+derivation and the autoregressive feedback. Each model family owns a config,
+an ``nn.Module`` (``.module``), a normalization map, the dataset statistics
+and the loss weights.
+
+Where the JAX package keeps parameters and batch statistics outside the
+model and returns the statistics' update from ``forward``, here they live in
+``.module``: a train-mode forward updates the BatchNorms' running statistics
+in place, and the random draws (noise, edge flip, dropout) come from a
+``torch.Generator`` the caller passes.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -33,6 +40,14 @@ class ModelConfig:
     # statistics; or {velocity_x, velocity_y, pressure, flux, diffusion} ->
     # float given as a tuple of pairs
     scale_init: Optional[object] = None
+    dropout_rate: float = 0.0         # MLP dropout in train mode
+    remat: bool = False               # recompute GN blocks in the backward pass
+    # channels whose gradient is stopped inside FluxD's physical integrator
+    # ("pressure", "velocity", "flux"): the supervised heads then learn only
+    # from their own losses. () = the reference's behavior
+    integrator_detach: Tuple[str, ...] = ()
+    # override the class's pushforward flag (None = the class default)
+    pushforward: Optional[bool] = None
 
 
 class FluidModel:
@@ -40,20 +55,29 @@ class FluidModel:
 
     The module's weights are drawn at construction from ``seed`` (on the CPU,
     so every device gets the same weights) and moved to ``device``, which
-    defaults to the card and raises when there is none."""
+    defaults to the card and raises when there is none. ``loss_weights``
+    weigh the loss components (``training.loss_weights``)."""
 
     name = "base"
+    pushforward_use = False           # reference Model.py: FvgnD's flag
 
     def __init__(self, config: ModelConfig, stats: Optional[Dict] = None,
-                 device="cuda", seed: int = 0):
+                 device="cuda", seed: int = 0,
+                 loss_weights: Optional[Dict[str, float]] = None):
         self.config = config
         self.device = resolve_device(device)
+        if config.pushforward is not None:
+            # shadow the class attribute on the instance
+            self.pushforward_use = bool(config.pushforward)
         self.arch = ArchConfig(hidden=config.hidden_width, mp_num=config.mp_num,
                                aggregation=config.aggregation,
                                compute_dtype=config.compute_dtype,
                                share_blocks=self.share_blocks(),
-                               step_scalar=self.step_scalar())
+                               step_scalar=self.step_scalar(),
+                               dropout_rate=config.dropout_rate,
+                               remat=config.remat)
         self.nmap = self.normalisation_map()
+        self.loss_weights = dict(loss_weights or {})
         self.stats = None
         if stats is not None:
             self.stats = norm.stats_to_tensors(stats, self.device)
@@ -76,15 +100,33 @@ class FluidModel:
     def set_stats(self, stats: Dict):
         self.stats = norm.stats_to_tensors(stats, self.device)
 
-    def transform_features(self, graph):
+    def transform_features(self, graph, generator: torch.Generator = None,
+                           mode: str = "rollout", noise_std: float = 0.0):
+        """(graph, feats). Only ``mode="train"`` with a ``generator`` adds
+        noise (given ``noise_std``) and flips edges; without a generator
+        train mode adds neither."""
         raise NotImplementedError
 
     def transform_rollout(self, graph):
         """Rollout-mode features of ``graph``: (graph, feats)."""
         return self.transform_features(graph)
 
-    def forward(self, graph, feats: Dict) -> Dict[str, torch.Tensor]:
+    def forward(self, graph, feats: Dict, mode: str = "rollout",
+                generator: torch.Generator = None) -> Dict[str, torch.Tensor]:
+        """The outputs for normalized inputs; in ``"rollout"`` mode in
+        physical units, in any other mode in the normalized space the loss
+        compares in (the normalized inputs under ``"_nfeats"``). ``"train"``
+        runs the module in train mode, its dropout drawing from
+        ``generator``."""
         raise NotImplementedError
+
+    def loss(self, outputs: Dict, feats: Dict, graph
+             ) -> Dict[str, torch.Tensor]:
+        """``total_log_loss`` and each ``<component>_loss``."""
+        raise NotImplementedError
+
+    def count_parameters(self) -> int:
+        return sum(p.numel() for p in self.module.parameters())
 
     def derive_state(self, outputs: Dict, feats: Dict, graph
                      ) -> Dict[str, torch.Tensor]:

@@ -1,9 +1,10 @@
-"""Flux model family (counterpart of ``models/flux.py``): FluxA's features and
-normalization, and FluxD — the reference's shipped model — whose rollout is
-this package's main path.
+"""Flux model family (counterpart of ``models/flux.py``): FluxA's features,
+normalization and loss, and FluxD — the reference's shipped model — whose
+rollout and training this package runs.
 
 FluxD: encode-process-decode -> learned per-channel scale denormalization ->
-the physical flux integrator (Flux.py:459-595). Its outputs are physical.
+the physical flux integrator (Flux.py:459-595). Its outputs are physical;
+outside rollout mode they are normalized for the loss.
 """
 
 from __future__ import annotations
@@ -19,6 +20,9 @@ from gnn_fluid_dynamics_tpu_torch.models.arch import (ArchConfig,
                                                       LearnedScaleDenorm,
                                                       gather3)
 from gnn_fluid_dynamics_tpu_torch.models.fvgn import FvgnA, _f, _z
+from gnn_fluid_dynamics_tpu_torch.models.losses import (combined_log_loss,
+                                                        mse_per_element,
+                                                        rel_mse_per_graph)
 from gnn_fluid_dynamics_tpu_torch.models.transforms import standard_face_features
 from gnn_fluid_dynamics_tpu_torch.ops import fvm
 
@@ -43,11 +47,13 @@ class FluxA(FvgnA):
         outputs = nmap.outputs + (_f("face_flux", "face_out", 3, 4),)
         return norm.NormalizationMap(registry, inputs, outputs)
 
-    def transform_features(self, graph):
-        """Rollout-mode features (Flux.py:60-87; no noise, no edge flip, no
-        BC override on the face Δv)."""
-        cell_velocity = graph.cell_velocity[:, 0]
-        cell_y = graph.cell_velocity[:, -1] - cell_velocity
+    def transform_features(self, graph, generator: torch.Generator = None,
+                           mode: str = "rollout", noise_std: float = 0.0):
+        """Features (Flux.py:60-87): no BC override on the face Δv; the edge
+        flip of train mode also flips ``face_flux``, so the flux target
+        follows its face's new orientation."""
+        graph, cell_velocity, cell_y = self._input_state(graph, generator,
+                                                         mode, noise_std)
         face_x, bc_mask = standard_face_features(
             graph, cell_velocity, self.config.num_face_types, bc_velocity=None)
         face_y = torch.cat([graph.face_velocity[:, -1],
@@ -56,6 +62,38 @@ class FluxA(FvgnA):
         feats = {"cell_x": cell_velocity, "cell_y": cell_y,
                  "face_x": face_x, "face_y": face_y, "face_bc_mask": bc_mask}
         return graph, feats
+
+    def loss(self, outputs, feats, graph) -> Dict[str, torch.Tensor]:
+        """The five-term log loss in normalized space (Flux.py:118-156):
+        continuity from the signed cell flux, Δv, the face velocity off the
+        INFLOW faces, the face flux, the face pressure; with a
+        ``face_pressure_rel`` weight also the per-graph relative MSE of the
+        raw pressure, averaged over ``num_graphs`` (padded graphs included,
+        as in the JAX package)."""
+        nfeats = outputs["_nfeats"]
+        cmask, fmask = graph.cell_mask, graph.face_mask
+        div = fvm.divergence_from_cell_flux(outputs["cell_flux"])
+        comps = {
+            "continuity": mse_per_element(div, torch.zeros_like(div), cmask),
+            "cell_velocity_change": mse_per_element(
+                outputs["cell_velocity_change"], nfeats["cell_y"], cmask),
+            "face_velocity": mse_per_element(
+                outputs["face_velocity"], nfeats["face_y"][:, :2],
+                fmask & ~feats["face_bc_mask"]),
+            "face_flux": mse_per_element(
+                outputs["face_flux"], nfeats["face_y"][:, 3:4], fmask),
+            "face_pressure": mse_per_element(
+                outputs["face_pressure"], nfeats["face_y"][:, 2:3], fmask),
+        }
+        if self.loss_weights.get("face_pressure_rel"):
+            p_raw = norm.z_score(outputs["face_pressure"],
+                                 self.stats["face_pressure"], inverse=True)
+            comps["face_pressure_rel"] = torch.mean(rel_mse_per_graph(
+                p_raw, feats["face_y"][:, 2:3], fmask, graph.face_batch,
+                graph.num_graphs))
+        total = combined_log_loss(comps, self.loss_weights)
+        return {"total_log_loss": total,
+                **{f"{k}_loss": v for k, v in comps.items()}}
 
 
 # the reference's shipped scale constants (Flux.py:465-469)
@@ -66,13 +104,16 @@ _FLUXD_SCALE_DEFAULTS = (("velocity_x", 0.1), ("velocity_y", 0.0001),
 
 class _FluxDModule(nn.Module):
     """EPD -> learned scale denorm -> physical flux integrator
-    (Flux.py:477-515, 557-595). Returns (acc, face_out)."""
+    (Flux.py:477-515, 557-595). Returns (acc, face_out). The channels named
+    in ``detach`` ("velocity", "pressure", "flux") enter the integrator
+    detached from the graph (JAX's ``stop_gradient``)."""
 
     def __init__(self, cfg: ArchConfig, face_in: int, scale_inits: tuple,
                  generator: torch.Generator = None, rho: float = 1.0,
-                 nu: float = 0.001):
+                 nu: float = 0.001, detach: tuple = ()):
         super().__init__()
         self.rho, self.nu = rho, nu
+        self.detach = tuple(detach)
         self.epd = EncodeProcessDecode(cfg, cell_in=2, face_in=face_in,
                                        face_out=6, generator=generator)
         si = dict(scale_inits)
@@ -88,8 +129,9 @@ class _FluxDModule(nn.Module):
                 "pressure": self.pressure_scale, "flux": self.flux_scale,
                 "diffusion": self.diffusion_scale}
 
-    def forward(self, cell_x, face_x, graph):
-        raw = self.epd(cell_x, face_x, graph)
+    def forward(self, cell_x, face_x, graph, train: bool = False,
+                rng: torch.Generator = None):
+        raw = self.epd(cell_x, face_x, graph, train, rng)
         face_out = torch.cat([self.velocity_scale_x(raw[:, 0:1]),
                               self.velocity_scale_y(raw[:, 1:2]),
                               self.pressure_scale(raw[:, 2:3]),
@@ -97,6 +139,12 @@ class _FluxDModule(nn.Module):
                               self.diffusion_scale(raw[:, 4:6])], dim=-1)
         uv, pf, phi, flux_d = (face_out[:, :2], face_out[:, 2:3],
                                face_out[:, 3:4], face_out[:, 4:6])
+        if "velocity" in self.detach:
+            uv = uv.detach()
+        if "pressure" in self.detach:
+            pf = pf.detach()
+        if "flux" in self.detach:
+            phi = phi.detach()
         g = gather3(torch.cat([phi, uv, flux_d, graph.face_area.reshape(-1, 1),
                                pf], dim=1), graph)                 # (C, 3, 7)
         cell_flux = g[..., 0:1] * graph.cell_face_sign[..., None]
@@ -113,7 +161,7 @@ class _FluxDModule(nn.Module):
 
 class FluxD(FluxA):
     """Physical integration with learned (adaptive) denorm — the reference's
-    shipped training target (Flux.py:459-595). Rollout only in this port."""
+    shipped training target (Flux.py:459-595). Its loss is FluxA's."""
 
     name = "FluxD"
 
@@ -144,7 +192,8 @@ class FluxD(FluxA):
     def build_module(self, generator: torch.Generator) -> _FluxDModule:
         return _FluxDModule(self.arch, face_in=5 + self.config.num_face_types,
                             scale_inits=self.resolve_scale_inits(),
-                            generator=generator)
+                            generator=generator,
+                            detach=tuple(self.config.integrator_detach or ()))
 
     def set_stats(self, stats: Dict):
         """Store the dataset statistics. Under ``scale_init="stats"`` this
@@ -158,10 +207,17 @@ class FluxD(FluxA):
                 for key, mod in self.module.scales().items():
                     mod.scale.fill_(inits[key])
 
-    def forward(self, graph, feats: Dict) -> Dict[str, torch.Tensor]:
-        """One rollout step's outputs (physical units)."""
+    def forward(self, graph, feats: Dict, mode: str = "rollout",
+                generator: torch.Generator = None) -> Dict[str, torch.Tensor]:
+        """One step's outputs: physical in rollout mode, normalized by the
+        output statistics in any other mode (Flux.py:517-555)."""
         nfeats = norm.normalize_inputs(feats, self.nmap, self.stats)
-        acc, face_out = self.module(nfeats["cell_x"], nfeats["face_x"], graph)
+        acc, face_out = self.module(nfeats["cell_x"], nfeats["face_x"], graph,
+                                    mode == "train", generator)
+        bundle = {"cell_out": acc, "face_out": face_out}
+        if mode != "rollout":
+            bundle = norm.normalize_outputs(bundle, self.nmap, self.stats)
+        acc, face_out = bundle["cell_out"], bundle["face_out"]
         cell_flux = fvm.face_flux_to_cell_flux_g(face_out[:, 3:4], graph)
         return {
             "cell_velocity_change": acc[:, 0:2],

@@ -1,11 +1,52 @@
-"""Rollout error metrics (counterpart of ``models/losses.py``), masked for
-padding and pooled per graph."""
+"""Losses and rollout error metrics (counterpart of ``models/losses.py``),
+masked for padding: the training losses over valid elements, the error
+metrics pooled per graph. Padded rows are where-selected, never multiplied,
+so an inf or NaN there reaches neither a training loss nor its gradient."""
 
 from __future__ import annotations
 
 import torch
 
 from gnn_fluid_dynamics_tpu_torch.ops.segment import segment_sum
+
+
+def _masked_diff(output, target, mask):
+    """output - target on the rows ``mask`` selects, 0 elsewhere. Selected
+    before the square (the JAX package selects after it): the same values,
+    and a padded row's inf then gets a gradient of 0, not 0 x inf = NaN."""
+    diff = output - target
+    return torch.where(mask[:, None], diff, torch.zeros_like(diff))
+
+
+def mse_per_element(output: torch.Tensor, target: torch.Tensor,
+                    mask: torch.Tensor) -> torch.Tensor:
+    """Mean squared error over valid elements (reference
+    ``MSE_per_element_torch``, loss.py:55-60). ``mask``: (N,) bool selects
+    rows; every feature column of a selected row counts toward the mean."""
+    se = _masked_diff(output, target, mask) ** 2
+    n = torch.sum(mask.to(se.dtype)) * se.shape[-1]
+    return torch.sum(se) / torch.clamp(n, min=1.0)
+
+
+def mse_per_batch(output: torch.Tensor, target: torch.Tensor,
+                  mask: torch.Tensor) -> torch.Tensor:
+    """Summed squared error over valid rows (reference
+    ``MSE_per_batch_torch``, loss.py:62-67)."""
+    return torch.sum(_masked_diff(output, target, mask) ** 2)
+
+
+def combined_log_loss(components: dict, weights: dict) -> torch.Tensor:
+    """total = mean(log(sum_i w_i * L_i)) over the components that have a
+    weight (a weight of 0 still adds its term, times 0), the reference's
+    combined loss (e.g. ``Fvgn.py:202-204``)."""
+    total = None
+    for name, value in components.items():
+        w = weights.get(name, None)
+        if w is None:
+            continue
+        term = w * value
+        total = term if total is None else total + term
+    return torch.mean(torch.log(total))
 
 
 def mse_per_graph(output: torch.Tensor, target: torch.Tensor,

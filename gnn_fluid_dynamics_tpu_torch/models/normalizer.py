@@ -9,6 +9,7 @@ batch Welford + min/max (``normalisation.py:80-181``).
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -147,3 +148,17 @@ def stats_to_tensors(stats: Dict[str, Dict[str, float]], device,
     return {k: {s: torch.tensor(float(v), dtype=dtype, device=device)
                 for s, v in d.items()}
             for k, d in stats.items()}
+
+
+def save_stats(stats, path: str):
+    """Statistics (floats or 0-d tensors) to a JSON file."""
+    def tofloat(d):
+        return {k: (tofloat(v) if isinstance(v, dict) else float(v))
+                for k, v in d.items()}
+    with open(path, "w") as f:
+        json.dump(tofloat(stats), f, indent=2)
+
+
+def load_stats(path: str):
+    with open(path) as f:
+        return json.load(f)

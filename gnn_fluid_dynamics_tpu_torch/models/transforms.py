@@ -1,5 +1,7 @@
-"""Feature transforms used by the rollout (counterpart of
-``models/transforms.py``)."""
+"""Feature transforms (counterpart of ``models/transforms.py``): the face
+features of the rollout, and training's noise and random edge flip. The
+random draws come from an explicit ``torch.Generator`` on the tensors'
+device, where the JAX package takes a PRNG key."""
 
 from __future__ import annotations
 
@@ -8,6 +10,50 @@ from typing import Tuple
 import torch
 
 from gnn_fluid_dynamics_tpu_torch.data.node_types import NodeType
+
+
+def add_noise(generator: torch.Generator, x: torch.Tensor, std) -> torch.Tensor:
+    """Gaussian training noise (reference ``transforms.py:19-22``)."""
+    return x + std * torch.randn(x.shape, generator=generator, device=x.device,
+                                 dtype=x.dtype)
+
+
+def random_edge_flip(generator: torch.Generator, graph):
+    """Random per-face orientation flip: each live face flipped with
+    probability 1/2 (the JAX package's ``bernoulli(key, 0.5) & face_mask``),
+    applied by :func:`flip_edges`. Returns (new_graph, safe_flip_mask)."""
+    flip = (torch.rand(graph.num_faces, generator=generator,
+                       device=graph.device) < 0.5) & graph.face_mask
+    return flip_edges(graph, flip)
+
+
+def flip_edges(graph, flip: torch.Tensor):
+    """The faces ``flip`` (F,) bool turned around (reference
+    ``transforms.py:3-7`` swaps the ``cell_edge_index`` columns; the models
+    then flip ``face_normal`` and ``face_flux`` of the non-boundary flipped
+    faces, ``Fvgn.py:111-114``, ``Flux.py:70-74``). The precomputed
+    ``cell_face_sign`` table (ownership) flips with them, and
+    ``owner_local_slot`` becomes the face's slot in its new owner. Returns
+    (new_graph, safe_flip_mask): the flipped faces that are not boundary
+    self-loops."""
+    cei = graph.cell_edge_index
+    boundary = cei[0] == cei[1]
+    safe = flip & ~boundary
+    cei = torch.where(flip[None, :], cei.flip(0), cei)
+    sgn = torch.where(safe, -1.0, 1.0).to(graph.face_normal.dtype)
+    updates = dict(
+        cell_edge_index=cei,
+        face_normal=graph.face_normal * sgn[:, None],
+        cell_face_sign=graph.cell_face_sign * sgn[graph.face_index.T],
+    )
+    if graph.face_flux is not None:
+        updates["face_flux"] = graph.face_flux * sgn[:, None, None]
+    # the new owner's slot holding the face: the first slot that matches
+    owner_faces = graph.face_index[:, cei[0]]                 # (3, F)
+    face_ids = torch.arange(graph.num_faces, device=graph.device)[None, :]
+    updates["owner_local_slot"] = torch.argmax(
+        (owner_faces == face_ids).to(torch.int32), dim=0).to(torch.int32)
+    return graph.replace(**updates), safe
 
 
 def calc_face_velocity_change(cell_velocity: torch.Tensor,
@@ -20,6 +66,13 @@ def calc_cell_edge_vector(cell_pos: torch.Tensor,
                           cell_edge_index: torch.Tensor) -> torch.Tensor:
     """pos[owner] - pos[neighbour] per face (reference ``transforms.py:13-14``)."""
     return cell_pos[cell_edge_index[0]] - cell_pos[cell_edge_index[1]]
+
+
+def calc_face_type_one_hot(face_type: torch.Tensor,
+                           num_classes: int) -> torch.Tensor:
+    """One-hot face types, f32 (F, num_classes)."""
+    return torch.nn.functional.one_hot(face_type.reshape(-1).long(),
+                                       num_classes).to(torch.float32)
 
 
 def interior_face_mask(face_type: torch.Tensor) -> torch.Tensor:
@@ -48,7 +101,6 @@ def standard_face_features(graph, cell_velocity: torch.Tensor, num_types: int,
     if bc_velocity is not None:
         dv = torch.where(bc_mask[:, None], bc_velocity, dv)
     ev = calc_cell_edge_vector(graph.cell_pos, graph.cell_edge_index)
-    onehot = torch.nn.functional.one_hot(
-        graph.face_type.reshape(-1).long(), num_types).to(dv.dtype)
+    onehot = calc_face_type_one_hot(graph.face_type, num_types).to(dv.dtype)
     face_x = torch.cat([dv, ev, graph.face_area, onehot], dim=1)
     return face_x, bc_mask

@@ -1,0 +1,329 @@
+"""Training runtime (counterpart of ``gnn_fluid_dynamics_tpu/training/
+trainer.py``): the train state, the train step, the mini-epoch loop,
+validation and the checkpoint cadence.
+
+The JAX package jits its step (transform -> forward -> loss -> grad -> clip ->
+update) and on the TPU fuses several into one call (``steps_per_call``: the
+scan-fused ``multi`` and ``indexed`` steps) to amortize the per-call
+dispatch. Here a step is eager PyTorch: autograd for the gradient,
+``torch.optim`` for the update, and one explicit ``torch.Generator`` on the
+model's device for the noise, the edge flip and dropout, where the JAX
+package splits its key three ways.
+
+The train step takes the plain route: ``arch.kernel_route(..., train=True)``
+refuses the kernels, which have no backward, as the JAX package's
+``_resolve_aggregation`` downgrades ``"pallas"`` under ``train``. So it
+launches none of the kernels of :mod:`gnn_fluid_dynamics_tpu_torch.ops.kernels`;
+validation, a rollout in eval mode, does (K6 and K7 on the validation
+graph's tables). The no-grad unroll of pushforward training is a rollout-mode
+forward, so it takes whatever route the model's aggregation gives a rollout.
+
+Not ported here: the scan-fused steps (``steps_per_call > 1``, ROADMAP §1
+item 3), data parallelism (``settings.multi_gpu``, §1 item 6) and the
+grad/param monitor (§1 item 7). Each raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from gnn_fluid_dynamics_tpu_torch.data.pipeline import MeshDataset
+from gnn_fluid_dynamics_tpu_torch.data.samplers import get_sampler
+from gnn_fluid_dynamics_tpu_torch.rollout.engine import error_summary
+from gnn_fluid_dynamics_tpu_torch.training.config import Config
+from gnn_fluid_dynamics_tpu_torch.training.lr_schedule import get_schedule
+from gnn_fluid_dynamics_tpu_torch.training.validate import (flat_summary,
+                                                            validation_rollout)
+
+
+@dataclasses.dataclass
+class TrainState:
+    module: torch.nn.Module
+    optimizer: torch.optim.Optimizer
+    step: int                       # optimizer steps taken
+    generator: torch.Generator      # on the module's device
+
+
+def select_optimizer(cfg: Config, params) -> torch.optim.Optimizer:
+    """Adam or AdamW by name (reference ``select_optimizer``,
+    train.py:70-95), with optax's defaults: betas (0.9, 0.999), eps 1e-8,
+    and for AdamW a weight decay of 1e-4 on every parameter (torch's default
+    is 1e-2). Clipping is :func:`clip_by_global_norm_`."""
+    t = cfg.training
+    kw = dict(lr=t.lr_max, betas=(0.9, 0.999), eps=1e-8)
+    if t.optimizer_name == "Adam":
+        return torch.optim.Adam(params, **kw)
+    if t.optimizer_name == "AdamW":
+        return torch.optim.AdamW(params, weight_decay=1e-4, **kw)
+    raise ValueError(f"Optimizer {t.optimizer_name} not recognised")
+
+
+def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
+    """optax's ``clip_by_global_norm``: every gradient scaled by
+    ``max_norm / max(norm, max_norm)``, with ``norm`` the global L2 norm of
+    all of them (``clip_grad_norm_`` adds 1e-6 to it). In place, with no
+    host sync; returns the norm before clipping."""
+    norm = torch.nn.utils.get_total_norm(grads)
+    torch._foreach_mul_(grads, max_norm / torch.clamp(norm, min=max_norm))
+    return norm
+
+
+def optimizer_step(optimizer: torch.optim.Optimizer, lr: float,
+                   clip_norm: Optional[float]) -> torch.Tensor:
+    """The update from the parameters' ``.grad``: clipped to the global norm
+    ``clip_norm`` when given, then the optimizer's step at learning rate
+    ``lr`` (the JAX package's ``_set_lr`` + ``optimizer.update``). Returns
+    the gradients' global norm before clipping."""
+    grads = [p.grad for group in optimizer.param_groups
+             for p in group["params"] if p.grad is not None]
+    if clip_norm:
+        norm = clip_by_global_norm_(grads, clip_norm)
+    else:
+        norm = torch.nn.utils.get_total_norm(grads)
+    for group in optimizer.param_groups:
+        group["lr"] = lr
+    optimizer.step()
+    return norm
+
+
+def pushforward_retarget(model, tgraph, feats: Dict, pf: int) -> Dict:
+    """Pushforward trick (reference train.py:247-252): unroll ``pf``
+    rollout steps without gradient from the current state, feed the pushed
+    state back as the input features, and retarget ``cell_y`` at the
+    window's final state, read from the trajectory (the JAX package's
+    ``pushforward_retarget``)."""
+    v_final = tgraph.cell_velocity[:, -1, 0:2]
+    with torch.no_grad():
+        for _ in range(pf):
+            outputs = model.forward(tgraph, feats, mode="rollout")
+            sol = model.derive_state(outputs, feats, tgraph)
+            feats = model.update_features(sol, feats, tgraph)
+    feats = dict(feats)
+    feats["cell_y"] = torch.cat([v_final - feats["cell_x"][:, 0:2],
+                                 feats["cell_y"][:, 2:]], dim=1)
+    return feats
+
+
+_WINDOW_FIELDS = ("cell_velocity", "cell_pressure", "face_velocity",
+                  "face_pressure", "face_flux")
+
+
+def warmup_window(graph):
+    """A pushforward-sized trajectory window cut to its final 2 steps, so
+    that the warmup epochs (no retarget) supervise one step ahead of the
+    input, as a plain step does."""
+    upd = {k: getattr(graph, k)[:, -2:] for k in _WINDOW_FIELDS
+           if getattr(graph, k) is not None and getattr(graph, k).shape[1] > 2}
+    return graph.replace(**upd) if upd else graph
+
+
+class Trainer:
+    """Epoch / mini-epoch training loop (reference train.py:159-243)."""
+
+    def __init__(self, config: Config, model, logger=None, checkpointer=None):
+        if config.settings.multi_gpu:
+            raise NotImplementedError(
+                "data-parallel training is not ported (ROADMAP §1 item 6)")
+        if int(config.training.steps_per_call or 1) > 1:
+            raise NotImplementedError(
+                "steps_per_call > 1 (the scan-fused multi/indexed steps) is "
+                "not ported (ROADMAP §1 item 3)")
+        self.config = config
+        self.model = model
+        self.logger = logger
+        self.checkpointer = checkpointer
+        self.mini_epoch_count = 0
+        self.epoch_count = 0
+        self.step_count = 0
+        self.sample_count = 0
+
+    # ---- state --------------------------------------------------------------
+    def init_state(self) -> TrainState:
+        """The state of the model's module (its weights as constructed), a
+        fresh optimizer and a generator on the model's device seeded with
+        ``settings.random_seed``."""
+        seed = self.config.settings.random_seed
+        module = self.model.module
+        return TrainState(
+            module=module,
+            optimizer=select_optimizer(self.config, module.parameters()),
+            step=0,
+            generator=torch.Generator(device=self.model.device).manual_seed(seed))
+
+    # ---- step ---------------------------------------------------------------
+    def train_step(self, state: TrainState, graph, lr: float
+                   ) -> Dict[str, torch.Tensor]:
+        """One optimizer step on ``graph`` at learning rate ``lr`` (the
+        counterpart of ``_build_train_step``): transform (noise, flip) ->
+        [pushforward] -> train-mode forward -> loss -> backward -> clip ->
+        update. Returns the losses, detached, on the device (no host
+        sync)."""
+        model, t = self.model, self.config.training
+        noise_std = float(t.noise_std or 0.0)
+        pf = int(t.pushforward_factor or 0)
+        # pushforward warmup: plain one-step training for the first
+        # ``pushforward_warmup_epochs``, on the window's last two steps
+        with_pf = self.epoch_count > int(t.pushforward_warmup_epochs or 0)
+        use_pf = with_pf and pf > 0 and model.pushforward_use
+        if (not with_pf) and pf > 0 and model.pushforward_use:
+            graph = warmup_window(graph)
+        tgraph, feats = model.transform_features(
+            graph, state.generator, mode="train", noise_std=noise_std)
+        if use_pf:
+            feats = pushforward_retarget(model, tgraph, feats, pf)
+
+        state.module.train()
+        outputs = model.forward(tgraph, feats, mode="train",
+                                generator=state.generator)
+        losses = model.loss(outputs, feats, tgraph)
+        state.optimizer.zero_grad(set_to_none=True)
+        losses["total_log_loss"].backward()
+        optimizer_step(state.optimizer, lr, t.clip_grad_norm)
+        state.step += 1
+        return {k: v.detach() for k, v in losses.items()}
+
+    # ---- loop ---------------------------------------------------------------
+    def run(self, state: TrainState, train_dataset: MeshDataset,
+            valid_dataset: Optional[MeshDataset] = None,
+            num_valid_steps: int = 50) -> TrainState:
+        """Validate, then train ``training.epochs`` epochs of the sampler's
+        batches; at each mini-epoch boundary log the mean losses, validate
+        every ``valid_frequency`` and checkpoint every ``save_frequency``
+        mini-epochs. ``GFD_EPOCH_LIMIT`` bounds the epochs of this call; a
+        run it cuts saves its tail."""
+        cfg = self.config
+        t = cfg.training
+        total_mini_epochs = max(
+            1, (t.epochs * len(train_dataset)) // t.mini_epoch_size)
+        schedule = get_schedule(t.lr_class, t, total_mini_epochs)
+        steps_per_mini_epoch = max(t.mini_epoch_size // t.batch_size, 1)
+        np_rng = np.random.default_rng(cfg.settings.random_seed)
+
+        # pre-training validation (reference train.py:169-171)
+        if valid_dataset is not None:
+            self._last_valid = self.validate(state, valid_dataset,
+                                             num_valid_steps)
+            self._log(self._last_valid, prefix="valid")
+
+        mini_losses: Dict[str, float] = {}
+        pending: list = []
+        me_start = time.time()
+        epoch_limit = int(os.environ.get("GFD_EPOCH_LIMIT", "0") or 0)
+        epochs_this_run = 0
+        for _ in range(t.epochs - self.epoch_count):
+            if epoch_limit and epochs_this_run >= epoch_limit:
+                break
+            epochs_this_run += 1
+            self.epoch_count += 1
+            for samples in get_sampler(cfg.dataset.sampler)(
+                    train_dataset, t.batch_size, np_rng):
+                graph = train_dataset.get_batch(samples)
+                self.step_count += 1
+                self.sample_count += graph.num_graphs
+                lr = schedule(self.mini_epoch_count)
+                # the losses stay on the device until the mini-epoch ends:
+                # reading one per step would sync host and card every step
+                pending.append(self.train_step(state, graph, lr))
+                if self.step_count // steps_per_mini_epoch <= self.mini_epoch_count:
+                    continue
+                self.mini_epoch_count += 1
+                keys = list(pending[0])
+                sums = torch.stack([torch.stack([p[k] for k in keys])
+                                    for p in pending]).double().sum(0).tolist()
+                for k, v in zip(keys, sums):
+                    mini_losses[k] = mini_losses.get(k, 0.0) + v
+                pending = []
+                me_time = time.time() - me_start
+                for k in mini_losses:
+                    mini_losses[k] /= steps_per_mini_epoch
+                self._log(mini_losses, prefix="train")
+                self._log({"train_step_time": me_time / steps_per_mini_epoch,
+                           "mini_epoch_train_time": me_time},
+                          prefix="performance")
+                print(f"\ttrain | e {self.epoch_count:>3} | me "
+                      f"{self.mini_epoch_count:>5} | s {self.step_count:>6}"
+                      f" | t {me_time:<3.2e} | loss "
+                      f"{mini_losses.get('total_log_loss', float('nan')):>3.2e}"
+                      f" | lr {lr:>3.2e}", flush=True)
+
+                if (valid_dataset is not None and cfg.logging.valid_frequency
+                        and self.mini_epoch_count % cfg.logging.valid_frequency == 0):
+                    self._last_valid = self.validate(state, valid_dataset,
+                                                     num_valid_steps)
+                    self._log(self._last_valid, prefix="valid")
+                if (self.checkpointer is not None and cfg.logging.save_frequency
+                        and self.mini_epoch_count % cfg.logging.save_frequency == 0):
+                    # the latest validation drives 'best' (logging.py:293-327)
+                    self.checkpointer.save(
+                        state, self, mini_losses,
+                        valid_losses=getattr(self, "_last_valid", None))
+                self._log({"learning_rate": lr,
+                           "sample_count": self.sample_count}, prefix="train")
+                mini_losses = {}
+                me_start = time.time()
+        if self.checkpointer is not None and self.epoch_count < t.epochs:
+            # an epoch-limit break between mini-epoch boundaries: persist the
+            # tail so the restarted run loses nothing
+            self.checkpointer.save(state, self, mini_losses,
+                                   valid_losses=getattr(self, "_last_valid",
+                                                        None))
+        return state
+
+    # ---- validation (reference train.py:286-303) ----------------------------
+    def validate(self, state: TrainState, valid_dataset: MeshDataset,
+                 num_steps: int) -> Dict[str, float]:
+        """The validation rollout (``training/validate.py``) in eval mode,
+        its error evolutions and snapshots logged, its line printed; returns
+        the flat error summary."""
+        t0 = time.time()
+        state.module.eval()
+        snapshot_indices = [i for i in self.config.rollout.snapshot_indices
+                            if i < num_steps]
+        errors, fields = validation_rollout(self.model, valid_dataset,
+                                            num_steps,
+                                            save_fields=bool(snapshot_indices))
+        scalars, evo = error_summary(errors, valid_dataset.sim_ids())
+        if self.logger is not None:
+            self.logger.save_plots(evo, step=self.mini_epoch_count,
+                                   prefix="rollout")
+            if snapshot_indices:
+                self.logger.save_snapshot(
+                    self._snapshot_payload(fields, valid_dataset,
+                                           snapshot_indices),
+                    step=self.mini_epoch_count, prefix="rollout")
+        err = scalars["total_mean_error"]
+        print(f"\tvalid | e {self.epoch_count:>3} | me "
+              f"{self.mini_epoch_count:>5} | s {self.step_count:>6} | t "
+              f"{time.time() - t0:<3.2e} | error {err:>3.2e}", flush=True)
+        return flat_summary(scalars)
+
+    def _snapshot_payload(self, fields: Dict, dataset: MeshDataset,
+                          snapshot_indices) -> Dict:
+        """Per-mesh snapshot dicts for ``Logger.save_snapshot`` (reference
+        ``Rollout._save_snapshot``, rollout.py:225-253)."""
+        Cp = dataset.pad_to["cell"]
+        cv = fields["cell_velocity"].detach().cpu().numpy()
+        out = {}
+        for ts in snapshot_indices:
+            meshes = {}
+            for b, mesh_id in enumerate(dataset.sim_ids()):
+                traj = dataset.by_id[mesh_id]
+                C = traj.geom["cell_pos"].shape[0]
+                meshes[mesh_id] = {
+                    "field_data": cv[ts, b * Cp: b * Cp + C],
+                    "vertex_pos": traj.geom["vertex_pos"],
+                    "vertex_face": traj.geom["vertex_face"],
+                }
+            out[ts] = meshes
+        return out
+
+    def _log(self, values: Dict[str, float], prefix: str):
+        if self.logger is not None:
+            self.logger.save_loss(values, step=self.mini_epoch_count,
+                                  prefix=prefix)

@@ -6,8 +6,9 @@ of all of them is one graph that stays on the table route
 (``to_static_bands(..., derive_idx=False)``), so on the kernel route its GN
 blocks run the dense-table kernels K6 and K7. The model rolls it forward
 ``num_steps`` steps against the ground truth, and the errors are summarized
-as the trainer logs them. The optimizer state, the logger, the snapshots and
-the printed line come with training.
+as the trainer logs them. ``Trainer.validate``
+(:mod:`gnn_fluid_dynamics_tpu_torch.training.trainer`) adds the logger, the
+snapshots and the printed line.
 """
 
 from __future__ import annotations
@@ -46,14 +47,22 @@ def _inputs(model, valid_dataset: MeshDataset, num_steps: int):
     return graph, feats, gt_v, gt_p
 
 
+def validation_rollout(model, valid_dataset: MeshDataset, num_steps: int,
+                       save_fields: bool = False):
+    """(errors, fields) of a ``num_steps``-step rollout of every validation
+    trajectory: the per-step, per-trajectory errors (T, num_sims), and with
+    ``save_fields`` every step's predicted fields."""
+    graph, feats, gt_v, gt_p = _inputs(model, valid_dataset, num_steps)
+    return rollout_scan(model, graph, feats, gt_v, gt_p,
+                        RolloutConfig(num_steps=num_steps,
+                                      save_fields=save_fields))
+
+
 def validation_errors(model, valid_dataset: MeshDataset,
                       num_steps: int) -> Dict[str, torch.Tensor]:
     """The per-step, per-trajectory errors (T, num_sims) of a
     ``num_steps``-step rollout of every validation trajectory."""
-    graph, feats, gt_v, gt_p = _inputs(model, valid_dataset, num_steps)
-    errors, _ = rollout_scan(model, graph, feats, gt_v, gt_p,
-                             RolloutConfig(num_steps=num_steps))
-    return errors
+    return validation_rollout(model, valid_dataset, num_steps)[0]
 
 
 def validate(model, valid_dataset: MeshDataset,
@@ -64,6 +73,12 @@ def validate(model, valid_dataset: MeshDataset,
     scalars, _ = error_summary(
         validation_errors(model, valid_dataset, num_steps),
         valid_dataset.sim_ids())
+    return flat_summary(scalars)
+
+
+def flat_summary(scalars: Dict) -> Dict[str, float]:
+    """``error_summary``'s scalars flat: ``total_mean_error`` and
+    ``<error>/<stat>``."""
     flat = {"total_mean_error": scalars["total_mean_error"]}
     for name, st in scalars.items():
         if isinstance(st, dict):
