@@ -1,7 +1,8 @@
 """Drive the PyTorch/CUDA port on one card: build the GN-block kernels, hold
-each against its plain PyTorch version, run the FluxD and FvgnF rollouts and
-the trainer's validation rollout of FluxD at their shipped width through
-them, and report each kernel's time beside its bound.
+each against its plain PyTorch version, run the FluxD and FvgnF rollouts,
+the trainer's validation rollout of FluxD, FluxD's training, the rollout
+entry point and the MGN family at their shipped width through them, and
+report each kernel's time beside its bound.
 
     python3 chip_smoke.py
 
@@ -23,10 +24,12 @@ Phases (each prints one flushed line; any failure exits non-zero):
    the same places as in the plain version; K7 and its library call timed
    also with L2 flushed between launches; the launch floor (an empty kernel
    back to back, with and without the programmatic dependent launch
-   attribute K3 and K5 launch with); and the PDL hazard check: for 200
+   attribute K3 and K5 launch with); and the PDL hazard checks: for 200
    rounds a slow writer, which lets the next launch start at its own start,
    writes fresh edge latents into the buffer that K3 reads right after it,
-   and K3 -> K5 must agree with the plain versions on every round;
+   and K3 -> K5 must agree with the plain versions on every round; and for
+   200 rounds K1 with both outputs, then K3 on K1's raw output (MgnA's
+   face-first order), K3 agreeing with its plain version on every round;
 3. the three paths at hidden 128, 15 GN block applications and bf16, with
    seeded weights and statistics from the synthetic channel flow:
 
@@ -73,6 +76,24 @@ Phases (each prints one flushed line; any failure exits non-zero):
      CPU: loss, gradient norm and parameters held against each other;
    * 5c FvgnF, as 5a for FVGNF_TRAIN_STEPS steps without validation: finite
      losses, and its BatchNorm's running statistics moved and finite;
+6. the rollout entry point and the MGN family:
+
+   * 6a FluxD through ``rollout.run``'s two halves (``restore_model``,
+     ``rollout_dataset``) on phase 5a's checkpoint, adopting its config and
+     statistics, on the bench mesh with a channel flow as ground truth:
+     STEPS steps with the error metrics, ``errors.json`` written; K1-K3 15
+     launches a step; the first 5 steps' errors within 5e-2 of the plain
+     route's; steps/s;
+   * 6b MgnA (face-first GN blocks, the cell decoder) on the bench mesh
+     with MLS cell weights, fused: K1 with both outputs -> K3 on its raw
+     output -> K2 with the residual only, per block in that order; as phase
+     3 (5 steps against the plain route, the error metrics with the MLS
+     divergence, 100 timed steps with the counters, a profile);
+   * 6c MgnA on FluxD-valid's batch on the table route: K6 cf -> K6 es/er
+     -> K7 per block, as phase 3 with ``validate`` on both routes;
+   * 6d MgnB, MGNB_TRAIN_STEPS train steps on phase 5's batches with MLS
+     cell weights: every loss term finite, the continuity term included,
+     the loss falling, no kernel launched;
 
 then the ``kernels`` line: per kernel its time per launch, launches, bound,
 plain time and library time (K3 and K5 also the pair's time and the launch
@@ -109,9 +130,12 @@ from gnn_fluid_dynamics_tpu_torch.models.arch import MLP
 from gnn_fluid_dynamics_tpu_torch.models.base import ModelConfig, feature_masks
 from gnn_fluid_dynamics_tpu_torch.models.flux import FluxD
 from gnn_fluid_dynamics_tpu_torch.models.fvgn import FvgnF
+from gnn_fluid_dynamics_tpu_torch.models.mgn import MgnA
 from gnn_fluid_dynamics_tpu_torch.models.normalizer import StatsAccumulator
-from gnn_fluid_dynamics_tpu_torch.ops import kernels
+from gnn_fluid_dynamics_tpu_torch.ops import fvm, kernels
+from gnn_fluid_dynamics_tpu_torch.ops.mls import compute_mls_weights
 from gnn_fluid_dynamics_tpu_torch.ops.reorder import rcm_reorder_geometry
+from gnn_fluid_dynamics_tpu_torch.rollout import run as rollout_cli
 from gnn_fluid_dynamics_tpu_torch.rollout.engine import (SAVABLE_FIELDS,
                                                          RolloutConfig,
                                                          rollout_scan)
@@ -167,6 +191,14 @@ LOSS_WINDOW = 10           # steps averaged at the start and at the end
 # step moves an element by lr * g / (|g| + eps), about lr in the sign of g,
 # so an element whose gradient is near 0 may move lr either way
 CPU_LOSS_RTOL, CPU_GRAD_NORM_RTOL = 1e-4, 1e-3
+# phase 6: the rollout entry point and the MGN family
+MLS_ORDER = 1              # MgnA's MLS cell weights (the configs' default)
+MGNB_TRAIN_STEPS = 10
+MGNB_LOSS_WINDOW = 5
+# MgnB's loss weights: config/train.json's (FluxD's) with the two terms
+# MgnB adds: its direct velocity at the config default's 10, and continuity
+# at 0.1 so that the MLS term counts
+MGNB_LOSS_WEIGHTS = {"cell_velocity": 10.0, "continuity": 0.1}
 
 KERNELS = {
     "K1_fused_face_block": dict(
@@ -218,6 +250,19 @@ PATHS = {
                       "K5_vertices_to_cells": MP_NUM}),
     "FluxD-valid": (FluxD, {"K6_table_dual": 2 * MP_NUM,
                             "K7_table_single": MP_NUM}),
+    "MgnA": (MgnA, {"K1_fused_face_block": MP_NUM,
+                    "K2_fused_cell_block": MP_NUM,
+                    "K3_edges_to_vertices": MP_NUM}),
+    "MgnA-valid": (MgnA, {"K6_table_dual": 2 * MP_NUM,
+                          "K7_table_single": MP_NUM}),
+}
+ROLLOUT_PATHS = ("FluxD", "FvgnF", "FluxD-valid")      # phase 3
+# the kernel wrappers a GN block calls, per block application, in order
+# (":dual" K1/K2 with both outputs, ":roll" K6 on es/er with the roll)
+BLOCK_ORDER = {
+    "MgnA": ["fused_face_block:dual", "edges_to_vertices",
+             "fused_cell_block"],
+    "MgnA-valid": ["table_dual", "table_dual:roll", "table_single"],
 }
 
 
@@ -267,11 +312,23 @@ def gpu_ms_flushed(fn, iters: int = TIMING_ITERS) -> float:
     return gpu_ms(flushed, iters) - gpu_ms(buf.zero_, iters)
 
 
-def bench_mesh(device):
-    geom = rcm_reorder_geometry(make_geometry("cylinder", n_points=2400, seed=0))
+def bench_geometry():
+    """The RCM-ordered 2,400-point cylinder mesh of ``bench.py``: 3,462
+    cells, 5,361 faces, 1,899 vertices."""
+    return rcm_reorder_geometry(make_geometry("cylinder", n_points=2400, seed=0))
+
+
+def bench_mesh(device, mls: bool = False):
+    """The bench mesh's graph at the first two states of a channel flow of
+    CHECK_STEPS + 2 states, and that flow; with ``mls`` the graph carries
+    MLS cell weights of order MLS_ORDER (MgnA's divergence metric)."""
+    geom = bench_geometry()
     fields = channel_flow_trajectory(geom, num_timesteps=CHECK_STEPS + 2,
                                      dt=0.01)
     window = {k: v[:2] for k, v in fields.items()}
+    if mls:
+        nb, w = compute_mls_weights(geom["cell_pos"], MLS_ORDER)
+        window.update(cell_grad_weights=w, cell_grad_neighbours=nb)
     graph = from_geometry(geom, window, dt=0.01, device=device)
     return graph, fields
 
@@ -810,6 +867,47 @@ def pdl_hazard_check(graph) -> dict:
             "ms_per_round_no_pdl": round_no_pdl}
 
 
+def k1_k3_hazard_check(graph) -> dict:
+    """MgnA's face-first block launches K3, by programmatic dependent
+    launch, right behind K1 with both outputs, and K3 reads K1's raw
+    output: it must not read it before its wait. For HAZARD_ROUNDS rounds
+    K1 (dual) on seeded latents, the edge latents' sign flipped every
+    round, then K3 on its raw output; only the raw outputs and the vertex
+    sums are kept, so a round's raw buffer may be memory an earlier
+    round's freed output held. Every round's vertex sums must agree with
+    K3's plain version on that round's raw output. Also times a round with
+    and without the PDL attribute."""
+    dev = graph.device
+    gen = torch.Generator(device=dev).manual_seed(4)
+    cells = torch.empty(graph.num_cells, H, dtype=torch.bfloat16,
+                        device=dev).normal_(generator=gen)
+    edges = torch.empty(graph.num_faces, H, dtype=torch.bfloat16,
+                        device=dev).normal_(generator=gen)
+    inputs = (edges, -edges)
+    w = MLP(3 * H, H, H, generator=torch.Generator().manual_seed(5)).to(
+        dev).kernel_weights(packed=True)
+
+    def round_(r):
+        raw, _ = kernels.fused_face_block(cells, inputs[r % 2], graph, w,
+                                          dual_out=True)
+        return raw, kernels.edges_to_vertices(raw, graph)
+
+    torch.cuda.synchronize()
+    rounds = [round_(r) for r in range(HAZARD_ROUNDS)]
+    torch.cuda.synchronize()
+    err = 0.0
+    for r, (raw, vtx) in enumerate(rounds):
+        err = max(err, _compare(f"K1 -> K3 hazard round {r}", vtx,
+                                kernels.edges_to_vertices_ref(raw, graph),
+                                False))
+    del rounds
+    with kernels.without_pdl():
+        round_no_pdl = gpu_ms(functools.partial(round_, 0), 20)
+    return {"rounds": HAZARD_ROUNDS, "max_abs_err": err,
+            "ms_per_round": gpu_ms(functools.partial(round_, 0), 20),
+            "ms_per_round_no_pdl": round_no_pdl}
+
+
 # the fused blocks: their wrapper, plain version, the rows they write, and
 # whether the FluxD path runs them with the dual output
 BLOCKS = {
@@ -984,10 +1082,13 @@ def check_against_plain(kern, plain, graph, feats, index_graph=None) -> dict:
     return worst
 
 
-def rollout_errors_check(fields):
-    """FluxD and FvgnF: a CHECK_STEPS-step rollout of the kernel route
+def rollout_errors_check(fields, mls: bool = False):
+    """FluxD, FvgnF and MgnA: a CHECK_STEPS-step rollout of the kernel route
     against the channel flow, with the error metrics and every saved field
-    finite."""
+    finite. With ``mls`` (MgnA), the divergence error must be the MLS one:
+    the graph carries the weights, and the last step's error equals the
+    mean square of ``divergence_from_uc`` of the saved cell velocity over
+    live cells (1e-5 relative) and is not 0."""
     def check(path, kern, plain, graph, feats):
         dev = graph.device
         gv = torch.from_numpy(fields["cell_velocity"][1:CHECK_STEPS + 1]).to(dev)
@@ -997,6 +1098,23 @@ def rollout_errors_check(fields):
         for key, val in {**errors, **saved}.items():
             if not torch.isfinite(val).all():
                 fail(f"{path} rollout: non-finite {key}")
+        if not mls:
+            return
+        if graph.cell_grad_weights is None:
+            fail(f"{path}: the graph carries no MLS weights")
+        div = fvm.divergence_from_uc(saved["cell_velocity"][-1],
+                                     graph.cell_grad_weights,
+                                     graph.cell_grad_neighbours,
+                                     graph.cell_volume)
+        want = float((div[graph.cell_mask] ** 2).mean())
+        got = float(errors["divergence_error"][-1, 0])
+        if not (got > 0 and abs(got - want) <= 1e-5 * want):
+            fail(f"{path}: divergence error {got}, the MLS divergence of the "
+                 f"saved velocity gives {want}")
+        say(f"phase 6b-a' {path} {CHECK_STEPS}-step rollout with the error "
+            "metrics: finite; its divergence error is the MLS one, by step "
+            + json.dumps([float(f"{v:.6g}") for v in
+                          errors["divergence_error"][:, 0].tolist()]))
     return check
 
 
@@ -1071,17 +1189,30 @@ def launch_counts() -> dict:
 
 
 def slice_phase(path: str, graph, errors_check, device_line: str,
-                index_graph=None) -> dict:
+                index_graph=None, phase: str = "3") -> dict:
     """One path's rollout through the kernels: first held against the plain
     route (and, with ``index_graph``, against the index route of the same
-    batch), then timed with the launch counters read around it."""
+    batch), then timed with the launch counters read around it. Its lines
+    are phase 3a-3c, or ``<phase>-a`` to ``-c`` for a later phase; a path
+    of BLOCK_ORDER is also held to its kernels' order within a step."""
+    def tag(sub):
+        return f"3{sub}" if phase == "3" else f"{phase}-{sub}"
+
     per_step = PATHS[path][1]
     kern, plain, feats = path_models(path, graph)
     worst = check_against_plain(kern, plain, graph, feats, index_graph)
-    say(f"phase 3a {path} kernel vs plain route, {CHECK_STEPS} steps on the "
+    order = ""
+    if path in BLOCK_ORDER:
+        calls = launch_order(kern, graph, feats)
+        if calls != BLOCK_ORDER[path] * MP_NUM:
+            fail(f"{path}: kernels called in the order {calls}, expected "
+                 f"{BLOCK_ORDER[path]} per block application")
+        order = (f"; kernels in each of the {MP_NUM} block applications in "
+                 "the order " + " -> ".join(BLOCK_ORDER[path]))
+    say(f"phase {tag('a')} {path} kernel vs plain route, {CHECK_STEPS} steps on the "
         "same inputs: ok " + json.dumps(
             {n: {k: round(v, 6) for k, v in f.items()}
-             for n, f in worst.items()}))
+             for n, f in worst.items()}) + order)
     errors_check(path, kern, plain, graph, feats)
 
     # timed: plain, kernel (the main path, counters read around it), kernel,
@@ -1101,7 +1232,7 @@ def slice_phase(path: str, graph, errors_check, device_line: str,
             fail(f"{path}: {name} launched {n} times in {STEPS} steps, "
                  f"expected {want}")
     wall = walls["kernel"][0]
-    say(f"phase 3b {path} h{H} mp{MP_NUM} bf16, {graph.num_cells} cells "
+    say(f"phase {tag('b')} {path} h{H} mp{MP_NUM} bf16, {graph.num_cells} cells "
         f"{graph.num_faces} faces {graph.num_vertices} vertices, {STEPS} steps "
         f"in {wall:.4f} s = {STEPS / wall:.1f} steps/s, "
         f"{1e3 * wall / STEPS:.4f} ms/step; launches {json.dumps(launches)}; "
@@ -1111,11 +1242,45 @@ def slice_phase(path: str, graph, errors_check, device_line: str,
                                                  walls["plain"][1]))
         + f"; card {device_line}")
     prof = device_profile(kern, graph, feats)
-    say(f"phase 3c {path} device profile of 10 kernel-route steps: "
+    say(f"phase {tag('c')} {path} device profile of 10 kernel-route steps: "
         + ("not measured" if prof is None else json.dumps(prof)))
     return {"launches": launches, "steps_per_s": STEPS / wall,
             "ms_per_step": 1e3 * wall / STEPS,
             "profile": prof}
+
+
+def launch_order(model, graph, feats) -> list:
+    """The kernel wrappers one rollout-mode forward of ``model`` calls, in
+    order (each wrapper's name, with ":dual" for both outputs and ":roll"
+    for K6's roll form), read by wrapping the wrappers for the call. A
+    wrapper counts its launches on the module attribute of its name, so
+    each stand-in carries a counter of its own, which is dropped: this
+    probe is not a main-path run. The counters mean something only between
+    ``zero_launches()`` and ``launch_counts()``."""
+    log = []
+    saved = {name: getattr(kernels, name) for name in (
+        "fused_face_block", "fused_cell_block", "edges_to_vertices",
+        "gather_face_cells", "vertices_to_cells", "table_dual",
+        "table_single")}
+
+    def wrap(name, fn):
+        def call(*args, **kw):
+            log.append(name + (":dual" if kw.get("dual_out") else
+                               ":roll" if kw.get("combine_roll") else ""))
+            return fn(*args, **kw)
+        call.launches = 0
+        return call
+
+    stand_ins = {name: wrap(name, fn) for name, fn in saved.items()}
+    try:
+        for name, call in stand_ins.items():
+            setattr(kernels, name, call)
+        with torch.inference_mode():
+            model.forward(graph, feats)
+    finally:
+        for name, fn in saved.items():
+            setattr(kernels, name, fn)
+    return log
 
 
 def timed_rollout(model, graph, feats) -> float:
@@ -1448,6 +1613,117 @@ def fvgnf_training(train_ds) -> dict:
         + "; the integrator's BatchNorm " + json.dumps(stats) + " (init 0, 1)")
 
 
+# ---- phase 6: the rollout entry point and the MGN family --------------------
+
+def rollout_run_phase(device, device_line: str) -> dict:
+    """Phase 6a: ``rollout.run``'s two halves on the checkpoint phase 5a
+    wrote (its config, with the ``auto`` aggregation, and its statistics
+    adopted by ``restore_model``) and a dataset of the bench mesh with a
+    channel flow of STEPS + 1 states as ground truth: STEPS steps with the
+    error metrics, ``errors.json`` written, no save. The launch counters are
+    set to 0 just before and read just after (K1-K3 15 a step, no other).
+    The first CHECK_STEPS steps' errors are held against the same rollout
+    on the plain route (STEP_TOL relative)."""
+    geom = bench_geometry()
+    fields = channel_flow_trajectory(geom, num_timesteps=STEPS + 2, dt=0.01)
+    ds = MeshDataset([Trajectory(mesh_id="bench", geom=geom, fields=fields)],
+                     timestep_range=(0, STEPS + 1), device=device)
+    model, cfg, meta = rollout_cli.restore_model(
+        os.path.join(SMOKE_DIR, "ckpt", "latest"), device)
+    plain_cfg = copy.deepcopy(cfg)
+    plain_cfg.model.aggregation = "segment"
+    plain = train_cli.build_model(plain_cfg, device)
+    plain.set_stats(meta["stats"])
+    plain.module.load_state_dict(model.module.state_dict())
+    out_dir = os.path.join(SMOKE_DIR, "rollouts")
+    ref = rollout_cli.rollout_dataset(plain, ds, os.path.join(out_dir, "plain"),
+                                      timestep_range=(0, CHECK_STEPS + 1))
+    zero_launches()
+    res = rollout_cli.rollout_dataset(model, ds, os.path.join(out_dir, "kernel"))
+    launches = launch_counts()
+    per_step = PATHS["FluxD"][1]
+    for name, n in launches.items():
+        if n != per_step.get(name, 0) * STEPS:
+            fail(f"rollout.run: {name} launched {n} times in {STEPS} steps, "
+                 f"expected {per_step.get(name, 0) * STEPS}")
+    with open(os.path.join(out_dir, "kernel", "errors.json")) as f:
+        written = json.load(f)["scalar"]
+    means = {k: written[k]["mean_all"] for k in
+             ("velocity_error", "pressure_error", "divergence_error")}
+    if not np.isfinite(list(means.values())).all():
+        fail(f"rollout.run: errors.json holds non-finite errors {means}")
+    rel = {}
+    for k in means:
+        a = res["errors"][k][:CHECK_STEPS].double()
+        b = ref["errors"][k].double()
+        rel[k] = float(((a - b).abs() / b.abs()).max())
+        if rel[k] > STEP_TOL:
+            fail(f"rollout.run: {k} of the first {CHECK_STEPS} steps "
+                 f"{a.tolist()} (kernel) vs {b.tolist()} (plain), "
+                 f"{rel[k]:.3g} > {STEP_TOL}")
+    sps = res["num_steps"] / res["seconds"]
+    say(f"phase 6a FluxD through rollout.run on the phase-5a checkpoint, "
+        f"{geom['cell_pos'].shape[0]} cells padded to {ds.pad_to['cell']} "
+        "(bench mesh, channel flow): "
+        f"{res['num_steps']} steps with the error metrics in "
+        f"{res['seconds']:.4f} s = {sps:.1f} steps/s, "
+        f"{1e3 * res['seconds'] / res['num_steps']:.4f} ms/step (the entry "
+        f"point's own clock, ending in a synchronize); launches "
+        + json.dumps(launches) + "; errors.json mean_all "
+        + json.dumps(means) + f"; first {CHECK_STEPS} steps against the plain "
+        "route, largest relative difference " + json.dumps(rel)
+        + f"; card {device_line}")
+    return {"launches": launches, "rollout_steps": STEPS,
+            "steps_per_s": sps, "ms_per_step": 1e3 * res["seconds"] / STEPS,
+            "profile": None}
+
+
+def mgnb_training(train_ds, device_line: str) -> dict:
+    """Phase 6d: MGNB_TRAIN_STEPS ``Trainer.train_step`` calls of MgnB (h128,
+    15 face-first blocks, bf16, ``config/train.json``'s optimizer and noise,
+    MGNB_LOSS_WEIGHTS added) on phase 5's first training batch, with MLS
+    cell weights: every loss term finite, the continuity term included;
+    the mean total of the last MGNB_LOSS_WINDOW steps below the first's;
+    no kernel launched."""
+    train_ds.add_grad_weights("cell", MLS_ORDER)
+    cfg = train_config("MgnB", MGNB_TRAIN_STEPS)
+    cfg.training.loss_weights = {**cfg.training.loss_weights,
+                                 **MGNB_LOSS_WEIGHTS}
+    trainer, state = build_trainer(cfg, train_ds)
+    t = cfg.training
+    batch = train_ds.get_batch(next(iter(get_sampler(cfg.dataset.sampler)(
+        train_ds, t.batch_size, np.random.default_rng(0)))))
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps = [trainer.train_step(state, batch, t.lr_max)
+             for _ in range(MGNB_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / MGNB_TRAIN_STEPS
+    launches = launch_counts()
+    if any(launches.values()):
+        fail(f"MgnB training launched kernels {launches}")
+    losses = {k: [float(s[k]) for s in steps] for k in steps[0]}
+    if "continuity_loss" not in losses or not all(
+            np.isfinite(v).all() for v in losses.values()):
+        fail(f"MgnB training: losses {losses}")
+    total = losses["total_log_loss"]
+    first = float(np.mean(total[:MGNB_LOSS_WINDOW]))
+    last = float(np.mean(total[-MGNB_LOSS_WINDOW:]))
+    if not last < first:
+        fail(f"MgnB training: mean loss of the last {MGNB_LOSS_WINDOW} steps "
+             f"{last} not below the first {MGNB_LOSS_WINDOW} {first}")
+    say(f"phase 6d MgnB h{H} mp{MP_NUM} bf16 batch {t.batch_size} with MLS "
+        f"cell weights, {MGNB_TRAIN_STEPS} train steps: ok, no kernel "
+        f"launched; mean total loss of the first {MGNB_LOSS_WINDOW} "
+        f"{first:.6f}, of the last {last:.6f}; {ms:.3f} ms per step (host "
+        "clock, the batch assembled beforehand); losses by term "
+        + json.dumps({k: [round(x, 6) for x in v] for k, v in losses.items()})
+        + f"; card {device_line}")
+    return {"launches": launches, "rollout_steps": MGNB_TRAIN_STEPS,
+            "ms_per_step": ms, "loss_first": first, "loss_last": last}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1491,6 +1767,9 @@ def main() -> int:
     hazard = pdl_hazard_check(graph)
     say("phase 2 PDL hazard check, K3 -> K5 right behind a slow writer of "
         "their input: ok " + json.dumps(hazard))
+    say("phase 2 PDL hazard check, K3 on K1's raw output right behind K1 "
+        "with both outputs (MgnA's face-first block): ok "
+        + json.dumps(k1_k3_hazard_check(graph)))
     say("phase 2 NaN through a zero weight, same places as the plain version: "
         + json.dumps({name: per_kernel[name]["nan_through_zero_weight"]
                       for name in ("K6_table_dual", "K7_table_single")}))
@@ -1501,7 +1780,7 @@ def main() -> int:
     paths = {path: (slice_phase(path, vgraph, checks[path], line, vindex)
                     if path == "FluxD-valid" else
                     slice_phase(path, graph, checks[path], line))
-             for path in PATHS}
+             for path in ROLLOUT_PATHS}
 
     say(f"phase 4 card {line}; " + "; ".join(
         f"{path} {p['steps_per_s']:.1f} steps/s, {p['ms_per_step']:.4f} ms/step, "
@@ -1516,6 +1795,27 @@ def main() -> int:
     card_vs_cpu(graph)
     fvgnf_training(train_ds)
     say(f"phase 5 wall time {time.perf_counter() - t5:.1f} s")
+
+    t6 = time.perf_counter()
+    paths["FluxD-rollout-run"] = rollout_run_phase(dev, line)
+    mgn_graph, _ = bench_mesh(dev, mls=True)
+    paths["MgnA"] = slice_phase("MgnA", mgn_graph,
+                                rollout_errors_check(fields, mls=True), line,
+                                phase="6b")
+    paths["MgnA-valid"] = slice_phase("MgnA-valid", vgraph,
+                                      validate_check(ds, phase="6c-a'"), line,
+                                      vindex, phase="6c")
+    paths["MgnB-train"] = mgnb_training(train_ds, line)
+    say(f"phase 6 card {line}; " + "; ".join(
+        f"{path} {p['steps_per_s']:.1f} steps/s, {p['ms_per_step']:.4f} "
+        "ms/step" + ("" if p["profile"] is None else
+                     f", device {p['profile']['device_ms_per_step']:.4f} ms "
+                     f"per step, busy {100 * p['profile']['busy_share']:.1f} %"
+                     f", {p['profile']['kernels_per_step']:g} kernels per "
+                     "step")
+        for path, p in paths.items()
+        if path in ("FluxD-rollout-run", "MgnA", "MgnA-valid"))
+        + f"; phase 6 wall time {time.perf_counter() - t6:.1f} s")
 
     bnd = bounds(graph)
     rows = []

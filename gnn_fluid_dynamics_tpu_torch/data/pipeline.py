@@ -15,8 +15,8 @@ in the training process (no prefetch thread).
 Not ported: the size buckets (``num_buckets``) and the per-pad canonical
 band offsets, which the JAX package keeps so that its compiled programs see
 few shapes; the out-of-core mode (``max_cached_graphs``), the prefetchers,
-``device_fields``, ``get_batch_stack``, the MLS gradient weights and the
-incidence tables of the ``"gather"`` backend (the port's graphs always carry
+``device_fields``, ``get_batch_stack`` and the incidence tables of the
+``"gather"`` backend (the port's graphs always carry
 their index vectors).
 """
 
@@ -31,6 +31,7 @@ import torch
 from gnn_fluid_dynamics_tpu_torch import resolve_device
 from gnn_fluid_dynamics_tpu_torch.graph import (FIELD_KEYS, MeshGraph,
                                                 batch_graphs, from_geometry)
+from gnn_fluid_dynamics_tpu_torch.ops.mls import compute_mls_weights
 
 
 @dataclasses.dataclass
@@ -41,6 +42,9 @@ class Trajectory:
     fields: Dict[str, np.ndarray]          # key -> (T, N, D)
     dt: float = 0.01
     reynolds: float = 0.0
+    # MLS weights: {cell,face}_grad_weights (N, K, 2), _grad_neighbours (N, K)
+    grad_weights: Dict[str, np.ndarray] = dataclasses.field(
+        default_factory=dict)
 
     @property
     def num_timesteps(self) -> int:
@@ -132,7 +136,8 @@ class MeshDataset:
         if mesh_id not in self._static_graphs:
             t = self.by_id[mesh_id]
             self._static_graphs[mesh_id] = from_geometry(
-                t.geom, dt=t.dt * self.stride, reynolds=t.reynolds,
+                t.geom, fields=t.grad_weights, dt=t.dt * self.stride,
+                reynolds=t.reynolds,
                 pad_to=self.pad_to, with_banded=self.with_banded,
                 banded_dtype=self.banded_dtype, device=self.device)
         return self._static_graphs[mesh_id]
@@ -208,6 +213,23 @@ class MeshDataset:
         return tuple(torch.from_numpy(np.ascontiguousarray(
             f[k], np.float32)).to(self.device)
             for k in ("cell_velocity", "cell_pressure"))
+
+
+    # ---- MLS weights -------------------------------------------------------
+    def add_grad_weights(self, loc: str, poly_order: int):
+        """MLS gradient weights of order ``poly_order`` for each mesh's
+        ``loc`` ("cell" or "face") centers, where a mesh has none yet
+        (reference ``MovingLeastSquaresWeights.add_weights_to_dataset``,
+        maths.py:34-107); the graphs built so far are dropped."""
+        for t in self.trajectories:
+            wkey = f"{loc}_grad_weights"
+            if wkey in t.grad_weights:
+                continue
+            nb, w = compute_mls_weights(t.geom[f"{loc}_pos"], poly_order)
+            t.grad_weights[wkey] = w
+            t.grad_weights[f"{loc}_grad_neighbours"] = nb
+        self._static_graphs.clear()
+        self._batched_cache.clear()
 
 
 def train_batches(dataset: MeshDataset, batch_size: int,

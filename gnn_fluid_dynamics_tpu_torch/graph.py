@@ -94,6 +94,12 @@ class MeshGraph:
     face_velocity: torch.Tensor = None   # (F, W, 2)
     face_pressure: torch.Tensor = None   # (F, W, 1)
     face_flux: torch.Tensor = None       # (F, W, 1)
+    # --- optional MLS gradient weights (ops/mls.py): K stencil neighbours
+    # per cell (face); a padded row's neighbours are the last padded row ---
+    cell_grad_weights: torch.Tensor = None     # (C, K, 2)
+    cell_grad_neighbours: torch.Tensor = None  # (C, K) int32
+    face_grad_weights: torch.Tensor = None     # (F, K, 2)
+    face_grad_neighbours: torch.Tensor = None  # (F, K) int32
     # --- banded one-hot tables (ops/banded.py), read by K6/K7: per tile t
     # of 128 target rows, columns [0, B) are the source rows
     # [*_off[t], *_off[t] + B) of the tile's own graph ---
@@ -169,7 +175,10 @@ def from_geometry(
 
     ``geom`` holds the keys written by ``ops.connectivity.build_geometry``.
     ``fields`` may hold time-major arrays keyed ``cell_velocity`` (W, C, 2)
-    etc.; they are transposed to element-major ``(C, W, ...)``.
+    etc.; they are transposed to element-major ``(C, W, ...)``. It may also
+    hold MLS weights (``cell_grad_weights`` (C, K, 2) with
+    ``cell_grad_neighbours`` (C, K), likewise ``face_*``), padded as the JAX
+    package pads them.
 
     Padding: if ``pad_multiple > 0``, each element axis is padded up to the
     next multiple; ``pad_to`` gives exact sizes ``{"cell": C', "face": F',
@@ -253,6 +262,14 @@ def from_geometry(
             raise ValueError(f"{key}: {x.shape} does not match {n_elem} elements")
         return f32(padf(x, n_pad))
 
+    grad = {}
+    for loc, n, npad in (("cell", C, Cp), ("face", F, Fp)):
+        wkey, nkey = f"{loc}_grad_weights", f"{loc}_grad_neighbours"
+        if wkey in fields:
+            grad[wkey] = f32(padf(fields[wkey], npad))
+            grad[nkey] = t(padf(fields[nkey], npad,
+                                value=npad - 1 if npad > n else 0
+                                ).astype(np.int32))
     inc_ptr, inc_row = vertex_incidence_csr(vertex_edge_index, Vp)
     ft = np.asarray(geom["face_type"]).reshape(-1, 1)
     tables = {}
@@ -291,6 +308,7 @@ def from_geometry(
         face_velocity=field_arr("face_velocity", F, Fp),
         face_pressure=field_arr("face_pressure", F, Fp),
         face_flux=field_arr("face_flux", F, Fp),
+        **grad,
         **tables,
     )
 
@@ -385,8 +403,9 @@ def batch_graphs(graphs: Sequence[MeshGraph]) -> MeshGraph:
     """Concatenate same-shape MeshGraphs into one batched graph.
 
     Element arrays concatenate, index arrays are offset by the element counts
-    before them, ``cell_batch``/``face_batch`` record graph membership, and
-    ``dt``/``reynolds`` become (n,) vectors. Banded tables are widened to the
+    before them (the MLS stencils' neighbours too), ``cell_batch``/
+    ``face_batch`` record graph membership, and ``dt``/``reynolds`` become
+    (n,) vectors. Banded tables are widened to the
     batch's widest band (:func:`widen_band`) and their tiles concatenated;
     ``*_off`` gains each graph's first source row.
     """
@@ -444,8 +463,10 @@ def batch_graphs(graphs: Sequence[MeshGraph]) -> MeshGraph:
         reynolds=torch.stack([g.reynolds.reshape(()) for g in graphs]),
         table_route=g0.table_route,
     )
-    for key in FIELD_KEYS:
+    for key in FIELD_KEYS + ("cell_grad_weights", "face_grad_weights"):
         kwargs[key] = None if getattr(g0, key) is None else cat(key)
+    for key, per in (("cell_grad_neighbours", C), ("face_grad_neighbours", F)):
+        kwargs[key] = None if getattr(g0, key) is None else cat(key, per)
     sources = {"cell": C, "face": F, "vertex": V}
     for group, keys, src in (_GROUPS if g0.es_onehot is not None else ()):
         S = sources[src]

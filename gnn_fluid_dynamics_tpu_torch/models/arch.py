@@ -45,6 +45,7 @@ from gnn_fluid_dynamics_tpu_torch.ops import kernels
 from gnn_fluid_dynamics_tpu_torch.ops import segment as seg_ops
 
 AGGREGATIONS = ("segment", "pallas", "auto", "banded", "gather")
+BLOCK_ORDERS = ("cell_first", "face_first")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,11 +69,16 @@ class ArchConfig:
     #                                  in train mode
     remat: bool = False              # recompute each GN block application in
     #                                  the backward pass (torch.utils.checkpoint)
+    block_order: str = "cell_first"  # "cell_first" (FVGN, Flux) or
+    #                                  "face_first" (MGN)
 
     def __post_init__(self):
         if self.aggregation not in AGGREGATIONS:
             raise ValueError(f"aggregation {self.aggregation!r} is not one of "
                              f"{AGGREGATIONS}")
+        if self.block_order not in BLOCK_ORDERS:
+            raise ValueError(f"block_order {self.block_order!r} is not one of "
+                             f"{BLOCK_ORDERS}")
 
     @property
     def dtype(self) -> torch.dtype:
@@ -310,28 +316,45 @@ class FaceBlock(nn.Module):
 
 
 class GNBlock(nn.Module):
-    """One processor block, FVGN order (cell block, then face block) with
-    residuals (Fvgn.py:274-284), on the ``route`` of :func:`block_route`."""
+    """One processor block with residuals, on the ``route`` of
+    :func:`block_route`, in the config's ``block_order``: FVGN's cell block,
+    then face block (Fvgn.py:274-284), or MGN's face block, then cell block
+    (Mgn.py:216-226). The second sub-block reads the first one's raw
+    (pre-residual) output and the other input as the block received it.
+
+    Fused, the residuals are applied inside the kernels. Cell-first: K3 ->
+    K2 with both outputs, then K1 on K2's raw output. Face-first: K1 with
+    both outputs, then K3 on K1's raw output -> K2 with the residual only."""
 
     def __init__(self, cfg: ArchConfig, generator: torch.Generator = None):
         super().__init__()
+        self.face_first = cfg.block_order == "face_first"
         self.cell_block = CellBlock(cfg, generator)
         self.face_block = FaceBlock(cfg, generator)
 
     def forward(self, cell_attr, edge_attr, graph, extra=None,
                 route: str = "plain", train: bool = False,
                 rng: torch.Generator = None):
+        if route == "fused" and self.face_first:
+            e_raw, e_res = self.face_block(cell_attr, edge_attr, graph,
+                                           route=route, dual_out=True)
+            c_res = self.cell_block(cell_attr, e_raw, graph, route=route)
+            return c_res, e_res
         if route == "fused":
-            # residuals are applied inside the kernels; the face block reads
-            # the cell block's RAW (pre-residual) output
             c_raw, c_res = self.cell_block(cell_attr, edge_attr, graph,
                                            route=route, dual_out=True)
             e_res = self.face_block(c_raw, edge_attr, graph, route=route)
             return c_res, e_res
-        new_cell = self.cell_block(cell_attr, edge_attr, graph, extra, route,
-                                   train=train, rng=rng)
-        new_edge = self.face_block(new_cell, edge_attr, graph, extra, route,
-                                   train=train, rng=rng)
+        if self.face_first:
+            new_edge = self.face_block(cell_attr, edge_attr, graph, extra,
+                                       route, train=train, rng=rng)
+            new_cell = self.cell_block(cell_attr, new_edge, graph, extra,
+                                       route, train=train, rng=rng)
+        else:
+            new_cell = self.cell_block(cell_attr, edge_attr, graph, extra,
+                                       route, train=train, rng=rng)
+            new_edge = self.face_block(new_cell, edge_attr, graph, extra,
+                                       route, train=train, rng=rng)
         return cell_attr + new_cell, edge_attr + new_edge
 
 
@@ -382,25 +405,29 @@ class Encoder(nn.Module):
 
 
 class EncodeProcessDecode(nn.Module):
-    """Encoder -> mp_num GN blocks -> the face decoder head (``decoder_face``,
-    no LayerNorm). With ``share_blocks`` one block (``blocks.0``, Flax
+    """Encoder -> mp_num GN blocks -> the decoder heads, MLPs without
+    LayerNorm: ``decoder_face`` on the edge latents (``face_out`` channels)
+    and ``decoder_cell`` on the cell latents (``cell_out``); a head of 0
+    channels is left out. Returns (cell_out, face_out), None for a head
+    left out. With ``share_blocks`` one block (``blocks.0``, Flax
     ``GNBlock_0``) is applied ``mp_num`` times; with ``step_scalar``
     application ``i`` appends ``(i+1)/mp_num`` to both block inputs. With
     ``remat``, each training application runs under :func:`_remat_block`;
     the parameter names stay those without it."""
 
     def __init__(self, cfg: ArchConfig, cell_in: int, face_in: int,
-                 face_out: int, generator: torch.Generator = None):
+                 face_out: int = 0, cell_out: int = 0,
+                 generator: torch.Generator = None):
         super().__init__()
         self.cfg = cfg
         self.encoder = Encoder(cfg, cell_in, face_in, generator)
         self.blocks = nn.ModuleList(
             GNBlock(cfg, generator)
             for _ in range(1 if cfg.share_blocks else cfg.mp_num))
-        self.decoder_face = MLP(cfg.hidden, cfg.hidden, face_out,
-                                layer_norm=False, dtype=cfg.dtype,
-                                dropout_rate=cfg.dropout_rate,
-                                generator=generator)
+        self.decoder_face, self.decoder_cell = (
+            MLP(cfg.hidden, cfg.hidden, n, layer_norm=False, dtype=cfg.dtype,
+                dropout_rate=cfg.dropout_rate, generator=generator)
+            if n else None for n in (face_out, cell_out))
         # the step scalars, one (1, 1) row each, in the encoder's output
         # dtype (f32); not weights, so outside the state dict
         self.register_buffer("step_scalars", torch.tensor(
@@ -421,7 +448,12 @@ class EncodeProcessDecode(nn.Module):
             else:
                 cell_attr, edge_attr = block(cell_attr, edge_attr, graph,
                                              extra, route, train, rng)
-        return self.decoder_face(edge_attr, train, rng)
+        face_out = cell_out = None
+        if self.decoder_face is not None:
+            face_out = self.decoder_face(edge_attr, train, rng)
+        if self.decoder_cell is not None:
+            cell_out = self.decoder_cell(cell_attr, train, rng)
+        return cell_out, face_out
 
 
 def gather3(x: torch.Tensor, graph) -> torch.Tensor:

@@ -60,6 +60,8 @@ class FluidModel:
 
     name = "base"
     pushforward_use = False           # reference Model.py: FvgnD's flag
+    cell_grad_weights_use = False     # the dataset adds MLS weights
+    face_grad_weights_use = False     # (reference Model.py:53)
 
     def __init__(self, config: ModelConfig, stats: Optional[Dict] = None,
                  device="cuda", seed: int = 0,
@@ -72,6 +74,7 @@ class FluidModel:
         self.arch = ArchConfig(hidden=config.hidden_width, mp_num=config.mp_num,
                                aggregation=config.aggregation,
                                compute_dtype=config.compute_dtype,
+                               block_order=self.block_order(),
                                share_blocks=self.share_blocks(),
                                step_scalar=self.step_scalar(),
                                dropout_rate=config.dropout_rate,
@@ -85,6 +88,9 @@ class FluidModel:
         self.module = self.build_module(generator).to(self.device).eval()
 
     # ---- architecture hooks -------------------------------------------------
+    def block_order(self) -> str:
+        return "cell_first"
+
     def share_blocks(self) -> bool:
         return False
 

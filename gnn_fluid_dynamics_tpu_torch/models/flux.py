@@ -131,7 +131,7 @@ class _FluxDModule(nn.Module):
 
     def forward(self, cell_x, face_x, graph, train: bool = False,
                 rng: torch.Generator = None):
-        raw = self.epd(cell_x, face_x, graph, train, rng)
+        _, raw = self.epd(cell_x, face_x, graph, train, rng)
         face_out = torch.cat([self.velocity_scale_x(raw[:, 0:1]),
                               self.velocity_scale_y(raw[:, 1:2]),
                               self.pressure_scale(raw[:, 2:3]),

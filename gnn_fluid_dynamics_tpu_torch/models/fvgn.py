@@ -46,7 +46,7 @@ class _FvgnAModule(nn.Module):
 
     def forward(self, cell_x, face_x, graph, train: bool = False,
                 rng: torch.Generator = None):
-        face_out = self.epd(cell_x, face_x, graph, train, rng)
+        _, face_out = self.epd(cell_x, face_x, graph, train, rng)
         acc, extras = self.integrator(face_out, graph, train)
         return acc, face_out, extras
 

@@ -1,9 +1,9 @@
 """Declarative normalization (counterpart of ``models/normalizer.py``).
 
 Each field spec names a statistics key, a tensor in the feature bundle, a
-column slice and a scheme. FluxD's rollout uses the z-score scheme only, so
-that is the one scheme ported. Statistics accumulate as the reference's masked
-batch Welford + min/max (``normalisation.py:80-181``).
+column slice and a scheme. The schemes the ported models use are ported:
+``z_score``, and ``mean_scale`` (MgnC). Statistics accumulate as the
+reference's masked batch Welford + min/max (``normalisation.py:80-181``).
 """
 
 from __future__ import annotations
@@ -26,7 +26,13 @@ def z_score(data, stats, inverse=False):
     return data * (std + EPS) + stats["mean"]
 
 
-SCHEMES: Dict[str, Callable] = {"z_score": z_score}
+def mean_scale(data, stats, inverse=False):
+    if not inverse:
+        return data / (stats["mean"] + EPS)
+    return data * (stats["mean"] + EPS)
+
+
+SCHEMES: Dict[str, Callable] = {"z_score": z_score, "mean_scale": mean_scale}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,7 +49,9 @@ class Field:
 @dataclasses.dataclass(frozen=True)
 class StatSpec:
     """How to gather statistics for one stat key: ``extractor`` is the
-    (tensor, start, stop) slice of the feature bundle."""
+    (tensor, start, stop) slice of the feature bundle, or ("norm", tensor,
+    start, stop) for the row-wise L2 norm of a slice (MgnC's
+    ``cell_velocity_char``)."""
     scheme: str
     extractor: Optional[Tuple] = None
 
@@ -54,6 +62,9 @@ class NormalizationMap:
     registry: Dict[str, StatSpec]
     inputs: Tuple[Field, ...]
     outputs: Tuple[Field, ...]
+
+    def replace(self, **kw) -> "NormalizationMap":
+        return dataclasses.replace(self, **kw)
 
 
 def _apply_fields(bundle, fields, registry, stats, inverse):
@@ -107,8 +118,14 @@ class StatsAccumulator:
         for key, spec in self.nmap.registry.items():
             if spec.extractor is None:
                 continue
-            tensor, start, stop = spec.extractor
-            data = bundle[tensor][..., start:stop].detach().cpu().double().numpy()
+            if spec.extractor[0] == "norm":
+                _, tensor, start, stop = spec.extractor
+                data = torch.linalg.vector_norm(
+                    bundle[tensor][..., start:stop], dim=-1).double()
+            else:
+                tensor, start, stop = spec.extractor
+                data = bundle[tensor][..., start:stop].double()
+            data = data.detach().cpu().numpy()
             mask = masks.get(tensor)
             if mask is not None:
                 data = data[mask.cpu().numpy().astype(bool)]

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from gnn_fluid_dynamics_tpu_torch.models.flux import FluxA, FluxD
 from gnn_fluid_dynamics_tpu_torch.models.fvgn import FvgnA, FvgnF
+from gnn_fluid_dynamics_tpu_torch.models.mgn import MgnA, MgnB, MgnC
 
 JAX_MODEL_NAMES = (
     "FvgnA", "FvgnB", "FvgnC", "FvgnD", "FvgnE", "FvgnF", "FvgnH", "FvgnI",
@@ -24,7 +25,8 @@ JAX_MODEL_NAMES = (
     "StreamFuncA", "StreamFuncB", "StreamFuncC", "StreamFuncD",
 )
 
-MODEL_REGISTRY = {cls.name: cls for cls in (FvgnA, FvgnF, FluxA, FluxD)}
+MODEL_REGISTRY = {cls.name: cls for cls in (FvgnA, FvgnF, MgnA, MgnB, MgnC,
+                                             FluxA, FluxD)}
 
 
 def get_model_class(name: str):

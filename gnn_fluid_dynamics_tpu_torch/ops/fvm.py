@@ -39,3 +39,17 @@ def face_flux_to_cell_flux_g(face_flux: torch.Tensor, graph) -> torch.Tensor:
     selector variant is a TPU device; on the card it is the row gather)."""
     return face_flux_to_cell_flux(face_flux, graph.face_index,
                                   graph.cell_face_sign)
+
+
+def divergence_from_uc(cell_velocity: torch.Tensor, weights: torch.Tensor,
+                       neighbours: torch.Tensor, cell_volume: torch.Tensor
+                       ) -> torch.Tensor:
+    """MLS divergence of a cell-velocity field, scaled by the cell volume
+    (reference ``fvm.py:40-52``). cell_velocity: (C, 2), weights: (C, K, 2)
+    (:func:`~gnn_fluid_dynamics_tpu_torch.ops.mls.compute_mls_weights`),
+    neighbours: (C, K) -> (C, 1)."""
+    ux, uy = cell_velocity[:, 0], cell_velocity[:, 1]
+    nb = neighbours.long()
+    grad_x = torch.sum(weights[:, :, 0] * (ux[nb] - ux[:, None]), dim=1)
+    grad_y = torch.sum(weights[:, :, 1] * (uy[nb] - uy[:, None]), dim=1)
+    return (grad_x + grad_y)[:, None] * cell_volume.reshape(-1, 1)

@@ -5,7 +5,8 @@ Python loop over steps under ``torch.inference_mode``: forward -> state
 derivation -> error metrics -> feature feedback. Error metrics match the
 reference's ``_error_accumulate`` (rollout.py:121-148): per-graph relative
 MSE of cell velocity and pressure against ground truth, and the divergence of
-the predicted cell flux or face velocity.
+the predicted cell flux, face velocity or (by the MLS stencil) cell
+velocity.
 """
 
 from __future__ import annotations
@@ -36,8 +37,8 @@ def _divergence_metric(solutions: Dict, feats: Dict, graph) -> torch.Tensor:
     """The divergence estimate the outputs allow (reference
     rollout.py:133-148): of the predicted signed cell flux (FluxD); else of
     the predicted face velocity with the INFLOW faces clamped to their BC
-    targets (FvgnA/FvgnF); else zero. The JAX package's MLS estimate from
-    the cell velocity comes with ``ops/mls.py``."""
+    targets (FvgnA/FvgnF); else, where the graph carries MLS cell weights,
+    of the predicted cell velocity (MGN); else zero."""
     if "cell_flux" in solutions:
         div = fvm.divergence_from_cell_flux(solutions["cell_flux"])
     elif "face_velocity" in solutions:
@@ -46,6 +47,11 @@ def _divergence_metric(solutions: Dict, feats: Dict, graph) -> torch.Tensor:
                          solutions["face_velocity"])
         div = fvm.divergence_from_uf(uf, graph.cell_normal, graph.face_area,
                                      graph.face_index)
+    elif "cell_velocity" in solutions and graph.cell_grad_weights is not None:
+        div = fvm.divergence_from_uc(solutions["cell_velocity"],
+                                     graph.cell_grad_weights,
+                                     graph.cell_grad_neighbours,
+                                     graph.cell_volume)
     else:
         div = torch.zeros_like(graph.cell_volume)
     return torch.where(graph.cell_mask[:, None], div, torch.zeros_like(div))

@@ -9,8 +9,11 @@ when the validation error improves, and every other checkpoint is removed.
 
 The train state is this package's own: ``state.pt``, a ``torch.save`` of the
 module's state dict (BatchNorm statistics included), the optimizer's state
-dict, the generator's state and the step count. It does not read the JAX
-package's orbax checkpoints (ROADMAP §1 item 2).
+dict, the generator's state and the step count. A checkpoint of the JAX
+package (orbax) is converted outside the package by
+``scripts/torch_convert_flax_checkpoint.py`` into this layout with the
+module's state dict and the step only: it serves a rollout or a warm start,
+and a resume from it raises, since it holds no optimizer state.
 """
 
 from __future__ import annotations
@@ -127,7 +130,15 @@ class Checkpointer:
 
 def restore_train_state(tree: Dict, state):
     """``state`` (a ``TrainState``) with the module, optimizer, generator
-    and step of ``tree`` put in place; returns it."""
+    and step of ``tree`` put in place; returns it. Raises for a checkpoint
+    without optimizer state (one converted from the JAX package)."""
+    missing = [k for k in ("optimizer", "generator") if k not in tree]
+    if missing:
+        raise ValueError(
+            f"the checkpoint holds no {' or '.join(missing)} state (a "
+            "checkpoint converted from the JAX package holds the module and "
+            "the step only), so training cannot resume from it; use it for "
+            "a rollout, or as a warm start through model.fpath")
     state.module.load_state_dict(tree["module"])
     state.optimizer.load_state_dict(tree["optimizer"])
     state.generator.set_state(tree["generator"])

@@ -6,9 +6,12 @@ resume, datasets and statistics, the model, the trainer loop.
     python -m gnn_fluid_dynamics_tpu_torch.training.train --config ... --resume latest
 
 It runs on the card unless ``--device cpu`` is given, and raises when there
-is none. Data comes only from the ``synthetic`` module (Taylor-Green
-trajectories); the HDF5 reader is not ported (ROADMAP §1 item 4). A warm
-start from ``model.fpath`` reads this package's checkpoints only.
+is none. Data comes from the ``synthetic`` module (Taylor-Green
+trajectories) or, for any other module, from the reference-layout HDF5 files
+``<dataset.dpath>/<subset>.h5`` read into memory (the out-of-core mode is
+not ported: ``dataset.lazy`` true raises). A warm start from
+``model.fpath`` reads this package's checkpoints, those converted from the
+JAX package's included (``scripts/torch_convert_flax_checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -28,22 +31,25 @@ _BANDED = ("banded", "pallas", "auto")
 
 def build_datasets(config, model_cls, splits=("train", "valid"),
                    device="cuda"):
-    """(train_ds, valid_ds) from ``dataset.module`` "synthetic", None for a
-    split not in ``splits``. With a banded aggregation the meshes are
-    RCM-ordered, as in the JAX package, and the validation split carries
-    the banded tables its rollout reads (K6/K7 on the card); the training
-    split carries none, since the train step takes the plain route."""
+    """(train_ds, valid_ds), None for a split not in ``splits``.
+    ``dataset.module`` "synthetic" makes Taylor-Green trajectories; any
+    other reads ``<dataset.dpath>/<subset>.h5`` (the OpenFOAM modules' face
+    flux divided by 0.001, as the reference loads it), the validation split
+    the meshes ``rollout.data_sim_index`` where given. With a banded
+    aggregation the meshes are RCM-ordered, as in the JAX package, and the
+    validation split carries the banded tables its rollout reads (K6/K7 on
+    the card); the training split carries none, since the train step takes
+    the plain route. A model that asks for MLS weights gets them, of the
+    configured order or 1."""
     from gnn_fluid_dynamics_tpu_torch.data.pipeline import (MeshDataset,
                                                             Trajectory,
                                                             compute_window)
-    if config.dataset.module != "synthetic":
-        raise NotImplementedError(
-            f"dataset module {config.dataset.module!r}: only 'synthetic' is "
-            "ported; the HDF5 reader is ROADMAP §1 item 4")
-    from gnn_fluid_dynamics_tpu_torch.data.synthetic import (
-        make_geometry, taylor_green_trajectory)
     from gnn_fluid_dynamics_tpu_torch.ops.reorder import (rcm_reorder_geometry,
                                                           reorder_fields)
+    if config.dataset.lazy:
+        raise NotImplementedError(
+            "dataset.lazy: the out-of-core HDF5 store is not ported yet "
+            "(ROADMAP §1 item 4); the port reads the files into memory")
 
     stride, window = compute_window(config.model.timestep_stride,
                                     config.training.pushforward_factor,
@@ -53,21 +59,40 @@ def build_datasets(config, model_cls, splits=("train", "valid"),
                                         mode="rollout")
     banded = config.model.aggregation in _BANDED
 
-    def load(sim_limit, timestep_range, stride, window, with_banded):
-        n = sim_limit or 2
+    def synthetic(sim_limit, timestep_range, window):
+        from gnn_fluid_dynamics_tpu_torch.data.synthetic import (
+            make_geometry, taylor_green_trajectory)
         T = (timestep_range[1] if timestep_range else 30) + window + 1
         trajs = []
-        for i in range(n):
+        for i in range(sim_limit or 2):
             geom = make_geometry("structured", nx=10 + i % 3, ny=6,
                                  jitter=0.15, seed=i)
             fields = taylor_green_trajectory(geom, num_timesteps=T, dt=0.01)
-            if banded:
-                # RCM relabeling narrows the aggregation bands
-                new_geom = rcm_reorder_geometry(geom)
-                fields = reorder_fields(fields, geom, new_geom)
-                geom = new_geom
             trajs.append(Trajectory(mesh_id=f"mesh_{i}", geom=geom,
                                     fields=fields))
+        return trajs
+
+    def hdf5(subset, sim_limit, sim_index):
+        from gnn_fluid_dynamics_tpu_torch.data.hdf5 import load_dataset
+        flux_scale = (1.0 / 0.001 if "openfoam" in config.dataset.module.lower()
+                      else 1.0)
+        return load_dataset(os.path.join(config.dataset.dpath, subset + ".h5"),
+                            sim_limit=sim_limit, sim_index=sim_index,
+                            flux_scale=flux_scale,
+                            shuffle=config.dataset.shuffle)
+
+    def load(subset, sim_limit, timestep_range, stride, window, with_banded,
+             sim_index=None):
+        if config.dataset.module == "synthetic":
+            trajs = synthetic(sim_limit, timestep_range, window)
+        else:
+            trajs = hdf5(subset, sim_limit, sim_index)
+        if banded:
+            # RCM relabeling narrows the aggregation bands
+            for t in trajs:
+                new_geom = rcm_reorder_geometry(t.geom)
+                t.fields = reorder_fields(t.fields, t.geom, new_geom)
+                t.geom = new_geom
         return MeshDataset(trajs, stride=stride, data_window=window,
                            timestep_range=timestep_range,
                            pad_multiple=config.training.pad_multiple,
@@ -77,12 +102,23 @@ def build_datasets(config, model_cls, splits=("train", "valid"),
                                          == "bfloat16" else "float32"),
                            device=device)
 
-    train_ds = load(config.training.data_sim_limit,
+    train_ds = load(config.training.data_subset,
+                    config.training.data_sim_limit,
                     config.training.data_timestep_range, stride, window,
                     False) if "train" in splits else None
-    valid_ds = load(config.rollout.data_sim_limit,
+    valid_ds = load(config.rollout.data_subset, config.rollout.data_sim_limit,
                     config.rollout.data_timestep_range, r_stride, r_window,
-                    banded) if "valid" in splits else None
+                    banded, sim_index=config.rollout.data_sim_index
+                    ) if "valid" in splits else None
+    for ds in (train_ds, valid_ds):
+        if ds is None:
+            continue
+        if model_cls.cell_grad_weights_use:
+            ds.add_grad_weights("cell", config.model.cell_grad_weights_order
+                                or 1)
+        if model_cls.face_grad_weights_use:
+            ds.add_grad_weights("face", config.model.face_grad_weights_order
+                                or 1)
     return train_ds, valid_ds
 
 

@@ -253,10 +253,11 @@ def test_step_scalars_are_one_based():
 
 
 def test_registry():
-    assert sorted(MODEL_REGISTRY) == ["FluxA", "FluxD", "FvgnA", "FvgnF"]
+    assert sorted(MODEL_REGISTRY) == ["FluxA", "FluxD", "FvgnA", "FvgnF",
+                                      "MgnA", "MgnB", "MgnC"]
     assert get_model_class("FvgnF").name == "FvgnF"
     with pytest.raises(KeyError, match="not ported yet"):
-        get_model_class("MgnA")
+        get_model_class("StreamFuncA")
     with pytest.raises(KeyError, match="unknown model"):
         get_model_class("NoSuchModel")
     with pytest.raises(NotImplementedError, match="FluxIntegrator"):

@@ -1,6 +1,7 @@
-"""The port imports neither JAX, Flax nor the JAX package: every module of
-``gnn_fluid_dynamics_tpu_torch`` (and ``chip_smoke.py``) is imported in a
-fresh interpreter, which must then hold none of them."""
+"""The port imports neither JAX, Flax, optax, orbax nor the JAX package:
+every module of ``gnn_fluid_dynamics_tpu_torch`` (and ``chip_smoke.py``) is
+imported in a fresh interpreter, which must then hold none of them, nor
+``h5py``, which only the HDF5 reader and writer import, when called."""
 
 import pathlib
 import subprocess
@@ -16,7 +17,8 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "gnn_fluid_dynamics_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
+                                    "h5py", "gnn_fluid_dynamics_tpu"))
 print(len(names), bad)
 sys.exit(1 if bad or len(names) < 15 else 0)
 """

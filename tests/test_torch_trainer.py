@@ -388,5 +388,6 @@ def test_unported_training_options_raise(tmp_path):
         trainer.Trainer(cfg, model)
     cfg = load_config(SYNTHETIC)
     cfg.dataset.module = "openfoam"
+    cfg.dataset.lazy = True
     with pytest.raises(NotImplementedError, match="item 4"):
         train.build_datasets(cfg, type(model), device="cpu")
