@@ -1,8 +1,9 @@
 """Drive the PyTorch/CUDA port on one card: build the GN-block kernels, hold
 each against its plain PyTorch version, run the FluxD and FvgnF rollouts,
 the trainer's validation rollout of FluxD, FluxD's training, the rollout
-entry point and the MGN family at their shipped width through them, and
-report each kernel's time beside its bound.
+entry point, the MGN family, the rest of the FVGN family (temporal
+bundling included) and the StreamFunc family at their shipped width
+through them, and report each kernel's time beside its bound.
 
     python3 chip_smoke.py
 
@@ -95,6 +96,30 @@ Phases (each prints one flushed line; any failure exits non-zero):
      cell weights: every loss term finite, the continuity term included,
      the loss falling, no kernel launched;
 
+7. the rest of the FVGN family and the StreamFunc family, on the bench mesh
+   with order-1 MLS weights at cells and faces (the first BUNDLE + 1
+   states of a channel flow):
+
+   * 7a each of FvgnB, C (bundle BUNDLE), D, E, H, I, J, K and StreamFuncA-D:
+     CHECK_STEPS forwards of the kernel route held against the plain route
+     on the same inputs, every bundled step (within STEP_TOL; StreamFunc
+     within STREAMFUNC_STEP_TOL, see there), the kernels' order in a block
+     (FVGN K3 -> K2 dual -> K1, StreamFunc K1 dual -> K3 -> K2), then
+     LAUNCH_STEPS predicted steps with the counters around them: K1-K3 15 a
+     forward, K4-K7 none;
+   * 7b FvgnB, FvgnC and StreamFuncA: STEPS forwards timed as 3b, the
+     counters around them, a device profile of 10 forwards (FvgnC also per
+     predicted step);
+   * 7c FvgnC on FluxD-valid's meshes at rollout stride BUNDLE:
+     ``validate`` on the table route (K6 30, K7 15 a forward), the same
+     rollout on the index route (K1-K3) and on the plain route, their
+     per-trajectory mean errors within STEP_TOL;
+   * 7d FvgnC, FVGNC_TRAIN_STEPS train steps on bundled windows: no kernel
+     launched, the loss falling;
+   * 7e StreamFuncA through ``rollout.run``'s two halves on a checkpoint
+     the port writes: LAUNCH_STEPS steps with the error metrics, K1-K3 15 a
+     step, its errors held against the plain route's;
+
 then the ``kernels`` line: per kernel its time per launch, launches, bound,
 plain time and library time (K3 and K5 also the pair's time and the launch
 floor).
@@ -132,12 +157,14 @@ from gnn_fluid_dynamics_tpu_torch.models.flux import FluxD
 from gnn_fluid_dynamics_tpu_torch.models.fvgn import FvgnF
 from gnn_fluid_dynamics_tpu_torch.models.mgn import MgnA
 from gnn_fluid_dynamics_tpu_torch.models.normalizer import StatsAccumulator
+from gnn_fluid_dynamics_tpu_torch.models.registry import get_model_class
 from gnn_fluid_dynamics_tpu_torch.ops import fvm, kernels
 from gnn_fluid_dynamics_tpu_torch.ops.mls import compute_mls_weights
 from gnn_fluid_dynamics_tpu_torch.ops.reorder import rcm_reorder_geometry
 from gnn_fluid_dynamics_tpu_torch.rollout import run as rollout_cli
 from gnn_fluid_dynamics_tpu_torch.rollout.engine import (SAVABLE_FIELDS,
                                                          RolloutConfig,
+                                                         derive_states,
                                                          rollout_scan)
 from gnn_fluid_dynamics_tpu_torch.training import train as train_cli
 from gnn_fluid_dynamics_tpu_torch.training.checkpoint import Checkpointer
@@ -170,6 +197,20 @@ KERNEL_RTOL = KERNEL_ATOL = 2.0 ** -7
 # latents through 15 blocks (measured on the CPU at 904 cells: up to 2.8%
 # on FluxD's face fields)
 STEP_TOL = 5e-2
+# the same for StreamFunc's fields: its velocity is the MLS curl of psi, a
+# near-cancelling sum that turns psi's bf16 rounding into a larger relative
+# error of the velocity, and StreamFuncC feeds unnormalized features to its
+# bf16 MLPs (measured on the CPU over 5 forwards, the kernels' plain
+# versions against the plain route: at the bench mesh up to 5.2 % (A) and
+# 7.3 % (C) on the velocity, 6.0 % (C) on the pressure; at a 518-cell mesh
+# 12.5 % (C) on the velocity). A wrong kernel moves the fields by O(1).
+STREAMFUNC_STEP_TOL = 0.15
+# 7e: StreamFunc's divergence error, the mean square of the MLS divergence
+# of psi's curl, is what that cancellation leaves (about 1e-5 of the
+# velocity error), so the two routes' bf16 roundings move it most (my chip
+# run 1, PR 13: 12.8 % apart at the first step, 16 % within 5 steps; the
+# CPU rehearsal 3.7 % and 6.3 %). A wrong kernel moves it by O(1).
+STREAMFUNC_DIVERGENCE_TOL = 0.5
 HAZARD_ROUNDS = 200
 HAZARD_CYCLES = 100_000   # the hazard writer's idle cycles (~50 us) before it writes
 FLOOR_ITERS = 200         # launches per timed batch of K3, K4, K5, the pair, the floor
@@ -199,6 +240,21 @@ MGNB_LOSS_WINDOW = 5
 # MgnB adds: its direct velocity at the config default's 10, and continuity
 # at 0.1 so that the MLS term counts
 MGNB_LOSS_WEIGHTS = {"cell_velocity": 10.0, "continuity": 0.1}
+# phase 7: the rest of the FVGN family and the StreamFunc family
+FVGN_VARIANTS = ("FvgnB", "FvgnC", "FvgnD", "FvgnE", "FvgnH", "FvgnI",
+                 "FvgnJ", "FvgnK")
+STREAMFUNC_VARIANTS = ("StreamFuncA", "StreamFuncB", "StreamFuncC",
+                       "StreamFuncD")
+BUNDLE = 2                 # FvgnC's temporal bundle (its default)
+LAUNCH_STEPS = 20          # 7a's counted rollout, in predicted steps
+TIMED_PATHS = ("FvgnB", "FvgnC", "StreamFuncA")       # 7b
+VALID_FORWARDS = 3         # 7c: FvgnC's validation, in forwards
+FVGNC_TRAIN_STEPS = 10
+FVGNC_LOSS_WINDOW = 5
+# 7e: StreamFuncA's train steps before its checkpoint. Seeded weights give
+# a psi whose curl is ~1/h times too large, and a free-running rollout
+# then parts the two routes' bf16 roundings within a few steps
+SF_TRAIN_STEPS = 20
 
 KERNELS = {
     "K1_fused_face_block": dict(
@@ -256,6 +312,15 @@ PATHS = {
     "MgnA-valid": (MgnA, {"K6_table_dual": 2 * MP_NUM,
                           "K7_table_single": MP_NUM}),
 }
+_FUSED_PER_STEP = {"K1_fused_face_block": MP_NUM,
+                   "K2_fused_cell_block": MP_NUM,
+                   "K3_edges_to_vertices": MP_NUM}
+# phase 7: per step = per forward (FvgnC predicts BUNDLE steps a forward)
+PATHS.update({name: (get_model_class(name), _FUSED_PER_STEP)
+              for name in FVGN_VARIANTS + STREAMFUNC_VARIANTS})
+PATHS["FvgnC-valid"] = (get_model_class("FvgnC"),
+                        {"K6_table_dual": 2 * MP_NUM,
+                         "K7_table_single": MP_NUM})
 ROLLOUT_PATHS = ("FluxD", "FvgnF", "FluxD-valid")      # phase 3
 # the kernel wrappers a GN block calls, per block application, in order
 # (":dual" K1/K2 with both outputs, ":roll" K6 on es/er with the roll)
@@ -263,6 +328,10 @@ BLOCK_ORDER = {
     "MgnA": ["fused_face_block:dual", "edges_to_vertices",
              "fused_cell_block"],
     "MgnA-valid": ["table_dual", "table_dual:roll", "table_single"],
+    **{name: ["edges_to_vertices", "fused_cell_block:dual",
+              "fused_face_block"] for name in FVGN_VARIANTS},
+    **{name: ["fused_face_block:dual", "edges_to_vertices",
+              "fused_cell_block"] for name in STREAMFUNC_VARIANTS},
 }
 
 
@@ -335,15 +404,16 @@ def bench_mesh(device, mls: bool = False):
 
 def valid_data(device):
     """The FluxD-valid dataset and its validation batch: one trajectory of
-    CHECK_STEPS + 2 channel-flow steps per seed, int8 banded tables, one
-    graph on the table route (``Trainer.validate``'s
-    ``to_static_bands(..., derive_idx=False)``)."""
+    channel-flow steps per seed (CHECK_STEPS + 2, or as many as phase 7c's
+    rollout of stride BUNDLE reads), int8 banded tables, one graph on the
+    table route (``Trainer.validate``'s ``to_static_bands(...,
+    derive_idx=False)``)."""
     trajs = []
+    steps = max(CHECK_STEPS + 2, VALID_FORWARDS * BUNDLE * BUNDLE + 1)
     for seed in VALID_SEEDS:
         geom = rcm_reorder_geometry(make_geometry(
             "cylinder", n_points=VALID_POINTS, seed=seed))
-        fields = channel_flow_trajectory(geom, num_timesteps=CHECK_STEPS + 2,
-                                         dt=0.01)
+        fields = channel_flow_trajectory(geom, num_timesteps=steps, dt=0.01)
         trajs.append(Trajectory(mesh_id=f"cyl{seed}", geom=geom, fields=fields))
     ds = MeshDataset(trajs, with_banded=True, banded_dtype="int8",
                      pad_multiple=128, device=device)
@@ -1029,10 +1099,11 @@ def block_forms(name, graph, index_graph, w, latents) -> dict:
         "unit": f"per launch, {main} (the FluxD path's form)"}
 
 
-def check_against_plain(kern, plain, graph, feats, index_graph=None) -> dict:
+def check_against_plain(kern, plain, graph, feats, index_graph=None,
+                        tol: float = STEP_TOL) -> dict:
     """The kernel and the plain route of the same model, step by step on the
-    same inputs: each step's predicted fields from both, then the plain
-    route's state fed back. (Free-running, the two would drift apart: with
+    same inputs: each step's predicted fields from both (every bundled step
+    of a forward), then the plain route's state fed back. (Free-running, the two would drift apart: with
     random weights the model amplifies any difference step over step.)
     Returns, per comparison, the largest difference of each field relative
     to its largest magnitude.
@@ -1054,31 +1125,36 @@ def check_against_plain(kern, plain, graph, feats, index_graph=None) -> dict:
 
     with torch.inference_mode():
         for _ in range(CHECK_STEPS):
-            sol_p = plain.derive_state(plain.forward(graph, feats), feats, graph)
-            sol_k = kern.derive_state(kern.forward(graph, feats), feats, graph)
-            sol_i = None if index_graph is None else kern.derive_state(
-                kern.forward(index_graph, feats), feats, index_graph)
-            for key in SAVABLE_FIELDS:
-                if key not in sol_p:
-                    continue
-                a, b = sol_k[key].float(), sol_p[key].float()
-                if not torch.isfinite(a).all():
-                    fail(f"kernel route: non-finite {key}")
-                note("kernel_vs_plain", key, a, b)
-                if sol_i is None:
-                    continue
-                c = sol_i[key].float()
-                if not torch.isfinite(c).all():
-                    fail(f"index route: non-finite {key}")
-                live = graph.cell_mask if key.startswith("cell") else graph.face_mask
-                note("kernel_vs_plain_live", key, a, b, live)
-                note("index_vs_plain", key, c, b)
-                note("table_vs_index_live", key, a, c, live)
-            feats = plain.update_features(sol_p, feats, graph)
+            sols_p = derive_states(plain, plain.forward(graph, feats), feats,
+                                   graph)
+            sols_k = derive_states(kern, kern.forward(graph, feats), feats,
+                                   graph)
+            sols_i = (None if index_graph is None else derive_states(
+                kern, kern.forward(index_graph, feats), feats, index_graph))
+            for j, (sol_p, sol_k) in enumerate(zip(sols_p, sols_k)):
+                sol_i = None if sols_i is None else sols_i[j]
+                for key in SAVABLE_FIELDS:
+                    if key not in sol_p:
+                        continue
+                    a, b = sol_k[key].float(), sol_p[key].float()
+                    if not torch.isfinite(a).all():
+                        fail(f"kernel route: non-finite {key}")
+                    note("kernel_vs_plain", key, a, b)
+                    if sol_i is None:
+                        continue
+                    c = sol_i[key].float()
+                    if not torch.isfinite(c).all():
+                        fail(f"index route: non-finite {key}")
+                    live = (graph.cell_mask if key.startswith("cell")
+                            else graph.face_mask)
+                    note("kernel_vs_plain_live", key, a, b, live)
+                    note("index_vs_plain", key, c, b)
+                    note("table_vs_index_live", key, a, c, live)
+            feats = plain.update_features(sols_p[-1], feats, graph)
     for name, fields in worst.items():
         for key, rel in fields.items():
-            if rel > STEP_TOL:
-                fail(f"{name}, {key}: {rel:.3g} > {STEP_TOL}")
+            if rel > tol:
+                fail(f"{name}, {key}: {rel:.3g} > {tol}")
     return worst
 
 
@@ -1165,7 +1241,8 @@ def path_models(path: str, graph):
     cls = PATHS[path][0]
     dev = graph.device
     cfg = ModelConfig(name=cls.name, hidden_width=H, mp_num=MP_NUM,
-                      aggregation="pallas", compute_dtype="bfloat16")
+                      aggregation="pallas", compute_dtype="bfloat16",
+                      bundle_size=BUNDLE if cls.name == "FvgnC" else None)
     kern = cls(cfg, device=dev, seed=0)
     plain = cls(dataclasses.replace(cfg, aggregation="segment"), device=dev,
                 seed=0)
@@ -1283,13 +1360,14 @@ def launch_order(model, graph, feats) -> list:
     return log
 
 
-def timed_rollout(model, graph, feats) -> float:
-    """Wall seconds of a STEPS-step rollout (no error metrics, as bench.py),
-    ending in a synchronize; fails on a non-finite final state."""
+def timed_rollout(model, graph, feats, steps: int = STEPS) -> float:
+    """Wall seconds of a ``steps``-step rollout (no error metrics, as
+    bench.py), ending in a synchronize; fails on a non-finite final
+    state."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     _, out = rollout_scan(model, graph, feats, config=RolloutConfig(
-        num_steps=STEPS, compute_error=False))
+        num_steps=steps, compute_error=False))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     if not torch.isfinite(out["final_cell_state"]).all():
@@ -1298,8 +1376,10 @@ def timed_rollout(model, graph, feats) -> float:
 
 
 def device_profile(model, graph, feats, steps: int = 10):
-    """``profile_steps`` over a short rollout of ``steps`` steps."""
-    cfg = RolloutConfig(num_steps=steps, compute_error=False)
+    """``profile_steps`` over a short rollout of ``steps`` forwards (steps,
+    for a model that bundles none)."""
+    cfg = RolloutConfig(num_steps=steps * int(model.config.bundle_size or 1),
+                        compute_error=False)
     return profile_steps(
         lambda: rollout_scan(model, graph, feats, config=cfg), steps)
 
@@ -1724,6 +1804,315 @@ def mgnb_training(train_ds, device_line: str) -> dict:
             "ms_per_step": ms, "loss_first": first, "loss_last": last}
 
 
+# ---- phase 7: the rest of the FVGN family and the StreamFunc family ---------
+
+def phase7_mesh(device):
+    """The bench mesh at the first BUNDLE + 1 states of a channel flow
+    (FvgnC's window; every other variant reads its first and last), with
+    order-1 MLS weights at cells (StreamFunc's curl, the divergence metric)
+    and at faces (FvgnB's viscous term)."""
+    geom = bench_geometry()
+    window = channel_flow_trajectory(geom, num_timesteps=BUNDLE + 1, dt=0.01)
+    for loc in ("cell", "face"):
+        nb, w = compute_mls_weights(geom[f"{loc}_pos"], MLS_ORDER)
+        window[f"{loc}_grad_weights"] = w
+        window[f"{loc}_grad_neighbours"] = nb
+    return from_geometry(geom, window, dt=0.01, device=device)
+
+
+def check_launches(path: str, launches: dict, forwards: int) -> None:
+    for name, n in launches.items():
+        want = PATHS[path][1].get(name, 0) * forwards
+        if n != want:
+            fail(f"{path}: {name} launched {n} times in {forwards} forwards, "
+                 f"expected {want}")
+
+
+def variant_phase(name: str, graph):
+    """Phase 7a for one variant: CHECK_STEPS forwards of the kernel route
+    held against the plain route on the same inputs (every bundled step),
+    the kernels' order in a block application, then a rollout of
+    LAUNCH_STEPS predicted steps with the counters set to 0 just before and
+    read just after. Returns (the path's record, the kernel-route model,
+    its features)."""
+    kern, plain, feats = path_models(name, graph)
+    tol = STREAMFUNC_STEP_TOL if name in STREAMFUNC_VARIANTS else STEP_TOL
+    worst = check_against_plain(kern, plain, graph, feats, tol=tol)
+    calls = launch_order(kern, graph, feats)
+    if calls != BLOCK_ORDER[name] * MP_NUM:
+        fail(f"{name}: kernels called in the order {calls}, expected "
+             f"{BLOCK_ORDER[name]} per block application")
+    forwards = LAUNCH_STEPS // int(kern.config.bundle_size or 1)
+    zero_launches()
+    _, out = rollout_scan(kern, graph, feats, config=RolloutConfig(
+        num_steps=LAUNCH_STEPS, compute_error=False))
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    if not torch.isfinite(out["final_cell_state"]).all():
+        fail(f"{name}: non-finite final state")
+    check_launches(name, launches, forwards)
+    say(f"phase 7a {name} kernel vs plain route, {CHECK_STEPS} forwards on "
+        f"the same inputs, within {tol}: ok " + json.dumps(
+            {n: {k: round(v, 6) for k, v in f.items()}
+             for n, f in worst.items()})
+        + "; kernels in each block application in the order "
+        + " -> ".join(BLOCK_ORDER[name]) + f"; {LAUNCH_STEPS} steps in "
+        f"{forwards} forwards, launches " + json.dumps(launches))
+    return {"launches": launches, "rollout_steps": forwards}, kern, feats
+
+
+def timed_variant(name: str, kern, graph, feats, device_line: str) -> dict:
+    """Phase 7b: a STEPS-forward rollout of the kernel route on 3b's clock
+    (no error metrics, ending in a synchronize), the counters set to 0 just
+    before and read just after; then a device profile of 10 forwards. A
+    bundling model is reported per forward and per predicted step."""
+    k = int(kern.config.bundle_size or 1)
+    rollout_scan(kern, graph, feats, config=RolloutConfig(        # warm-up
+        num_steps=5 * k, compute_error=False))
+    zero_launches()
+    wall = timed_rollout(kern, graph, feats, steps=STEPS * k)
+    launches = launch_counts()
+    check_launches(name, launches, STEPS)
+    prof = device_profile(kern, graph, feats)
+    per_step = "" if k == 1 else (
+        f" = {STEPS * k / wall:.1f} predicted steps/s, "
+        f"{1e3 * wall / (STEPS * k):.4f} ms per predicted step ({k} a "
+        "forward)")
+    say(f"phase 7b {name} h{H} mp{MP_NUM} bf16, {graph.num_cells} cells "
+        f"{graph.num_faces} faces: {STEPS} forwards in {wall:.4f} s = "
+        f"{STEPS / wall:.1f} forwards/s, {1e3 * wall / STEPS:.4f} ms per "
+        f"forward{per_step}; launches {json.dumps(launches)}; card "
+        f"{device_line}")
+    say(f"phase 7b {name} device profile of 10 forwards"
+        + ("" if k == 1 else f" ({10 * k} predicted steps)") + ": "
+        + ("not measured" if prof is None else json.dumps(prof)))
+    return {"launches": launches, "rollout_steps": STEPS,
+            "steps_per_s": STEPS / wall, "ms_per_step": 1e3 * wall / STEPS,
+            "bundle": k, "profile": prof}
+
+
+def fvgnc_valid_phase(ds):
+    """Phase 7c: FvgnC on FluxD-valid's meshes as the trainer validates a
+    bundling model (rollout stride BUNDLE, window BUNDLE + 1, int8 tables):
+    ``validate`` for VALID_FORWARDS forwards on the table route (K6 30 and
+    K7 15 launches a forward, counted around it), the same rollout of the
+    batch on the index route (the fused K1-K3, counted around it) and on
+    the plain route; each trajectory's mean velocity and pressure errors
+    within STEP_TOL of each other (relative). Returns the two routes'
+    records."""
+    dsc = MeshDataset(ds.trajectories, stride=BUNDLE, data_window=BUNDLE + 1,
+                      with_banded=True, banded_dtype="int8", pad_multiple=128,
+                      device=ds.device)
+    samples = rollout_batch(dsc)
+    table = to_static_bands(dsc.get_batch(samples), derive_idx=False)
+    index = to_static_bands(table, derive_idx=True)
+    kern, plain, _ = path_models("FvgnC-valid", table)
+    n = VALID_FORWARDS * BUNDLE
+    zero_launches()
+    flat = validate(kern, dsc, n)
+    torch.cuda.synchronize()
+    table_launches = launch_counts()
+    check_launches("FvgnC-valid", table_launches, VALID_FORWARDS)
+    if not all(np.isfinite(v) for v in flat.values()):
+        fail(f"FvgnC-valid validate: non-finite {flat}")
+    errors = {"table": validation_errors(kern, dsc, n),
+              "plain": validation_errors(plain, dsc, n)}
+    gt_v, gt_p = dsc.trajectory_targets([m for m, _ in samples],
+                                        samples[0][1], n)
+    _, feats = kern.transform_rollout(index)
+    zero_launches()
+    errors["index"], _ = rollout_scan(kern, index, feats, gt_v, gt_p,
+                                      RolloutConfig(num_steps=n))
+    torch.cuda.synchronize()
+    index_launches = launch_counts()
+    check_launches("FvgnC", index_launches, VALID_FORWARDS)
+    means = {route: {f"{sid}/{k}": float(e[k][:, i].mean())
+                     for i, sid in enumerate(dsc.sim_ids())
+                     for k in ("velocity_error", "pressure_error")}
+             for route, e in errors.items()}
+    for route, e in errors.items():
+        if e["velocity_error"].shape[0] != n or not all(
+                torch.isfinite(v).all() for v in e.values()):
+            fail(f"FvgnC-valid, {route} route: errors {e}")
+    rel = {}
+    for a, b in (("table", "index"), ("table", "plain")):
+        for key, want in means[b].items():
+            r = abs(means[a][key] - want) / abs(want)
+            rel[f"{a}_vs_{b}/{key}"] = r
+            if r > STEP_TOL:
+                fail(f"FvgnC-valid: {key} {means[a][key]} ({a}) vs {want} "
+                     f"({b}), {r:.3g} > {STEP_TOL}")
+    say(f"phase 7c FvgnC (k {BUNDLE}) on FluxD-valid's meshes, stride "
+        f"{BUNDLE}, {table.num_cells} cells: validate({n} steps, "
+        f"{VALID_FORWARDS} forwards) on the table route, launches "
+        + json.dumps(table_launches) + "; on the index route, launches "
+        + json.dumps(index_launches) + "; per-trajectory mean errors within "
+        f"{STEP_TOL}: ok " + json.dumps({k: round(v, 6) for k, v in
+                                        rel.items()}) + " " + json.dumps(means))
+    return ({"launches": table_launches, "rollout_steps": VALID_FORWARDS},
+            {"launches": index_launches, "rollout_steps": VALID_FORWARDS})
+
+
+def fvgnc_training(train_ds, device_line: str) -> dict:
+    """Phase 7d: FVGNC_TRAIN_STEPS ``Trainer.train_step`` calls of FvgnC
+    (k BUNDLE, h128, 15 blocks, bf16, ``config/train.json``'s optimizer and
+    noise) on one batch of 4 bundled windows (BUNDLE + 1 states) of phase
+    5's trajectories: every loss term finite, the mean total of the last
+    FVGNC_LOSS_WINDOW steps below the first's, no kernel launched."""
+    ds = MeshDataset(train_ds.trajectories, data_window=BUNDLE + 1,
+                     timestep_range=(0, FVGNC_TRAIN_STEPS),
+                     device=train_ds.device)
+    cfg = train_config("FvgnC", FVGNC_TRAIN_STEPS)
+    cfg.model.bundle_size = BUNDLE
+    trainer, state = build_trainer(cfg, ds)
+    t = cfg.training
+    batch = ds.get_batch(next(iter(get_sampler(cfg.dataset.sampler)(
+        ds, t.batch_size, np.random.default_rng(0)))))
+    if tuple(batch.cell_velocity.shape[1:]) != (BUNDLE + 1, 2):
+        fail(f"FvgnC training: windows {tuple(batch.cell_velocity.shape)}")
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps = [trainer.train_step(state, batch, t.lr_max)
+             for _ in range(FVGNC_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / FVGNC_TRAIN_STEPS
+    launches = launch_counts()
+    if any(launches.values()):
+        fail(f"FvgnC training launched kernels {launches}")
+    losses = {k: [float(s[k]) for s in steps] for k in steps[0]}
+    if not all(np.isfinite(v).all() for v in losses.values()):
+        fail(f"FvgnC training: losses {losses}")
+    total = losses["total_log_loss"]
+    first = float(np.mean(total[:FVGNC_LOSS_WINDOW]))
+    last = float(np.mean(total[-FVGNC_LOSS_WINDOW:]))
+    if not last < first:
+        fail(f"FvgnC training: mean loss of the last {FVGNC_LOSS_WINDOW} "
+             f"steps {last} not below the first {FVGNC_LOSS_WINDOW} {first}")
+    say(f"phase 7d FvgnC (k {BUNDLE}) h{H} mp{MP_NUM} bf16 batch "
+        f"{t.batch_size} of bundled windows, {FVGNC_TRAIN_STEPS} train "
+        f"steps: ok, no kernel launched; mean total loss of the first "
+        f"{FVGNC_LOSS_WINDOW} {first:.6f}, of the last {last:.6f}; {ms:.3f} "
+        "ms per step (host clock, the batch assembled beforehand); losses "
+        "by term " + json.dumps({k: [round(x, 6) for x in v]
+                                 for k, v in losses.items()})
+        + f"; card {device_line}")
+    return {"launches": launches, "rollout_steps": FVGNC_TRAIN_STEPS,
+            "ms_per_step": ms, "loss_first": first, "loss_last": last}
+
+
+def streamfunc_rollout_run(train_ds, device, device_line: str) -> dict:
+    """Phase 7e: StreamFuncA through ``rollout.run``'s two halves on a
+    checkpoint the port writes (``config/train.json`` as phase 5 trains it,
+    the weights as seeded, the statistics of phase 5's trajectories), on
+    the bench mesh with order-1 MLS cell weights and a channel flow as
+    ground truth: LAUNCH_STEPS steps with the error metrics, the counters
+    set to 0 just before and read just after (K1-K3 15 a step); the first
+    step's velocity and pressure errors (one forward of each route from
+    the same state) within STEP_TOL of the plain route's and those of the
+    first CHECK_STEPS steps (which run free) within STREAMFUNC_STEP_TOL;
+    the divergence error within STREAMFUNC_DIVERGENCE_TOL (see there).
+    The checkpoint is StreamFuncA after
+    SF_TRAIN_STEPS train steps on one of phase 5's batches, with MgnB's
+    loss weights (its velocity term)."""
+    cfg = train_config("StreamFuncA", SF_TRAIN_STEPS)
+    cfg.training.loss_weights = {**cfg.training.loss_weights,
+                                 **MGNB_LOSS_WEIGHTS}
+    ckpt = Checkpointer(os.path.join(SMOKE_DIR, "ckpt-streamfunca"))
+    trainer, state = build_trainer(cfg, train_ds, ckpt)
+    t = cfg.training
+    batch = train_ds.get_batch(next(iter(get_sampler(cfg.dataset.sampler)(
+        train_ds, t.batch_size, np.random.default_rng(0)))))
+    for _ in range(SF_TRAIN_STEPS):
+        trainer.train_step(state, batch, t.lr_max)
+    trainer.step_count = SF_TRAIN_STEPS
+    ckpt.save(state, trainer)
+    geom = bench_geometry()
+    fields = channel_flow_trajectory(geom, num_timesteps=LAUNCH_STEPS + 2,
+                                     dt=0.01)
+    ds = MeshDataset([Trajectory(mesh_id="bench", geom=geom, fields=fields)],
+                     timestep_range=(0, LAUNCH_STEPS + 1), device=device)
+    ds.add_grad_weights("cell", MLS_ORDER)
+    model, cfg, meta = rollout_cli.restore_model(ckpt.resolve("latest"),
+                                                 device)
+    plain_cfg = copy.deepcopy(cfg)
+    plain_cfg.model.aggregation = "segment"
+    plain = train_cli.build_model(plain_cfg, device)
+    plain.set_stats(meta["stats"])
+    plain.module.load_state_dict(model.module.state_dict())
+    out_dir = os.path.join(SMOKE_DIR, "rollouts-streamfunca")
+    ref = rollout_cli.rollout_dataset(plain, ds, os.path.join(out_dir, "plain"),
+                                      timestep_range=(0, CHECK_STEPS + 1))
+    zero_launches()
+    res = rollout_cli.rollout_dataset(model, ds, os.path.join(out_dir, "kernel"))
+    launches = launch_counts()
+    check_launches("StreamFuncA", launches, LAUNCH_STEPS)
+    with open(os.path.join(out_dir, "kernel", "errors.json")) as f:
+        written = json.load(f)["scalar"]
+    means = {k: written[k]["mean_all"] for k in
+             ("velocity_error", "pressure_error", "divergence_error")}
+    if not np.isfinite(list(means.values())).all():
+        fail(f"StreamFuncA rollout.run: non-finite errors {means}")
+    rel, first = {}, {}
+    for k in means:
+        a = res["errors"][k][:CHECK_STEPS].double()
+        b = ref["errors"][k].double()
+        r = ((a - b).abs() / b.abs()).reshape(CHECK_STEPS, -1).amax(1)
+        first[k], rel[k] = float(r[0]), float(r.max())
+        # the first step: one forward of each route from the same state;
+        # the later ones run free, each route on its own state
+        tols = ((STREAMFUNC_DIVERGENCE_TOL, STREAMFUNC_DIVERGENCE_TOL)
+                if k == "divergence_error" else
+                (STEP_TOL, STREAMFUNC_STEP_TOL))
+        if first[k] > tols[0] or rel[k] > tols[1]:
+            fail(f"StreamFuncA rollout.run: {k} of the first {CHECK_STEPS} "
+                 f"steps {a.tolist()} (kernel) vs {b.tolist()} (plain): the "
+                 f"first {first[k]:.3g} (limit {tols[0]}), the largest "
+                 f"{rel[k]:.3g} (limit {tols[1]})")
+    sps = res["num_steps"] / res["seconds"]
+    say(f"phase 7e StreamFuncA through rollout.run on a checkpoint the port "
+        f"wrote ({os.path.basename(ckpt.resolve('latest'))}), bench mesh "
+        f"with MLS cell weights: {res['num_steps']} steps with the error "
+        f"metrics in {res['seconds']:.4f} s = {sps:.1f} steps/s; launches "
+        + json.dumps(launches) + "; errors.json mean_all " + json.dumps(means)
+        + "; against the plain route, relative difference of the first step "
+        + json.dumps(first) + f", the largest of the first {CHECK_STEPS} "
+        + json.dumps(rel) + f"; card {device_line}")
+    return {"launches": launches, "rollout_steps": LAUNCH_STEPS,
+            "steps_per_s": sps, "ms_per_step": 1e3 / sps, "profile": None}
+
+
+def families_phase(dev, ds, train_ds, line: str) -> dict:
+    """Phase 7: 7a every variant, 7b the timed three, 7c FvgnC's
+    validation on the table route, 7d FvgnC's training, 7e StreamFuncA
+    through the rollout entry point. Returns the paths' records."""
+    t7 = time.perf_counter()
+    graph = phase7_mesh(dev)
+    paths, models = {}, {}
+    for name in FVGN_VARIANTS + STREAMFUNC_VARIANTS:
+        paths[name], kern, feats = variant_phase(name, graph)
+        if name in TIMED_PATHS:
+            models[name] = (kern, feats)
+    for name in TIMED_PATHS:
+        kern, feats = models[name]
+        paths[f"{name}-timed"] = timed_variant(name, kern, graph, feats, line)
+    paths["FvgnC-valid"], paths["FvgnC-valid-index"] = fvgnc_valid_phase(ds)
+    paths["FvgnC-train"] = fvgnc_training(train_ds, line)
+    paths["StreamFuncA-rollout-run"] = streamfunc_rollout_run(train_ds, dev,
+                                                              line)
+    say(f"phase 7 card {line}; " + "; ".join(
+        f"{name} {p['steps_per_s']:.1f} forwards/s, {p['ms_per_step']:.4f} "
+        "ms per forward" + ("" if p["profile"] is None else
+                            f", device {p['profile']['device_ms_per_step']:.4f}"
+                            f" ms per forward, busy "
+                            f"{100 * p['profile']['busy_share']:.1f} %, "
+                            f"{p['profile']['kernels_per_step']:g} kernels "
+                            "per forward")
+        for name, p in paths.items() if name.endswith("-timed"))
+        + f"; phase 7 wall time {time.perf_counter() - t7:.1f} s")
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1816,6 +2205,7 @@ def main() -> int:
         for path, p in paths.items()
         if path in ("FluxD-rollout-run", "MgnA", "MgnA-valid"))
         + f"; phase 6 wall time {time.perf_counter() - t6:.1f} s")
+    paths.update(families_phase(dev, ds, train_ds, line))
 
     bnd = bounds(graph)
     rows = []

@@ -1,8 +1,8 @@
 """Core neural architecture: MLPs, GN blocks, encode-process-decode and the
-FVGN integrator.
+FVGN integrators (normalized and physical).
 
-Counterpart of ``gnn_fluid_dynamics_tpu/models/arch.py`` for what the FluxD
-and FvgnA/FvgnF rollouts run. Module and parameter names follow the Flax
+Counterpart of ``gnn_fluid_dynamics_tpu/models/arch.py`` for what the ported
+families run. Module and parameter names follow the Flax
 tree, so :func:`gnn_fluid_dynamics_tpu_torch.weights.params_from_flax` maps
 one onto the other.
 
@@ -43,6 +43,7 @@ from torch import nn
 
 from gnn_fluid_dynamics_tpu_torch.ops import kernels
 from gnn_fluid_dynamics_tpu_torch.ops import segment as seg_ops
+from gnn_fluid_dynamics_tpu_torch.ops.fvm import calc_gradient_tensor
 
 AGGREGATIONS = ("segment", "pallas", "auto", "banded", "gather")
 BLOCK_ORDERS = ("cell_first", "face_first")
@@ -572,17 +573,60 @@ class FvgnIntegrator(nn.Module):
         return acc, {"norm_face_area": face_area}
 
 
-class LearnedScaleDenorm(nn.Module):
-    """Learned per-channel output scale (reference ``FvgnJ``,
-    Fvgn.py:1149-1157) as FluxD uses it: its biases are constant 0, not
-    parameters (Flux.py:471-475). FvgnJ's learned bias comes with that
-    family."""
+def physical_acceleration(graph, phi_a, phi_p, phi_d, rho: float = 1.0,
+                          nu: float = 1e-3) -> torch.Tensor:
+    """mean(dt)/V * (-Phi_A - Phi_P/rho + nu Phi_D) on live cells, 0 on
+    padded ones, the volume clamped at 1e-12 (Fvgn.py:425-460)."""
+    coeff = torch.mean(graph.dt) / torch.clamp(
+        graph.cell_volume.reshape(-1, 1), min=1e-12)
+    acc = coeff * (-phi_a - phi_p / rho + nu * phi_d)
+    return torch.where(graph.cell_mask[:, None], acc, torch.zeros_like(acc))
 
-    def __init__(self, channels: int, init_scale=1.0):
+
+class PhysicalIntegrator(nn.Module):
+    """Real-space integrator (reference ``FvgnB.Integrator``,
+    Fvgn.py:425-460): the true dt/V scaling and a viscous term from the MLS
+    face velocity gradient (``graph.face_grad_weights``). ``edge_output`` =
+    [u_f, v_f, p_f] in physical units. Returns (acc, {})."""
+
+    def __init__(self, rho: float = 1.0, nu: float = 1e-3):
+        super().__init__()
+        self.rho = rho
+        self.nu = nu
+
+    def forward(self, edge_output, graph, train: bool = False):
+        unv = graph.cell_normal
+        area = graph.face_area.reshape(-1, 1)
+        uv = edge_output[:, :2]
+        p = edge_output[:, 2:3]
+        uu_vu = torch.cat([uv[:, 0:1] * uv, uv[:, 1:2] * uv], dim=-1)
+        grad = calc_gradient_tensor(uv, graph.face_grad_weights,
+                                    graph.face_grad_neighbours)   # (F, 4)
+        gg = gather3(torch.cat([area, uu_vu, grad, p], dim=1), graph)
+        e, uu, gr, pf = (gg[..., 0:1], gg[..., 1:5].reshape(-1, 3, 2, 2),
+                         gg[..., 5:9].reshape(-1, 3, 2, 2), gg[..., 9:10])
+        phi_a = torch.sum(torch.einsum("cfkd,cfd->cfk", uu, unv) * e, dim=1)
+        phi_d = torch.sum(torch.einsum("cfkd,cfd->cfk", gr, unv) * e, dim=1)
+        phi_p = torch.sum(pf * unv * e, dim=1)
+        return (physical_acceleration(graph, phi_a, phi_p, phi_d, self.rho,
+                                      self.nu), {})
+
+
+class LearnedScaleDenorm(nn.Module):
+    """Learned per-channel output scale, and with ``learn_bias`` a learned
+    bias initialized at 0 (reference ``FvgnJ``, Fvgn.py:1149-1157). FluxD
+    has no biases: they are constant 0 there, not parameters
+    (Flux.py:471-475)."""
+
+    def __init__(self, channels: int, init_scale=1.0, learn_bias: bool = False):
         super().__init__()
         init = torch.broadcast_to(torch.as_tensor(init_scale, dtype=torch.float32),
                                   (channels,))
         self.scale = nn.Parameter(init.clone())
+        self.bias = (nn.Parameter(torch.zeros(channels)) if learn_bias
+                     else None)
 
     def forward(self, x):
-        return x * self.scale
+        if self.bias is None:
+            return x * self.scale
+        return x * self.scale + self.bias

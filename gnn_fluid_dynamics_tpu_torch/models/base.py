@@ -35,6 +35,9 @@ class ModelConfig:
     #                                   "pallas" | "auto" | "banded" | "gather"
     num_face_types: int = 5
     compute_dtype: str = "float32"    # "bfloat16" for the MLP stack
+    # temporal bundling (FvgnC): the decoder emits this many steps per
+    # forward, and the rollout takes num_steps // bundle_size forwards
+    bundle_size: Optional[int] = None
     # learned-scale denorm initialization (FluxD): None = the reference's
     # shipped constants; "stats" = per-channel target std from the dataset
     # statistics; or {velocity_x, velocity_y, pressure, flux, diffusion} ->

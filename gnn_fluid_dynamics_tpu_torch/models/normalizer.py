@@ -1,9 +1,11 @@
 """Declarative normalization (counterpart of ``models/normalizer.py``).
 
 Each field spec names a statistics key, a tensor in the feature bundle, a
-column slice and a scheme. The schemes the ported models use are ported:
-``z_score``, and ``mean_scale`` (MgnC). Statistics accumulate as the
-reference's masked batch Welford + min/max (``normalisation.py:80-181``).
+column slice and a scheme: ``z_score``, ``mean_scale``, ``std_scale``,
+``min_max`` and ``max_scale`` (reference ``normalisation.py:281-322``).
+Statistics accumulate as the reference's masked batch Welford + min/max
+(``normalisation.py:80-181``), with its derived characteristic pressure
+(``normalisation.py:183-197``).
 """
 
 from __future__ import annotations
@@ -32,7 +34,32 @@ def mean_scale(data, stats, inverse=False):
     return data * (stats["mean"] + EPS)
 
 
-SCHEMES: Dict[str, Callable] = {"z_score": z_score, "mean_scale": mean_scale}
+def std_scale(data, stats, inverse=False):
+    if not inverse:
+        return data / (stats["std"] + EPS)
+    return data * (stats["std"] + EPS)
+
+
+def min_max(data, stats, inverse=False):
+    rng = stats["max"] - stats["min"]
+    if not inverse:
+        return (data - stats["min"]) / (rng + EPS)
+    return data * (rng + EPS) + stats["min"]
+
+
+def max_scale(data, stats, inverse=False):
+    if not inverse:
+        return data / (stats["max"] + EPS)
+    return data * (stats["max"] + EPS)
+
+
+SCHEMES: Dict[str, Callable] = {
+    "z_score": z_score,
+    "mean_scale": mean_scale,
+    "std_scale": std_scale,
+    "min_max": min_max,
+    "max_scale": max_scale,
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,9 +76,12 @@ class Field:
 @dataclasses.dataclass(frozen=True)
 class StatSpec:
     """How to gather statistics for one stat key: ``extractor`` is the
-    (tensor, start, stop) slice of the feature bundle, or ("norm", tensor,
+    (tensor, start, stop) slice of the feature bundle; ("norm", tensor,
     start, stop) for the row-wise L2 norm of a slice (MgnC's
-    ``cell_velocity_char``)."""
+    ``cell_velocity_char``); ("sqrt", ...) for its square root (FvgnE's
+    ``characteristic_length``); ("slice0", ...) for the slice of the first
+    bundled step only (FvgnC's face targets); or None for a derived
+    statistic (FvgnE's ``characteristic_pressure``)."""
     scheme: str
     extractor: Optional[Tuple] = None
 
@@ -112,20 +142,35 @@ class StatsAccumulator:
         self.nmap = nmap
         self.state: Dict[str, Dict[str, float]] = {}
 
+    @staticmethod
+    def _extract(bundle, spec: StatSpec):
+        """(data, the bundle tensor it comes from), or (None, None) for a
+        derived statistic (reference ``CustomAccumulator``'s extractors)."""
+        ex = spec.extractor
+        if ex is None:
+            return None, None
+        if ex[0] in ("norm", "sqrt", "slice0"):
+            kind, tensor, start, stop = ex
+            x = bundle[tensor]
+            if kind == "norm":
+                data = torch.linalg.vector_norm(x[..., start:stop], dim=-1)
+            elif kind == "sqrt":
+                data = torch.sqrt(x[..., start:stop])
+            else:
+                data = x[:, 0, start:stop]
+        else:
+            tensor, start, stop = ex
+            data = bundle[tensor][..., start:stop]
+        return data, tensor
+
     def update(self, bundle: Dict[str, torch.Tensor],
                masks: Dict[str, torch.Tensor]):
         """``masks`` maps tensor key -> (N,) bool validity mask."""
         for key, spec in self.nmap.registry.items():
-            if spec.extractor is None:
+            data, tensor = self._extract(bundle, spec)
+            if data is None:
                 continue
-            if spec.extractor[0] == "norm":
-                _, tensor, start, stop = spec.extractor
-                data = torch.linalg.vector_norm(
-                    bundle[tensor][..., start:stop], dim=-1).double()
-            else:
-                tensor, start, stop = spec.extractor
-                data = bundle[tensor][..., start:stop].double()
-            data = data.detach().cpu().numpy()
+            data = data.detach().double().cpu().numpy()
             mask = masks.get(tensor)
             if mask is not None:
                 data = data[mask.cpu().numpy().astype(bool)]
@@ -156,6 +201,14 @@ class StatsAccumulator:
                 std = 1e-4
             out[key] = {"mean": st["mean"], "std": std,
                         "min": st["min"], "max": st["max"]}
+        # derived: the characteristic pressure v_max^2 / 2 (reference
+        # normalisation.py:183-197)
+        needs_char_p = any(f.stat_key == "characteristic_pressure"
+                           for f in self.nmap.inputs + self.nmap.outputs)
+        if needs_char_p and "characteristic_velocity" in out:
+            p_max = 0.5 * out["characteristic_velocity"]["max"] ** 2
+            out["characteristic_pressure"] = {
+                "mean": p_max / 2, "std": p_max / 4, "min": 0.0, "max": p_max}
         return out
 
 

@@ -9,8 +9,15 @@ says so instead of calling it unknown.
 from __future__ import annotations
 
 from gnn_fluid_dynamics_tpu_torch.models.flux import FluxA, FluxD
-from gnn_fluid_dynamics_tpu_torch.models.fvgn import FvgnA, FvgnF
+from gnn_fluid_dynamics_tpu_torch.models.fvgn import (FvgnA, FvgnB, FvgnC,
+                                                      FvgnD, FvgnE, FvgnF,
+                                                      FvgnH, FvgnI, FvgnJ,
+                                                      FvgnK)
 from gnn_fluid_dynamics_tpu_torch.models.mgn import MgnA, MgnB, MgnC
+from gnn_fluid_dynamics_tpu_torch.models.streamfunc import (StreamFuncA,
+                                                            StreamFuncB,
+                                                            StreamFuncC,
+                                                            StreamFuncD)
 
 JAX_MODEL_NAMES = (
     "FvgnA", "FvgnB", "FvgnC", "FvgnD", "FvgnE", "FvgnF", "FvgnH", "FvgnI",
@@ -25,8 +32,11 @@ JAX_MODEL_NAMES = (
     "StreamFuncA", "StreamFuncB", "StreamFuncC", "StreamFuncD",
 )
 
-MODEL_REGISTRY = {cls.name: cls for cls in (FvgnA, FvgnF, MgnA, MgnB, MgnC,
-                                             FluxA, FluxD)}
+MODEL_REGISTRY = {cls.name: cls for cls in (
+    FvgnA, FvgnB, FvgnC, FvgnD, FvgnE, FvgnF, FvgnH, FvgnI, FvgnJ, FvgnK,
+    MgnA, MgnB, MgnC,
+    FluxA, FluxD,
+    StreamFuncA, StreamFuncB, StreamFuncC, StreamFuncD)}
 
 
 def get_model_class(name: str):

@@ -1,4 +1,4 @@
-"""Finite-volume numerics used by the rollouts (counterpart of
+"""Finite-volume numerics used by the models (counterpart of
 ``ops/fvm.py``). The owner/neighbour sign bookkeeping is the precomputed
 ``cell_face_sign`` table, so each conversion is a plain gather."""
 
@@ -53,3 +53,21 @@ def divergence_from_uc(cell_velocity: torch.Tensor, weights: torch.Tensor,
     grad_x = torch.sum(weights[:, :, 0] * (ux[nb] - ux[:, None]), dim=1)
     grad_y = torch.sum(weights[:, :, 1] * (uy[nb] - uy[:, None]), dim=1)
     return (grad_x + grad_y)[:, None] * cell_volume.reshape(-1, 1)
+
+
+def calc_gradient_tensor(value: torch.Tensor, weights: torch.Tensor,
+                         neighbours: torch.Tensor) -> torch.Tensor:
+    """MLS velocity-gradient tensor at faces (reference
+    ``src/utils/geometry.py:520-537``). value: (F, 2), weights: (F, K, 2),
+    neighbours: (F, K) -> (F, 4) as [g_xx, g_xy, g_yx, g_yy], with the
+    reference's pairing kept as it is: g_xy = sum w_y * dv_y,
+    g_yx = sum w_x * dv_y, g_yy = sum w_y * dv_x."""
+    vx, vy = value[:, 0], value[:, 1]
+    nb = neighbours.long()
+    dx = vx[nb] - vx[:, None]
+    dy = vy[nb] - vy[:, None]
+    g_xx = torch.sum(weights[:, :, 0] * dx, dim=1)
+    g_xy = torch.sum(weights[:, :, 1] * dy, dim=1)
+    g_yx = torch.sum(weights[:, :, 0] * dy, dim=1)
+    g_yy = torch.sum(weights[:, :, 1] * dx, dim=1)
+    return torch.stack([g_xx, g_xy, g_yx, g_yy], dim=1)

@@ -2,7 +2,8 @@
 
 The JAX package compiles the whole rollout into one ``lax.scan``; here it is a
 Python loop over steps under ``torch.inference_mode``: forward -> state
-derivation -> error metrics -> feature feedback. Error metrics match the
+derivation -> error metrics -> feature feedback, with temporal bundling
+(several predicted steps per forward, FvgnC). Error metrics match the
 reference's ``_error_accumulate`` (rollout.py:121-148): per-graph relative
 MSE of cell velocity and pressure against ground truth, and the divergence of
 the predicted cell flux, face velocity or (by the MLS stencil) cell
@@ -33,18 +34,21 @@ class RolloutConfig:
     save_fields: bool = False      # keep every step's predicted fields
 
 
-def _divergence_metric(solutions: Dict, feats: Dict, graph) -> torch.Tensor:
+def _divergence_metric(solutions: Dict, feats: Dict, graph,
+                       sub_step: int = -1) -> torch.Tensor:
     """The divergence estimate the outputs allow (reference
     rollout.py:133-148): of the predicted signed cell flux (FluxD); else of
     the predicted face velocity with the INFLOW faces clamped to their BC
-    targets (FvgnA/FvgnF); else, where the graph carries MLS cell weights,
-    of the predicted cell velocity (MGN); else zero."""
+    targets (the FVGN family; ``sub_step`` picks the bundled step's targets,
+    rollout.py:139-142); else, where the graph carries MLS cell weights, of
+    the predicted cell velocity (MGN, StreamFunc); else zero."""
     if "cell_flux" in solutions:
         div = fvm.divergence_from_cell_flux(solutions["cell_flux"])
     elif "face_velocity" in solutions:
         bc = ~interior_face_mask(graph.face_type)
-        uf = torch.where(bc[:, None], feats["face_y"][:, 0:2],
-                         solutions["face_velocity"])
+        fy = feats["face_y"]
+        bc_vals = fy[:, sub_step, 0:2] if fy.ndim == 3 else fy[:, 0:2]
+        uf = torch.where(bc[:, None], bc_vals, solutions["face_velocity"])
         div = fvm.divergence_from_uf(uf, graph.cell_normal, graph.face_area,
                                      graph.face_index)
     elif "cell_velocity" in solutions and graph.cell_grad_weights is not None:
@@ -57,6 +61,26 @@ def _divergence_metric(solutions: Dict, feats: Dict, graph) -> torch.Tensor:
     return torch.where(graph.cell_mask[:, None], div, torch.zeros_like(div))
 
 
+def _bundled_step(outputs: Dict, k: int) -> Dict:
+    """Bundled step ``k`` of a forward's outputs: step ``k`` of every tensor
+    of 3 or more dimensions whose key does not start with ``_`` (reference
+    rollout.py:320-335)."""
+    return {key: (v[:, k] if isinstance(v, torch.Tensor) and v.ndim >= 3
+                  and not key.startswith("_") else v)
+            for key, v in outputs.items()}
+
+
+def derive_states(model, outputs: Dict, feats: Dict, graph) -> list:
+    """The states one forward's ``outputs`` predict, through
+    ``model.derive_state``: one, or one per bundled step of a model with
+    ``config.bundle_size`` k > 1 (FvgnC), in their order."""
+    k = int(getattr(model.config, "bundle_size", None) or 1)
+    if k == 1:
+        return [model.derive_state(outputs, feats, graph)]
+    return [model.derive_state(_bundled_step(outputs, j), feats, graph)
+            for j in range(k)]
+
+
 def rollout_scan(model, graph, feats0: Dict[str, torch.Tensor],
                  gt_cell_velocity: Optional[torch.Tensor] = None,
                  gt_cell_pressure: Optional[torch.Tensor] = None,
@@ -64,6 +88,12 @@ def rollout_scan(model, graph, feats0: Dict[str, torch.Tensor],
                  ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """Run ``config.num_steps`` autoregressive steps of ``model`` on its
     device.
+
+    A model with ``config.bundle_size`` k > 1 (FvgnC) predicts k steps per
+    forward: the rollout takes ``num_steps // k`` forwards (at least one),
+    each bundled step is measured against its own ground-truth row and
+    saved, and the last one is fed back. Errors and fields come out on one
+    time axis, the bundled steps in their order.
 
     Args:
         model: a FluidModel.
@@ -81,35 +111,41 @@ def rollout_scan(model, graph, feats0: Dict[str, torch.Tensor],
     """
     if graph.device != model.device:
         raise ValueError(f"graph is on {graph.device}, model on {model.device}")
-    n = max(config.num_steps, 1)
+    bundle = int(getattr(model.config, "bundle_size", None) or 1)
+    n_outer = max(config.num_steps // bundle, 1)
     compute_error = config.compute_error and gt_cell_velocity is not None
-    if compute_error and gt_cell_velocity.shape[0] < n:
+    if compute_error and gt_cell_velocity.shape[0] < n_outer * bundle:
         raise ValueError(f"ground truth has {gt_cell_velocity.shape[0]} steps, "
-                         f"the rollout {n}")
+                         f"the rollout {n_outer * bundle}")
     num_graphs = graph.num_graphs
     ys: Dict[str, list] = {}
+
+    def measure(sol, feats, t, sub_step):
+        # the ground truth is the TARGET: it is the denominator
+        ys.setdefault("velocity_error", []).append(rel_mse_per_graph(
+            sol["cell_velocity"], gt_cell_velocity[t], graph.cell_mask,
+            graph.cell_batch, num_graphs))
+        ys.setdefault("pressure_error", []).append(rel_mse_per_graph(
+            sol["cell_pressure"], gt_cell_pressure[t], graph.cell_mask,
+            graph.cell_batch, num_graphs))
+        div = _divergence_metric(sol, feats, graph, sub_step)
+        ys.setdefault("divergence_error", []).append(mse_per_graph(
+            div, torch.zeros_like(div), graph.cell_mask, graph.cell_batch,
+            num_graphs))
+
     feats = feats0
     with torch.inference_mode():
-        for i in range(n):
-            outputs = model.forward(graph, feats)
-            sol = model.derive_state(outputs, feats, graph)
-            if compute_error:
-                # the ground truth is the TARGET: it is the denominator
-                ys.setdefault("velocity_error", []).append(rel_mse_per_graph(
-                    sol["cell_velocity"], gt_cell_velocity[i], graph.cell_mask,
-                    graph.cell_batch, num_graphs))
-                ys.setdefault("pressure_error", []).append(rel_mse_per_graph(
-                    sol["cell_pressure"], gt_cell_pressure[i], graph.cell_mask,
-                    graph.cell_batch, num_graphs))
-                div = _divergence_metric(sol, feats, graph)
-                ys.setdefault("divergence_error", []).append(mse_per_graph(
-                    div, torch.zeros_like(div), graph.cell_mask,
-                    graph.cell_batch, num_graphs))
+        for i in range(n_outer):
+            subs = derive_states(model, model.forward(graph, feats), feats,
+                                 graph)
+            for k, sol in enumerate(subs):
+                if compute_error:
+                    measure(sol, feats, i * bundle + k, k)
             if config.save_fields:
                 for key in SAVABLE_FIELDS:
-                    if key in sol:
-                        ys.setdefault(key, []).append(sol[key])
-            feats = model.update_features(sol, feats, graph)
+                    if all(key in sol for sol in subs):
+                        ys.setdefault(key, []).extend(sol[key] for sol in subs)
+            feats = model.update_features(subs[-1], feats, graph)
     stacked = {k: torch.stack(v) for k, v in ys.items()}
     errors = {k: v for k, v in stacked.items() if k not in SAVABLE_FIELDS}
     fields = {k: v for k, v in stacked.items() if k in SAVABLE_FIELDS}

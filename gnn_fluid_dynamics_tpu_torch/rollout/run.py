@@ -83,8 +83,10 @@ def rollout_dataset(model, dataset, out_dir: str,
     """Roll ``model`` out over every trajectory of ``dataset``, batched,
     from the first step of ``timestep_range`` (the dataset's range when
     None) for ``(t1 - t0 - 1) // stride`` steps against the ground truth
-    that follows it; write ``errors.json`` (with ``compute_error``) and
-    ``data0.h5`` + ``meta.json`` (with ``save_full``; ``meta`` goes into
+    that follows it (a model bundling k steps per forward predicts the
+    largest multiple of k of them, ``rollout_scan``); write
+    ``errors.json`` (with ``compute_error``) and ``data0.h5`` +
+    ``meta.json`` (with ``save_full``; ``meta`` goes into
     ``meta.json``) into ``out_dir``. Returns the errors, their
     ``error_summary`` scalars, the saved fields, the step count and the
     rollout's seconds."""
@@ -136,8 +138,9 @@ def rollout_dataset(model, dataset, out_dir: str,
     if save_full:
         writer = SimulationWriter(os.path.join(out_dir, "data0.h5"), dataset,
                                   sim_ids)
+        # the steps predicted: num_steps // k * k for a bundle of k
         timesteps = [t0_range[0] + (i + 1) * dataset.stride
-                     for i in range(num_steps)]
+                     for i in range(len(fields["cell_velocity"]))]
         writer.write_fields(
             {k: v for k, v in fields.items() if k != "final_cell_state"},
             timesteps, ground_truth=gt_fields, save_frequency=save_frequency)

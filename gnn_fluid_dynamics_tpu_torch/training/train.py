@@ -171,6 +171,7 @@ def build_model(config, device):
     return cls(ModelConfig(name=m.name, hidden_width=m.hidden_width,
                            mp_num=m.mp_num, aggregation=m.aggregation,
                            compute_dtype=m.compute_dtype,
+                           bundle_size=m.bundle_size,
                            scale_init=m.scale_init,
                            dropout_rate=config.training.dropout_rate,
                            remat=m.remat,

@@ -2,7 +2,7 @@
 
 The JAX package's variables (``{"params": ..., "batch_stats": ...}``, as
 nested dicts of numpy arrays) map onto the state dict of the port's model
-module, e.g. FluxD's and FvgnF's:
+module, e.g. FluxD's, FvgnF's and those of the other ported families:
 
 ==========================================================  ================================================================
 Flax path                                                   torch state-dict key
@@ -11,7 +11,10 @@ Flax path                                                   torch state-dict key
 ``EncodeProcessDecode_0/GNBlock_3/CellBlock_0/MLP_0``          ``epd.blocks.3.cell_block.mlp``
 ``.../LayerNorm_0/scale``                                   ``.../layer_norm.weight``
 ``velocity_scale_x/scale``                                  ``velocity_scale_x.scale``
+``velocity_scale/{scale,bias}`` (FvgnJ)                      ``velocity_scale.{scale,bias}``
+``anisotropy_ratio`` (FvgnK, a scalar)                       ``anisotropy_ratio``
 ``integrator/face_area_norm/MaskedBatchNorm_0/BatchNorm_0``  ``integrator.face_area_norm.masked_batch_norm.batch_norm``
+``face_area_norm/MaskedBatchNorm_0/BatchNorm_0`` (FvgnC)      ``face_area_norm.masked_batch_norm.batch_norm``
 ``.../BatchNorm_0/{scale,bias}`` (params)                   ``.../batch_norm.{weight,bias}``
 ``.../BatchNorm_0/{mean,var}`` (batch_stats)                ``.../batch_norm.{running_mean,running_var}``
 ==========================================================  ================================================================

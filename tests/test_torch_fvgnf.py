@@ -253,11 +253,13 @@ def test_step_scalars_are_one_based():
 
 
 def test_registry():
-    assert sorted(MODEL_REGISTRY) == ["FluxA", "FluxD", "FvgnA", "FvgnF",
-                                      "MgnA", "MgnB", "MgnC"]
+    assert sorted(MODEL_REGISTRY) == [
+        "FluxA", "FluxD", "FvgnA", "FvgnB", "FvgnC", "FvgnD", "FvgnE",
+        "FvgnF", "FvgnH", "FvgnI", "FvgnJ", "FvgnK", "MgnA", "MgnB", "MgnC",
+        "StreamFuncA", "StreamFuncB", "StreamFuncC", "StreamFuncD"]
     assert get_model_class("FvgnF").name == "FvgnF"
     with pytest.raises(KeyError, match="not ported yet"):
-        get_model_class("StreamFuncA")
+        get_model_class("FluxB")
     with pytest.raises(KeyError, match="unknown model"):
         get_model_class("NoSuchModel")
     with pytest.raises(NotImplementedError, match="FluxIntegrator"):

@@ -1,0 +1,384 @@
+"""The port's StreamFunc family (StreamFuncA-D, on MgnB/MgnC) against the JAX
+package's, with the Flax variables carried over by ``params_from_flax``.
+
+* The one-step total log loss of ``tests/test_golden.py`` (the JAX package's
+  ``PRNGKey(7)`` weights, hidden 32, 2 face-first blocks): within 1e-5 of
+  the golden value and of the JAX package's; every loss component within
+  1e-5 relative of JAX's; the port's own statistics within 1e-6 of JAX's.
+* A rollout-mode forward on the RCM-ordered 300-point cylinder mesh (518
+  cells, padded to 640) with order-1 MLS cell weights, f32 plain route:
+  each output within 1e-5 of JAX's, as the largest difference over live
+  rows relative to the output's largest magnitude; and a 3-step rollout's
+  errors within 1e-4 relative.
+* bf16: the velocity is a difference of psi over neighbours, a
+  near-cancelling sum, so two bf16 evaluations part by more than bf16's
+  own rounding (ROADMAP §3, "Traps"). The bf16 kernel route (hidden 128,
+  the fused face-first blocks' plain versions) is therefore held against
+  the port's own f32 model with the same weights: psi's pressure within
+  the bf16 route tolerance of ``test_torch_mgn.py`` (4e-2) and the velocity
+  within BF16_VELOCITY_TOL (see there).
+* The pieces: ``divergence_layer``, ``smoothing_layer`` over the 6
+  neighbours an order-1 stencil keeps, the feedback's INFLOW|WALL clamp,
+  the kernels' order in a block, and the registry of 19 names.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gnn_fluid_dynamics_tpu.data.synthetic import (channel_flow_trajectory,
+                                                   make_geometry,
+                                                   taylor_green_trajectory)
+from gnn_fluid_dynamics_tpu.graph import from_geometry as jax_from_geometry
+from gnn_fluid_dynamics_tpu.models import get_model_class as jax_model_class
+from gnn_fluid_dynamics_tpu.models import normalizer as jax_norm
+from gnn_fluid_dynamics_tpu.models import streamfunc as jax_sf
+from gnn_fluid_dynamics_tpu.models.base import ModelConfig as JaxModelConfig
+from gnn_fluid_dynamics_tpu.models.base import feature_masks as jax_masks
+from gnn_fluid_dynamics_tpu.ops import mls as jax_mls
+from gnn_fluid_dynamics_tpu.ops.reorder import rcm_reorder_geometry
+from gnn_fluid_dynamics_tpu.rollout import engine as jax_engine
+from test_golden import GOLDEN
+from test_models import LOSS_WEIGHTS, make_model
+
+from gnn_fluid_dynamics_tpu_torch.data.node_types import NodeType
+from gnn_fluid_dynamics_tpu_torch.graph import from_geometry, to_static_bands
+from gnn_fluid_dynamics_tpu_torch.models import streamfunc
+from gnn_fluid_dynamics_tpu_torch.models.base import ModelConfig, feature_masks
+from gnn_fluid_dynamics_tpu_torch.models.normalizer import StatsAccumulator
+from gnn_fluid_dynamics_tpu_torch.models.registry import (JAX_MODEL_NAMES,
+                                                          MODEL_REGISTRY,
+                                                          get_model_class)
+from gnn_fluid_dynamics_tpu_torch.ops import kernels
+from gnn_fluid_dynamics_tpu_torch.rollout import engine
+from gnn_fluid_dynamics_tpu_torch.weights import params_from_flax
+
+VARIANTS = ("StreamFuncA", "StreamFuncB", "StreamFuncC", "StreamFuncD")
+HIDDEN, MP, STEPS = 32, 2, 3
+GOLDEN_ATOL, LOSS_RTOL = 1e-5, 1e-5
+F32_TOL, ROLLOUT_RTOL = 1e-5, 1e-4
+KERNEL_HIDDEN = 128
+BF16_TOL = 4e-2
+# bf16 against f32 on psi's curl: psi's bf16 rounding (2**-8 of its
+# magnitude) survives the difference over neighbours while psi's smooth part
+# cancels, so the velocity's error is relative to psi, not to itself
+# (measured 0.040 for StreamFuncA and 0.026 for StreamFuncD on this mesh;
+# 0.54 for StreamFuncC, whose inputs are not normalized, so it is not held
+# here)
+BF16_VELOCITY_TOL = 0.1
+OUTPUTS = ("cell_velocity", "cell_pressure")
+
+
+def _stats_floats(stats):
+    return {k: {s: float(v) for s, v in d.items()} for k, d in stats.items()}
+
+
+def _rel(got, want, mask=None):
+    got = np.asarray(got.detach() if isinstance(got, torch.Tensor) else got,
+                     np.float64)
+    want = np.asarray(want, np.float64)
+    if mask is not None:
+        got, want = got[mask], want[mask]
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def _with_mls(geom, fields):
+    out = dict(fields)
+    nb, w = jax_mls.compute_mls_weights(geom["cell_pos"], 1)
+    out.update(cell_grad_weights=w, cell_grad_neighbours=nb)
+    return out
+
+
+def _own_stats(model, graph):
+    _, feats = model.transform_rollout(graph)
+    acc = StatsAccumulator(model.nmap)
+    acc.update(feats, feature_masks(graph, feats))
+    return acc.finalize()
+
+
+# ---- the golden one-step losses ------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _golden_graphs():
+    """``test_models.build_graph(grad_weights=True)``'s cell weights, for
+    both packages."""
+    geom = make_geometry("structured", nx=6, ny=4)
+    fields = _with_mls(geom, taylor_green_trajectory(geom, num_timesteps=3,
+                                                     dt=0.01))
+    return (jax_from_geometry(geom, fields, dt=0.01, pad_multiple=32),
+            from_geometry(geom, fields, dt=0.01, pad_multiple=32,
+                          device="cpu"))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_golden(name):
+    gj, _ = _golden_graphs()
+    jm = make_model(name, gj)
+    tg, feats = jm.transform_features(gj, None, mode="train")
+    return jm, jm.init(jax.random.PRNGKey(7), tg, feats)
+
+
+@pytest.mark.parametrize("name", VARIANTS)
+def test_golden_one_step_loss(name):
+    gj, gt = _golden_graphs()
+    jm, variables = _jax_golden(name)
+    tm = get_model_class(name)(
+        ModelConfig(name=name, hidden_width=HIDDEN, mp_num=MP,
+                    aggregation="segment"),
+        device="cpu", loss_weights=LOSS_WEIGHTS)
+    tm.set_stats(_stats_floats(jm.stats))
+    tm.module.load_state_dict(params_from_flax(variables))
+    tgj, fj = jm.transform_features(gj, None, mode="train")
+    ls_j = jm.loss(jm.forward(variables, tgj, fj, mode="train")[0], fj, tgj)
+    tgt, ft = tm.transform_features(gt, None, mode="train")
+    with torch.no_grad():
+        ls_t = tm.loss(tm.forward(tgt, ft, mode="train"), ft, tgt)
+    total = ls_t["total_log_loss"].item()
+    assert abs(total - GOLDEN[name]) <= GOLDEN_ATOL
+    assert abs(total - float(ls_j["total_log_loss"])) <= GOLDEN_ATOL
+    assert set(ls_t) == set(ls_j)
+    for k in ls_j:
+        assert _rel(ls_t[k].item(), ls_j[k]) <= LOSS_RTOL, k
+    stats = _own_stats(tm, gt)
+    assert set(stats) == set(jm.stats)
+    for key, st in stats.items():
+        for s, v in st.items():
+            np.testing.assert_allclose(v, float(jm.stats[key][s]), rtol=1e-6,
+                                       atol=1e-12, err_msg=f"{key}/{s}")
+
+
+# ---- the cylinder mesh -----------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def cylinder():
+    geom = rcm_reorder_geometry(make_geometry("cylinder", n_points=300, seed=0))
+    fields = channel_flow_trajectory(geom, num_timesteps=STEPS + 2, dt=0.01)
+    window = _with_mls(geom, {k: v[:2] for k, v in fields.items()})
+    kw = dict(dt=0.01, pad_multiple=128)
+    pad = ((0, 0), (0, 640 - geom["cell_pos"].shape[0]), (0, 0))
+    gv = np.pad(fields["cell_velocity"][1:STEPS + 1], pad)
+    gp = np.pad(fields["cell_pressure"][1:STEPS + 1], pad)
+    return (jax_from_geometry(geom, window, **kw),
+            from_geometry(geom, window, device="cpu", **kw), gv, gp)
+
+
+def _rollout_models(cylinder, name):
+    gj, gt, _, _ = cylinder
+    cfg = dict(name=name, hidden_width=HIDDEN, mp_num=MP,
+               aggregation="segment")
+    jm = jax_model_class(name)(JaxModelConfig(**cfg))
+    _, jfeats = jm.transform_features(gj, None, "rollout")
+    acc = jax_norm.StatsAccumulator(jm.nmap)
+    acc.update(jfeats, jax_masks(gj, jfeats))
+    jm.set_stats(acc.finalize())
+    variables = _jax_golden(name)[1]
+    tm = get_model_class(name)(ModelConfig(**cfg), device="cpu")
+    tm.set_stats(_own_stats(tm, gt))
+    tm.module.load_state_dict(params_from_flax(variables))
+    _, tfeats = tm.transform_rollout(gt)
+    return jm, variables, jfeats, tm, tfeats
+
+
+@pytest.mark.parametrize("name", VARIANTS)
+def test_rollout_forward_matches_jax(cylinder, name):
+    gj, gt, _, _ = cylinder
+    jm, variables, jfeats, tm, tfeats = _rollout_models(cylinder, name)
+    jout, _ = jm.forward(variables, gj, jfeats, mode="rollout")
+    with torch.no_grad():
+        tout = tm.forward(gt, tfeats)
+    assert set(tout) == set(jout)
+    cm = gt.cell_mask.numpy()
+    for key in OUTPUTS + (("cell_potential",) if name == "StreamFuncD" else ()):
+        assert _rel(tout[key], jout[key], cm) <= F32_TOL, key
+
+
+@pytest.mark.parametrize("name", ["StreamFuncA", "StreamFuncC"])
+def test_rollout_errors_match_jax(cylinder, name):
+    """3 f32 steps with the error metrics (the MLS divergence of the
+    predicted velocity) and the INFLOW|WALL feedback."""
+    gj, gt, gv, gp = cylinder
+    jm, variables, jfeats, tm, tfeats = _rollout_models(cylinder, name)
+    err_j, fields_j = jax_engine.rollout_scan(
+        jm, variables, gj, jfeats, jnp.asarray(gv), jnp.asarray(gp),
+        jax_engine.RolloutConfig(num_steps=STEPS))
+    err_t, fields_t = engine.rollout_scan(
+        tm, gt, tfeats, torch.from_numpy(gv), torch.from_numpy(gp),
+        engine.RolloutConfig(num_steps=STEPS))
+    assert set(err_t) == set(err_j)
+    for k, want in err_j.items():
+        assert float(np.abs(want).min()) > 0, k
+        np.testing.assert_allclose(err_t[k].numpy(), np.asarray(want),
+                                   rtol=ROLLOUT_RTOL, err_msg=k)
+    assert _rel(fields_t["final_cell_state"], fields_j["final_cell_state"],
+                gt.cell_mask.numpy()) <= ROLLOUT_RTOL
+
+
+def _kernel_pair(graph, name):
+    """``name`` at hidden 128 on the kernel route in bf16, and the same
+    weights and statistics on the plain route in f32."""
+    cfg = ModelConfig(name=name, hidden_width=KERNEL_HIDDEN, mp_num=MP,
+                      aggregation="pallas", compute_dtype="bfloat16")
+    kern = get_model_class(name)(cfg, device="cpu")
+    ref = get_model_class(name)(ModelConfig(
+        name=name, hidden_width=KERNEL_HIDDEN, mp_num=MP,
+        aggregation="segment"), device="cpu")
+    stats = _own_stats(kern, graph)
+    kern.set_stats(stats)
+    ref.set_stats(stats)
+    ref.module.load_state_dict(kern.module.state_dict())
+    return kern, ref
+
+
+@functools.lru_cache(maxsize=None)
+def _fused_graph():
+    """The cylinder mesh with its banded tables and index vectors: the
+    fused blocks' route."""
+    geom = rcm_reorder_geometry(make_geometry("cylinder", n_points=300, seed=0))
+    fields = _with_mls(geom, channel_flow_trajectory(geom, num_timesteps=2,
+                                                     dt=0.01))
+    return to_static_bands(from_geometry(geom, fields, dt=0.01,
+                                         pad_multiple=128, with_banded=True,
+                                         banded_dtype="bfloat16",
+                                         device="cpu"))
+
+
+@pytest.mark.parametrize("name", ["StreamFuncA", "StreamFuncD"])
+def test_bf16_kernel_route_against_the_f32_model(name):
+    graph = _fused_graph()
+    kern, ref = _kernel_pair(graph, name)
+    _, feats = kern.transform_rollout(graph)
+    with torch.no_grad():
+        got = kern.forward(graph, feats)
+        want = ref.forward(graph, feats)
+    cm = graph.cell_mask.numpy()
+    assert _rel(got["cell_pressure"], want["cell_pressure"], cm) <= BF16_TOL
+    assert (_rel(got["cell_velocity"], want["cell_velocity"], cm)
+            <= BF16_VELOCITY_TOL)
+
+
+def test_kernel_route_order_is_face_first(monkeypatch):
+    """On the fused route each block calls K1 with both outputs, then K3 on
+    its raw output, then K2 with the residual only, as MgnA does."""
+    graph = _fused_graph()
+    kern, _ = _kernel_pair(graph, "StreamFuncA")
+    _, feats = kern.transform_rollout(graph)
+    log = []
+    for name in ("fused_face_block", "fused_cell_block", "edges_to_vertices",
+                 "gather_face_cells", "vertices_to_cells", "table_dual",
+                 "table_single"):
+        fn = getattr(kernels, name)
+
+        def call(*args, _name=name, _fn=fn, **kw):
+            log.append(_name + (":dual" if kw.get("dual_out") else ""))
+            return _fn(*args, **kw)
+        monkeypatch.setattr(kernels, name, call)
+    with torch.no_grad():
+        kern.forward(graph, feats)
+    assert log == ["fused_face_block:dual", "edges_to_vertices",
+                   "fused_cell_block"] * MP
+
+
+# ---- the pieces -------------------------------------------------------------------
+
+def _stencil():
+    geom = make_geometry("structured", nx=9, ny=5, jitter=0.2, seed=3)
+    nb, w = jax_mls.compute_mls_weights(geom["cell_pos"], 1)
+    psi = np.random.default_rng(7).normal(size=nb.shape[0]).astype(np.float32)
+    return psi, w, nb
+
+
+def test_divergence_layer_matches_jax():
+    psi, w, nb = _stencil()
+    want = jax_sf.divergence_layer(jnp.asarray(psi), jnp.asarray(w),
+                                   jnp.asarray(nb))
+    got = streamfunc.divergence_layer(torch.from_numpy(psi),
+                                      torch.from_numpy(w), torch.from_numpy(nb))
+    assert got.shape == (psi.shape[0], 2)
+    assert _rel(got, want) <= 1e-6
+
+
+def test_smoothing_layer_means_over_the_six_neighbours():
+    """An order-1 stencil keeps 6 neighbours, so ``[:, :8]`` is a mean over
+    those 6, as in the JAX package; not padded to 8."""
+    psi, _, nb = _stencil()
+    assert nb.shape[1] == 6
+    got = streamfunc.smoothing_layer(torch.from_numpy(psi[:, None]),
+                                     torch.from_numpy(nb), k=8)
+    want = jax_sf.smoothing_layer(jnp.asarray(psi[:, None]), jnp.asarray(nb),
+                                  k=8)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-7)
+    np.testing.assert_allclose(got.numpy(), psi[nb].sum(1) / 6, rtol=1e-6,
+                               atol=1e-7)
+
+
+def test_streamfuncd_smoothness_term():
+    """StreamFuncD's extra term: the mean square over live cells of psi's
+    4-neighbour Laplacian, weighted 0.1 inside the log."""
+    gj, gt = _golden_graphs()
+    jm, variables = _jax_golden("StreamFuncD")
+    tm = get_model_class("StreamFuncD")(
+        ModelConfig(hidden_width=HIDDEN, mp_num=MP), device="cpu",
+        loss_weights=LOSS_WEIGHTS)
+    tm.set_stats(_stats_floats(jm.stats))
+    tm.module.load_state_dict(params_from_flax(variables))
+    tgt, ft = tm.transform_features(gt, None, mode="train")
+    with torch.no_grad():
+        out = tm.forward(tgt, ft, mode="train")
+        ls = tm.loss(out, ft, tgt)
+    psi = out["cell_potential"].reshape(-1).double()
+    nb = gt.cell_grad_neighbours[:, :4].long()
+    lap = (psi[nb].mean(1) - psi)[gt.cell_mask]
+    smooth = float((lap ** 2).mean())
+    assert ls["potential_smoothness_loss"].item() == pytest.approx(smooth,
+                                                                   rel=1e-5)
+    total = (LOSS_WEIGHTS["cell_velocity"] * ls["cell_velocity_loss"].item()
+             + LOSS_WEIGHTS["cell_pressure"] * ls["cell_pressure_loss"].item()
+             + 0.1 * smooth)
+    assert ls["total_log_loss"].item() == pytest.approx(np.log(total),
+                                                        rel=1e-5)
+
+
+def test_feedback_clamps_inflow_and_wall_faces_only(cylinder):
+    """StreamFunc's feedback clamps INFLOW|WALL faces to their targets and
+    keeps the predicted Δv on OUTFLOW faces (MGN clamps its full boundary
+    mask); as the JAX package's."""
+    gj, gt, _, _ = cylinder
+    jm = jax_model_class("StreamFuncA")(JaxModelConfig(hidden_width=8,
+                                                       mp_num=1))
+    tm = get_model_class("StreamFuncA")(ModelConfig(hidden_width=8, mp_num=1),
+                                        device="cpu")
+    _, jfeats = jm.transform_features(gj, None, "rollout")
+    _, tfeats = tm.transform_rollout(gt)
+    v = np.random.default_rng(8).normal(size=(gt.num_cells, 2)).astype(
+        np.float32)
+    want = jm.update_features({"cell_velocity": jnp.asarray(v)}, jfeats, gj)
+    got = tm.update_features({"cell_velocity": torch.from_numpy(v)}, tfeats,
+                             gt)
+    np.testing.assert_allclose(got["face_x"].numpy(),
+                               np.asarray(want["face_x"]), rtol=1e-6,
+                               atol=1e-6)
+    ft = gt.face_type.reshape(-1)
+    outflow = ft == NodeType.OUTFLOW
+    clamped = (ft == NodeType.INFLOW) | (ft == NodeType.WALL_BOUNDARY)
+    assert outflow.any() and clamped.any()
+    dv = v[gt.cell_edge_index[0]] - v[gt.cell_edge_index[1]]
+    np.testing.assert_array_equal(got["face_x"][outflow, :2].numpy(),
+                                  dv[outflow.numpy()])
+    np.testing.assert_array_equal(got["face_x"][clamped, :2].numpy(),
+                                  tfeats["face_y"][clamped, :2].numpy())
+
+
+def test_registry_holds_nineteen_names():
+    assert len(MODEL_REGISTRY) == 19
+    assert set(MODEL_REGISTRY) <= set(JAX_MODEL_NAMES)
+    for name in VARIANTS:
+        cls = get_model_class(name)
+        assert cls.name == name and cls.cell_grad_weights_use
+        assert cls.block_order(cls.__new__(cls)) == "face_first"
+    with pytest.raises(KeyError, match="not ported yet"):
+        get_model_class("FluxB")
