@@ -2,8 +2,9 @@
 each against its plain PyTorch version, run the FluxD and FvgnF rollouts,
 the trainer's validation rollout of FluxD, FluxD's training, the rollout
 entry point, the MGN family, the rest of the FVGN family (temporal
-bundling included) and the StreamFunc family at their shipped width
-through them, and report each kernel's time beside its bound.
+bundling included), the StreamFunc family, the rest of the Flux family and
+the VertPot family at their shipped width through them, and report each
+kernel's time beside its bound.
 
     python3 chip_smoke.py
 
@@ -119,6 +120,20 @@ Phases (each prints one flushed line; any failure exits non-zero):
    * 7e StreamFuncA through ``rollout.run``'s two halves on a checkpoint
      the port writes: LAUNCH_STEPS steps with the error metrics, K1-K3 15 a
      step, its errors held against the plain route's;
+
+8. the rest of the Flux family and the VertPot family, on phase 7's mesh:
+
+   * 8a each of FluxA, FluxB, FluxC and VertPotA-G as 7a: the kernels'
+     order in a block Flux K3 -> K2 dual -> K1, VertPot K3 -> K2 dual -> K1
+     dual (its vertex sum reads K1's raw output), K1-K3 15 a step;
+   * 8b FluxA and VertPotA timed and profiled as 7b; VertPotA's
+     ``divergence_raw_error`` within (RAW_DIVERGENCE_ULPS x its largest raw
+     flux)^2 (see there) over CHECK_STEPS steps, while its
+     ``divergence_error`` is the z-score inverse's (3 x mean face flux)^2;
+   * 8c VertPotA's ``validate`` on FluxD-valid's batch on the table route
+     (K6 30, K7 15 a step) for P8_VALID_STEPS steps, beside its index and
+     plain routes, per-trajectory mean errors within P8_VALID_TOL;
+   * 8d FluxA and VertPotA, P8_TRAIN_STEPS train steps each as 7d;
 
 then the ``kernels`` line: per kernel its time per launch, launches, bound,
 plain time and library time (K3 and K5 also the pair's time and the launch
@@ -255,6 +270,26 @@ FVGNC_LOSS_WINDOW = 5
 # a psi whose curl is ~1/h times too large, and a free-running rollout
 # then parts the two routes' bf16 roundings within a few steps
 SF_TRAIN_STEPS = 20
+# phase 8: the rest of the Flux family and the VertPot family
+FLUX_VARIANTS = ("FluxA", "FluxB", "FluxC")
+VERTPOT_VARIANTS = ("VertPotA", "VertPotB", "VertPotC", "VertPotD",
+                    "VertPotE", "VertPotF", "VertPotG")
+P8_TIMED_PATHS = ("FluxA", "VertPotA")                 # 8b
+P8_VALID_STEPS = 3          # 8c: VertPotA's validation steps
+# 8c: the routes' per-trajectory mean errors over P8_VALID_STEPS steps of
+# the 27,392-cell batch, relative: the bf16 latents of either kernel route
+# move a mean over that many cells far less than one field's largest
+# difference (measured on the CPU with the plain versions: up to 0.72 %;
+# 7c's FvgnC keeps STEP_TOL)
+P8_VALID_TOL = 1e-2
+P8_TRAIN_STEPS = 10         # 8d, each of FluxA and VertPotA
+P8_LOSS_WINDOW = 5
+# 8b: VertPotA's divergence of the raw telescoped cell flux. Each cell's
+# three fluxes are f32 differences of the same three potentials, each
+# within half an ulp of its result, and their sum adds two more roundings:
+# at most about 3 x 2^-23 of the largest raw flux per cell. The limit on
+# its mean square is (2^-20 max|raw flux|)^2, eight times that bound.
+RAW_DIVERGENCE_ULPS = 2.0 ** -20
 
 KERNELS = {
     "K1_fused_face_block": dict(
@@ -321,6 +356,11 @@ PATHS.update({name: (get_model_class(name), _FUSED_PER_STEP)
 PATHS["FvgnC-valid"] = (get_model_class("FvgnC"),
                         {"K6_table_dual": 2 * MP_NUM,
                          "K7_table_single": MP_NUM})
+PATHS.update({name: (get_model_class(name), _FUSED_PER_STEP)
+              for name in FLUX_VARIANTS + VERTPOT_VARIANTS})
+PATHS["VertPotA-valid"] = (get_model_class("VertPotA"),
+                           {"K6_table_dual": 2 * MP_NUM,
+                            "K7_table_single": MP_NUM})
 ROLLOUT_PATHS = ("FluxD", "FvgnF", "FluxD-valid")      # phase 3
 # the kernel wrappers a GN block calls, per block application, in order
 # (":dual" K1/K2 with both outputs, ":roll" K6 on es/er with the roll)
@@ -332,6 +372,11 @@ BLOCK_ORDER = {
               "fused_face_block"] for name in FVGN_VARIANTS},
     **{name: ["fused_face_block:dual", "edges_to_vertices",
               "fused_cell_block"] for name in STREAMFUNC_VARIANTS},
+    **{name: ["edges_to_vertices", "fused_cell_block:dual",
+              "fused_face_block"] for name in FLUX_VARIANTS},
+    # VertPot's vertex sum reads each block's raw face output
+    **{name: ["edges_to_vertices", "fused_cell_block:dual",
+              "fused_face_block:dual"] for name in VERTPOT_VARIANTS},
 }
 
 
@@ -1828,10 +1873,10 @@ def check_launches(path: str, launches: dict, forwards: int) -> None:
                  f"expected {want}")
 
 
-def variant_phase(name: str, graph):
-    """Phase 7a for one variant: CHECK_STEPS forwards of the kernel route
-    held against the plain route on the same inputs (every bundled step),
-    the kernels' order in a block application, then a rollout of
+def variant_phase(name: str, graph, phase: str = "7a"):
+    """Phase 7a (8a) for one variant: CHECK_STEPS forwards of the kernel
+    route held against the plain route on the same inputs (every bundled
+    step), the kernels' order in a block application, then a rollout of
     LAUNCH_STEPS predicted steps with the counters set to 0 just before and
     read just after. Returns (the path's record, the kernel-route model,
     its features)."""
@@ -1851,7 +1896,7 @@ def variant_phase(name: str, graph):
     if not torch.isfinite(out["final_cell_state"]).all():
         fail(f"{name}: non-finite final state")
     check_launches(name, launches, forwards)
-    say(f"phase 7a {name} kernel vs plain route, {CHECK_STEPS} forwards on "
+    say(f"phase {phase} {name} kernel vs plain route, {CHECK_STEPS} forwards on "
         f"the same inputs, within {tol}: ok " + json.dumps(
             {n: {k: round(v, 6) for k, v in f.items()}
              for n, f in worst.items()})
@@ -1861,8 +1906,9 @@ def variant_phase(name: str, graph):
     return {"launches": launches, "rollout_steps": forwards}, kern, feats
 
 
-def timed_variant(name: str, kern, graph, feats, device_line: str) -> dict:
-    """Phase 7b: a STEPS-forward rollout of the kernel route on 3b's clock
+def timed_variant(name: str, kern, graph, feats, device_line: str,
+                  phase: str = "7b") -> dict:
+    """Phase 7b (8b): a STEPS-forward rollout of the kernel route on 3b's clock
     (no error metrics, ending in a synchronize), the counters set to 0 just
     before and read just after; then a device profile of 10 forwards. A
     bundling model is reported per forward and per predicted step."""
@@ -1878,12 +1924,12 @@ def timed_variant(name: str, kern, graph, feats, device_line: str) -> dict:
         f" = {STEPS * k / wall:.1f} predicted steps/s, "
         f"{1e3 * wall / (STEPS * k):.4f} ms per predicted step ({k} a "
         "forward)")
-    say(f"phase 7b {name} h{H} mp{MP_NUM} bf16, {graph.num_cells} cells "
+    say(f"phase {phase} {name} h{H} mp{MP_NUM} bf16, {graph.num_cells} cells "
         f"{graph.num_faces} faces: {STEPS} forwards in {wall:.4f} s = "
         f"{STEPS / wall:.1f} forwards/s, {1e3 * wall / STEPS:.4f} ms per "
         f"forward{per_step}; launches {json.dumps(launches)}; card "
         f"{device_line}")
-    say(f"phase 7b {name} device profile of 10 forwards"
+    say(f"phase {phase} {name} device profile of 10 forwards"
         + ("" if k == 1 else f" ({10 * k} predicted steps)") + ": "
         + ("not measured" if prof is None else json.dumps(prof)))
     return {"launches": launches, "rollout_steps": STEPS,
@@ -1893,28 +1939,38 @@ def timed_variant(name: str, kern, graph, feats, device_line: str) -> dict:
 
 def fvgnc_valid_phase(ds):
     """Phase 7c: FvgnC on FluxD-valid's meshes as the trainer validates a
-    bundling model (rollout stride BUNDLE, window BUNDLE + 1, int8 tables):
-    ``validate`` for VALID_FORWARDS forwards on the table route (K6 30 and
-    K7 15 launches a forward, counted around it), the same rollout of the
-    batch on the index route (the fused K1-K3, counted around it) and on
-    the plain route; each trajectory's mean velocity and pressure errors
-    within STEP_TOL of each other (relative). Returns the two routes'
-    records."""
+    bundling model (rollout stride BUNDLE, window BUNDLE + 1, int8 tables),
+    through ``routes_validation`` for VALID_FORWARDS forwards within
+    STEP_TOL. Returns the two routes' records."""
     dsc = MeshDataset(ds.trajectories, stride=BUNDLE, data_window=BUNDLE + 1,
                       with_banded=True, banded_dtype="int8", pad_multiple=128,
                       device=ds.device)
+    return routes_validation(
+        "FvgnC-valid", "FvgnC", dsc, VALID_FORWARDS, BUNDLE, STEP_TOL, "7c",
+        f"FvgnC (k {BUNDLE}) on FluxD-valid's meshes, stride {BUNDLE}")
+
+
+def routes_validation(path: str, index_path: str, dsc, forwards: int,
+                      bundle: int, tol: float, phase: str, label: str):
+    """``path``'s model on the validation set ``dsc`` (int8 tables):
+    ``validate`` for ``forwards`` forwards (``bundle`` predicted steps each) on
+    the table route (K6 30 and K7 15 launches a forward, counted around
+    it), the same rollout of the batch on the index route (the fused K1-K3
+    of ``index_path``, counted around it) and on the plain route; each
+    trajectory's mean velocity and pressure errors within ``tol`` of each
+    other (relative). Returns the two kernel routes' records."""
     samples = rollout_batch(dsc)
     table = to_static_bands(dsc.get_batch(samples), derive_idx=False)
     index = to_static_bands(table, derive_idx=True)
-    kern, plain, _ = path_models("FvgnC-valid", table)
-    n = VALID_FORWARDS * BUNDLE
+    kern, plain, _ = path_models(path, table)
+    n = forwards * bundle
     zero_launches()
     flat = validate(kern, dsc, n)
     torch.cuda.synchronize()
     table_launches = launch_counts()
-    check_launches("FvgnC-valid", table_launches, VALID_FORWARDS)
+    check_launches(path, table_launches, forwards)
     if not all(np.isfinite(v) for v in flat.values()):
-        fail(f"FvgnC-valid validate: non-finite {flat}")
+        fail(f"{path} validate: non-finite {flat}")
     errors = {"table": validation_errors(kern, dsc, n),
               "plain": validation_errors(plain, dsc, n)}
     gt_v, gt_p = dsc.trajectory_targets([m for m, _ in samples],
@@ -1925,7 +1981,7 @@ def fvgnc_valid_phase(ds):
                                       RolloutConfig(num_steps=n))
     torch.cuda.synchronize()
     index_launches = launch_counts()
-    check_launches("FvgnC", index_launches, VALID_FORWARDS)
+    check_launches(index_path, index_launches, forwards)
     means = {route: {f"{sid}/{k}": float(e[k][:, i].mean())
                      for i, sid in enumerate(dsc.sim_ids())
                      for k in ("velocity_error", "pressure_error")}
@@ -1933,71 +1989,79 @@ def fvgnc_valid_phase(ds):
     for route, e in errors.items():
         if e["velocity_error"].shape[0] != n or not all(
                 torch.isfinite(v).all() for v in e.values()):
-            fail(f"FvgnC-valid, {route} route: errors {e}")
+            fail(f"{path}, {route} route: errors {e}")
     rel = {}
     for a, b in (("table", "index"), ("table", "plain")):
         for key, want in means[b].items():
             r = abs(means[a][key] - want) / abs(want)
             rel[f"{a}_vs_{b}/{key}"] = r
-            if r > STEP_TOL:
-                fail(f"FvgnC-valid: {key} {means[a][key]} ({a}) vs {want} "
-                     f"({b}), {r:.3g} > {STEP_TOL}")
-    say(f"phase 7c FvgnC (k {BUNDLE}) on FluxD-valid's meshes, stride "
-        f"{BUNDLE}, {table.num_cells} cells: validate({n} steps, "
-        f"{VALID_FORWARDS} forwards) on the table route, launches "
+            if r > tol:
+                fail(f"{path}: {key} {means[a][key]} ({a}) vs {want} "
+                     f"({b}), {r:.3g} > {tol}")
+    say(f"phase {phase} {label}, {table.num_cells} cells: validate({n} "
+        f"steps, {forwards} forwards) on the table route, launches "
         + json.dumps(table_launches) + "; on the index route, launches "
         + json.dumps(index_launches) + "; per-trajectory mean errors within "
-        f"{STEP_TOL}: ok " + json.dumps({k: round(v, 6) for k, v in
-                                        rel.items()}) + " " + json.dumps(means))
-    return ({"launches": table_launches, "rollout_steps": VALID_FORWARDS},
-            {"launches": index_launches, "rollout_steps": VALID_FORWARDS})
+        f"{tol}: ok " + json.dumps({k: round(v, 6) for k, v in
+                                   rel.items()}) + " " + json.dumps(means))
+    return ({"launches": table_launches, "rollout_steps": forwards},
+            {"launches": index_launches, "rollout_steps": forwards})
 
 
 def fvgnc_training(train_ds, device_line: str) -> dict:
-    """Phase 7d: FVGNC_TRAIN_STEPS ``Trainer.train_step`` calls of FvgnC
-    (k BUNDLE, h128, 15 blocks, bf16, ``config/train.json``'s optimizer and
-    noise) on one batch of 4 bundled windows (BUNDLE + 1 states) of phase
-    5's trajectories: every loss term finite, the mean total of the last
-    FVGNC_LOSS_WINDOW steps below the first's, no kernel launched."""
-    ds = MeshDataset(train_ds.trajectories, data_window=BUNDLE + 1,
-                     timestep_range=(0, FVGNC_TRAIN_STEPS),
-                     device=train_ds.device)
-    cfg = train_config("FvgnC", FVGNC_TRAIN_STEPS)
-    cfg.model.bundle_size = BUNDLE
+    """Phase 7d: ``train_steps`` of FvgnC (k BUNDLE) on bundled windows
+    (BUNDLE + 1 states)."""
+    return train_steps("FvgnC", train_ds, device_line, "7d",
+                       FVGNC_TRAIN_STEPS, FVGNC_LOSS_WINDOW, bundle=BUNDLE)
+
+
+def train_steps(name: str, train_ds, device_line: str, phase: str,
+                steps: int, window: int, bundle=None) -> dict:
+    """``steps`` ``Trainer.train_step`` calls of ``name`` (h128, 15 blocks,
+    bf16, ``config/train.json``'s optimizer and noise; with ``bundle`` k, on
+    windows of k + 1 states) on one batch of 4 windows of phase 5's
+    trajectories: every loss term finite, the mean total of the last
+    ``window`` steps below the first's, no kernel launched."""
+    states = (bundle or 1) + 1
+    ds = MeshDataset(train_ds.trajectories, data_window=states,
+                     timestep_range=(0, steps), device=train_ds.device)
+    cfg = train_config(name, steps)
+    cfg.model.bundle_size = bundle
     trainer, state = build_trainer(cfg, ds)
     t = cfg.training
     batch = ds.get_batch(next(iter(get_sampler(cfg.dataset.sampler)(
         ds, t.batch_size, np.random.default_rng(0)))))
-    if tuple(batch.cell_velocity.shape[1:]) != (BUNDLE + 1, 2):
-        fail(f"FvgnC training: windows {tuple(batch.cell_velocity.shape)}")
+    if tuple(batch.cell_velocity.shape[1:]) != (states, 2):
+        fail(f"{name} training: windows {tuple(batch.cell_velocity.shape)}")
     zero_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    steps = [trainer.train_step(state, batch, t.lr_max)
-             for _ in range(FVGNC_TRAIN_STEPS)]
+    results = [trainer.train_step(state, batch, t.lr_max)
+               for _ in range(steps)]
     torch.cuda.synchronize()
-    ms = 1e3 * (time.perf_counter() - t0) / FVGNC_TRAIN_STEPS
+    ms = 1e3 * (time.perf_counter() - t0) / steps
     launches = launch_counts()
     if any(launches.values()):
-        fail(f"FvgnC training launched kernels {launches}")
-    losses = {k: [float(s[k]) for s in steps] for k in steps[0]}
+        fail(f"{name} training launched kernels {launches}")
+    losses = {k: [float(r[k]) for r in results] for k in results[0]}
     if not all(np.isfinite(v).all() for v in losses.values()):
-        fail(f"FvgnC training: losses {losses}")
+        fail(f"{name} training: losses {losses}")
     total = losses["total_log_loss"]
-    first = float(np.mean(total[:FVGNC_LOSS_WINDOW]))
-    last = float(np.mean(total[-FVGNC_LOSS_WINDOW:]))
+    first = float(np.mean(total[:window]))
+    last = float(np.mean(total[-window:]))
     if not last < first:
-        fail(f"FvgnC training: mean loss of the last {FVGNC_LOSS_WINDOW} "
-             f"steps {last} not below the first {FVGNC_LOSS_WINDOW} {first}")
-    say(f"phase 7d FvgnC (k {BUNDLE}) h{H} mp{MP_NUM} bf16 batch "
-        f"{t.batch_size} of bundled windows, {FVGNC_TRAIN_STEPS} train "
-        f"steps: ok, no kernel launched; mean total loss of the first "
-        f"{FVGNC_LOSS_WINDOW} {first:.6f}, of the last {last:.6f}; {ms:.3f} "
+        fail(f"{name} training: mean loss of the last {window} steps {last} "
+             f"not below the first {window} {first}")
+    kind = "windows" if bundle is None else "bundled windows"
+    say(f"phase {phase} {name}" + ("" if bundle is None else f" (k {bundle})")
+        + f" h{H} mp{MP_NUM} bf16 batch {t.batch_size} of {kind}, {steps} "
+        f"train steps: ok, no kernel launched; mean total loss of the first "
+        f"{window} {first:.6f}, of the last {last:.6f}; {ms:.3f} "
         "ms per step (host clock, the batch assembled beforehand); losses "
         "by term " + json.dumps({k: [round(x, 6) for x in v]
                                  for k, v in losses.items()})
         + f"; card {device_line}")
-    return {"launches": launches, "rollout_steps": FVGNC_TRAIN_STEPS,
+    return {"launches": launches, "rollout_steps": steps,
             "ms_per_step": ms, "loss_first": first, "loss_last": last}
 
 
@@ -2113,6 +2177,93 @@ def families_phase(dev, ds, train_ds, line: str) -> dict:
     return paths
 
 
+# ---- phase 8: the rest of the Flux family and the VertPot family -------------
+
+def raw_divergence_check(kern, graph, device_line: str) -> dict:
+    """Phase 8b for VertPotA: a CHECK_STEPS-step rollout of the kernel route
+    with the error metrics against the channel flow. Its
+    ``divergence_raw_error`` (of the telescoped cell flux before
+    denormalization) must stay within (RAW_DIVERGENCE_ULPS x the largest raw
+    flux of the steps)^2, and its ``divergence_error`` (of the denormalized
+    flux) must be the z-score inverse's offset, (3 x the face flux's mean)^2
+    per cell, within 1e-3 relative."""
+    geom = bench_geometry()
+    fields = channel_flow_trajectory(geom, num_timesteps=CHECK_STEPS + 2,
+                                     dt=0.01)
+    pad = ((0, 0), (0, graph.num_cells - geom["cell_pos"].shape[0]), (0, 0))
+    gv, gp = (torch.from_numpy(np.pad(fields[k][1:CHECK_STEPS + 1], pad))
+              .to(graph.device) for k in ("cell_velocity", "cell_pressure"))
+    _, feats = kern.transform_rollout(graph)
+    errors, _ = rollout_scan(kern, graph, feats, gv, gp,
+                             RolloutConfig(num_steps=CHECK_STEPS))
+    raw_max = 0.0
+    with torch.inference_mode():       # the same steps, for the raw flux
+        for _ in range(CHECK_STEPS):
+            out = kern.forward(graph, feats)
+            raw_max = max(raw_max, float(
+                out["_cell_flux_raw"][graph.cell_mask].abs().max()))
+            feats = kern.update_features(kern.derive_state(out, feats, graph),
+                                         feats, graph)
+    raw = errors["divergence_raw_error"][:, 0].double()
+    div = errors["divergence_error"][:, 0].double()
+    limit = (RAW_DIVERGENCE_ULPS * raw_max) ** 2
+    offset = (3.0 * float(kern.stats["face_flux"]["mean"])) ** 2
+    if not (torch.isfinite(raw).all() and float(raw.max()) <= limit):
+        fail(f"VertPotA: divergence_raw_error {raw.tolist()} over the limit "
+             f"{limit:.3g} (largest raw flux {raw_max:.6g})")
+    gap = float(((div - offset).abs() / offset).max())
+    if not gap <= 1e-3:
+        fail(f"VertPotA: divergence_error {div.tolist()} is not (3 x mean "
+             f"face flux)^2 = {offset:.6g} ({gap:.3g} apart)")
+    say(f"phase 8b VertPotA {CHECK_STEPS}-step rollout with the error "
+        "metrics: divergence_raw_error by step "
+        + json.dumps([float(f"{v:.6g}") for v in raw.tolist()])
+        + f", within (2^-20 x {raw_max:.6g})^2 = {limit:.6g}; "
+        "divergence_error by step "
+        + json.dumps([float(f"{v:.6g}") for v in div.tolist()])
+        + f", (3 x mean face flux)^2 = {offset:.6g}, within {gap:.3g}; card "
+        f"{device_line}")
+    return {"raw_max": float(raw.max()), "limit": limit, "offset_gap": gap}
+
+
+def flux_vertpot_phase(dev, ds, train_ds, line: str) -> dict:
+    """Phase 8: 8a every Flux and VertPot variant on the bench mesh (as 7a),
+    8b FluxA and VertPotA timed (as 7b) and VertPotA's raw divergence, 8c
+    VertPotA's ``validate`` on FluxD-valid's batch (table route) beside its
+    index and plain routes, 8d FluxA's and VertPotA's training. Returns the
+    paths' records."""
+    t8 = time.perf_counter()
+    graph = phase7_mesh(dev)
+    paths, models = {}, {}
+    for name in FLUX_VARIANTS + VERTPOT_VARIANTS:
+        paths[name], kern, feats = variant_phase(name, graph, phase="8a")
+        if name in P8_TIMED_PATHS:
+            models[name] = (kern, feats)
+    for name in P8_TIMED_PATHS:
+        kern, feats = models[name]
+        paths[f"{name}-timed"] = timed_variant(name, kern, graph, feats, line,
+                                               phase="8b")
+    raw = raw_divergence_check(models["VertPotA"][0], graph, line)
+    paths["VertPotA-valid"], paths["VertPotA-valid-index"] = (
+        routes_validation("VertPotA-valid", "VertPotA", ds, P8_VALID_STEPS, 1,
+                          P8_VALID_TOL, "8c", "VertPotA on FluxD-valid's batch"))
+    for name in P8_TIMED_PATHS:
+        paths[f"{name}-train"] = train_steps(name, train_ds, line, "8d",
+                                             P8_TRAIN_STEPS, P8_LOSS_WINDOW)
+    say(f"phase 8 card {line}; " + "; ".join(
+        f"{name} {p['steps_per_s']:.1f} steps/s, {p['ms_per_step']:.4f} "
+        "ms per step" + ("" if p["profile"] is None else
+                         f", device {p['profile']['device_ms_per_step']:.4f}"
+                         f" ms per step, busy "
+                         f"{100 * p['profile']['busy_share']:.1f} %, "
+                         f"{p['profile']['kernels_per_step']:g} kernels "
+                         "per step")
+        for name, p in paths.items() if name.endswith("-timed"))
+        + f"; VertPotA raw divergence {json.dumps(raw)}"
+        + f"; phase 8 wall time {time.perf_counter() - t8:.1f} s")
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2206,6 +2357,7 @@ def main() -> int:
         if path in ("FluxD-rollout-run", "MgnA", "MgnA-valid"))
         + f"; phase 6 wall time {time.perf_counter() - t6:.1f} s")
     paths.update(families_phase(dev, ds, train_ds, line))
+    paths.update(flux_vertpot_phase(dev, ds, train_ds, line))
 
     bnd = bounds(graph)
     rows = []

@@ -1,5 +1,5 @@
 """Core neural architecture: MLPs, GN blocks, encode-process-decode and the
-FVGN integrators (normalized and physical).
+integrators (FVGN's normalized and physical ones, the Flux family's).
 
 Counterpart of ``gnn_fluid_dynamics_tpu/models/arch.py`` for what the ported
 families run. Module and parameter names follow the Flax
@@ -322,10 +322,13 @@ class GNBlock(nn.Module):
     then face block (Fvgn.py:274-284), or MGN's face block, then cell block
     (Mgn.py:216-226). The second sub-block reads the first one's raw
     (pre-residual) output and the other input as the block received it.
+    Returns (cell, edge) residualed, and with ``face_raw`` also the face
+    block's raw output (VertPot's vertex sum reads it, VertPot.py:201-208).
 
     Fused, the residuals are applied inside the kernels. Cell-first: K3 ->
-    K2 with both outputs, then K1 on K2's raw output. Face-first: K1 with
-    both outputs, then K3 on K1's raw output -> K2 with the residual only."""
+    K2 with both outputs, then K1 on K2's raw output (with both outputs for
+    ``face_raw``). Face-first: K1 with both outputs, then K3 on K1's raw
+    output -> K2 with the residual only."""
 
     def __init__(self, cfg: ArchConfig, generator: torch.Generator = None):
         super().__init__()
@@ -335,17 +338,20 @@ class GNBlock(nn.Module):
 
     def forward(self, cell_attr, edge_attr, graph, extra=None,
                 route: str = "plain", train: bool = False,
-                rng: torch.Generator = None):
+                rng: torch.Generator = None, face_raw: bool = False):
         if route == "fused" and self.face_first:
             e_raw, e_res = self.face_block(cell_attr, edge_attr, graph,
                                            route=route, dual_out=True)
             c_res = self.cell_block(cell_attr, e_raw, graph, route=route)
-            return c_res, e_res
+            return (c_res, e_res, e_raw) if face_raw else (c_res, e_res)
         if route == "fused":
             c_raw, c_res = self.cell_block(cell_attr, edge_attr, graph,
                                            route=route, dual_out=True)
-            e_res = self.face_block(c_raw, edge_attr, graph, route=route)
-            return c_res, e_res
+            if face_raw:
+                e_raw, e_res = self.face_block(c_raw, edge_attr, graph,
+                                               route=route, dual_out=True)
+                return c_res, e_res, e_raw
+            return c_res, self.face_block(c_raw, edge_attr, graph, route=route)
         if self.face_first:
             new_edge = self.face_block(cell_attr, edge_attr, graph, extra,
                                        route, train=train, rng=rng)
@@ -356,7 +362,8 @@ class GNBlock(nn.Module):
                                        route, train=train, rng=rng)
             new_edge = self.face_block(new_cell, edge_attr, graph, extra,
                                        route, train=train, rng=rng)
-        return cell_attr + new_cell, edge_attr + new_edge
+        out = (cell_attr + new_cell, edge_attr + new_edge)
+        return out + (new_edge,) if face_raw else out
 
 
 def _remat_block(block: GNBlock, cell_attr, edge_attr, graph, extra,
@@ -484,16 +491,22 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
+    @staticmethod
+    def batch_statistics(x, mask):
+        """(mean, var) over the rows ``mask`` selects, in f32, var = E[x^2]
+        - mean^2 clamped at 0."""
+        xf = x.float()
+        m = mask.reshape(-1, 1).expand_as(xf)
+        xm = torch.where(m, xf, torch.zeros_like(xf))
+        n = m.sum(0)
+        mean = xm.sum(0) / n
+        return mean, torch.clamp((xm * xm).sum(0) / n - mean * mean, min=0.0)
+
     def forward(self, x, mask=None, train: bool = False):
         if not train:
             mean, var = self.running_mean, self.running_var
         else:
-            xf = x.float()
-            m = mask.reshape(-1, 1).expand_as(xf)
-            xm = torch.where(m, xf, torch.zeros_like(xf))
-            n = m.sum(0)
-            mean = xm.sum(0) / n
-            var = torch.clamp((xm * xm).sum(0) / n - mean * mean, min=0.0)
+            mean, var = self.batch_statistics(x, mask)
             with torch.no_grad():
                 for run, batch in ((self.running_mean, mean),
                                    (self.running_var, var)):
@@ -542,6 +555,19 @@ class FaceAreaNorm(nn.Module):
                                       train)
 
 
+class VolDtNorm(nn.Module):
+    """BatchNorm'd dt / V̄ per face (reference ``normalize_vol_dt``,
+    normalisation.py:346-365)."""
+
+    def __init__(self):
+        super().__init__()
+        self.masked_batch_norm = MaskedBatchNorm()
+
+    def forward(self, graph, train: bool = False):
+        return self.masked_batch_norm(_vol_dt_coeff(graph), graph.face_mask,
+                                      train)
+
+
 class FvgnIntegrator(nn.Module):
     """Normalized-space momentum flux balance (reference ``FvgnA.Integrator``,
     Fvgn.py:214-255): acc = -Phi_A - Phi_P/rho + Phi_D with BatchNorm'd
@@ -571,6 +597,40 @@ class FvgnIntegrator(nn.Module):
         acc = -phi_a - phi_p / self.rho + phi_d
         acc = torch.where(graph.cell_mask[:, None], acc, torch.zeros_like(acc))
         return acc, {"norm_face_area": face_area}
+
+
+class FluxIntegrator(nn.Module):
+    """Flux-based advection (reference ``FluxA.Integrator``,
+    Flux.py:158-206): the advective momentum flux carries the predicted face
+    flux, signed per cell, weighted by the BatchNorm'd dt/V̄; the pressure
+    term takes the BatchNorm'd area*dt/V̄. ``edge_output`` = [u_f, v_f, p_f,
+    phi_f, D_x, D_y]. Returns (acc, {"norm_face_area", "cell_flux" (C, 3)})."""
+
+    def __init__(self, rho: float = 1.0):
+        super().__init__()
+        self.rho = rho
+        self.vol_dt_norm = VolDtNorm()
+        self.face_area_norm = FaceAreaNorm()
+
+    def forward(self, edge_output, graph, train: bool = False):
+        uv = edge_output[:, :2]
+        p = edge_output[:, 2:3]
+        phi = edge_output[:, 3:4]
+        flux_d = edge_output[:, 4:6]
+        n = self.vol_dt_norm(graph, train)                     # (F, 1)
+        face_area = self.face_area_norm(graph, train)
+        g = gather3(torch.cat([phi, n, uv, flux_d, face_area, p], dim=1),
+                    graph)                                     # (C, 3, 8)
+        phif, nf, uvf = g[..., 0:1], g[..., 1:2], g[..., 2:4]
+        df, e, pf = g[..., 4:6], g[..., 6:7], g[..., 7:8]
+        cell_flux = phif * graph.cell_face_sign[..., None]     # (C, 3, 1)
+        phi_a = torch.sum(uvf * cell_flux * nf, dim=1)         # (C, 2)
+        phi_d = torch.sum(df, dim=1)
+        phi_p = torch.sum(pf * graph.cell_normal * e, dim=1)
+        acc = -phi_a - phi_p / self.rho + phi_d
+        acc = torch.where(graph.cell_mask[:, None], acc, torch.zeros_like(acc))
+        return acc, {"norm_face_area": face_area,
+                     "cell_flux": cell_flux[..., 0]}
 
 
 def physical_acceleration(graph, phi_a, phi_p, phi_d, rho: float = 1.0,

@@ -8,7 +8,7 @@ says so instead of calling it unknown.
 
 from __future__ import annotations
 
-from gnn_fluid_dynamics_tpu_torch.models.flux import FluxA, FluxD
+from gnn_fluid_dynamics_tpu_torch.models.flux import FluxA, FluxB, FluxC, FluxD
 from gnn_fluid_dynamics_tpu_torch.models.fvgn import (FvgnA, FvgnB, FvgnC,
                                                       FvgnD, FvgnE, FvgnF,
                                                       FvgnH, FvgnI, FvgnJ,
@@ -18,6 +18,10 @@ from gnn_fluid_dynamics_tpu_torch.models.streamfunc import (StreamFuncA,
                                                             StreamFuncB,
                                                             StreamFuncC,
                                                             StreamFuncD)
+from gnn_fluid_dynamics_tpu_torch.models.vertpot import (VertPotA, VertPotB,
+                                                         VertPotC, VertPotD,
+                                                         VertPotE, VertPotF,
+                                                         VertPotG)
 
 JAX_MODEL_NAMES = (
     "FvgnA", "FvgnB", "FvgnC", "FvgnD", "FvgnE", "FvgnF", "FvgnH", "FvgnI",
@@ -35,7 +39,8 @@ JAX_MODEL_NAMES = (
 MODEL_REGISTRY = {cls.name: cls for cls in (
     FvgnA, FvgnB, FvgnC, FvgnD, FvgnE, FvgnF, FvgnH, FvgnI, FvgnJ, FvgnK,
     MgnA, MgnB, MgnC,
-    FluxA, FluxD,
+    FluxA, FluxB, FluxC, FluxD,
+    VertPotA, VertPotB, VertPotC, VertPotD, VertPotE, VertPotF, VertPotG,
     StreamFuncA, StreamFuncB, StreamFuncC, StreamFuncD)}
 
 

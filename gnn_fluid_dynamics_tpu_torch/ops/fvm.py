@@ -7,10 +7,25 @@ from __future__ import annotations
 import torch
 
 
+def divergence_from_face_flux(face_flux: torch.Tensor,
+                              face_index: torch.Tensor) -> torch.Tensor:
+    """Sum of the (owner-oriented, unsigned) flux over each cell's 3 faces
+    (reference ``fvm.py:4-10``). face_flux: (F, 1) -> (C, 1)."""
+    return (face_flux[face_index[0]] + face_flux[face_index[1]]
+            + face_flux[face_index[2]])
+
+
 def divergence_from_cell_flux(cell_flux: torch.Tensor) -> torch.Tensor:
     """Sum of per-cell signed local fluxes (reference ``fvm.py:13-19``).
     cell_flux: (C, 3) -> (C, 1)."""
     return torch.sum(cell_flux, dim=1, keepdim=True)
+
+
+def calc_flux_from_uf(face_velocity: torch.Tensor, face_normal: torch.Tensor,
+                      face_area: torch.Tensor) -> torch.Tensor:
+    """phi_f = (u_f . n_f) A_f (reference ``fvm.py:22-23``). -> (F, 1)."""
+    return (torch.sum(face_velocity * face_normal, dim=-1, keepdim=True)
+            * face_area.reshape(-1, 1))
 
 
 def divergence_from_uf(face_velocity: torch.Tensor, cell_normal: torch.Tensor,
@@ -39,6 +54,44 @@ def face_flux_to_cell_flux_g(face_flux: torch.Tensor, graph) -> torch.Tensor:
     selector variant is a TPU device; on the card it is the row gather)."""
     return face_flux_to_cell_flux(face_flux, graph.face_index,
                                   graph.cell_face_sign)
+
+
+def cell_flux_to_face_flux(cell_flux: torch.Tensor,
+                           cell_edge_index: torch.Tensor,
+                           owner_local_slot: torch.Tensor) -> torch.Tensor:
+    """Per-cell local flux -> owner-oriented face flux: each face takes its
+    owner cell's value at the face's slot (reference ``fvm.py:55-94``, the
+    slot search precomputed as ``owner_local_slot``).
+    cell_flux: (C, 3) or (C, 3, 1) -> (F, 1)."""
+    cf = cell_flux.reshape(cell_flux.shape[0], 3)
+    return cf[cell_edge_index[0].long(), owner_local_slot.long()][:, None]
+
+
+def cell_flux_to_face_flux_lastwrite(cell_flux: torch.Tensor,
+                                     cell_edge_index: torch.Tensor,
+                                     face_index: torch.Tensor) -> torch.Tensor:
+    """The reference's ``geometry.cell_flux_to_face_flux``
+    (geometry.py:539-570) with its index pairing kept as it is: write ``k``
+    of 3C goes to face ``face_index[k // C, k % C]`` (the slot-major
+    flatten) and carries ``cell_flux[k // 3, k % 3]`` (cell-major), negated
+    unless cell ``k // 3`` owns that face. Where several writes reach one
+    face the last one in ``k`` wins, as torch's scatter assignment leaves
+    it on the CPU; here the winner is the largest ``k`` by a deterministic
+    ``scatter_reduce("amax")``, never an indexed assignment, whose
+    duplicates land in no defined order on the card. A face no write
+    reaches takes write 0's value (the JAX package's clip).
+    cell_flux: (C, 3) or (C, 3, 1) -> (F, 1)."""
+    cf = cell_flux.reshape(cell_flux.shape[0], 3)
+    C = cf.shape[0]
+    F = cell_edge_index.shape[1]
+    k = torch.arange(3 * C, device=cf.device)
+    dest = face_index[k // C, k % C].long()
+    owner = cell_edge_index[0].long()[dest] == k // 3
+    vals = cf.reshape(-1)
+    corrected = torch.where(owner, vals, -vals)
+    kwin = torch.full((F,), -1, dtype=k.dtype, device=cf.device)
+    kwin = kwin.scatter_reduce(0, dest, k, "amax")
+    return corrected[kwin.clamp(0, 3 * C - 1)][:, None]
 
 
 def divergence_from_uc(cell_velocity: torch.Tensor, weights: torch.Tensor,

@@ -28,6 +28,16 @@ def aggregate_edges_to_vertices_scatter(
     return out.index_add_(0, receivers, rev)
 
 
+def aggregate_edges_to_vertices_sum(edge_attr: torch.Tensor,
+                                    graph) -> torch.Tensor:
+    """Full-width edge sum onto both endpoint vertices (the VertPot family's
+    Vertex_Block, reference ``VertPot.py:212-222``): each edge row added to
+    its sender's and to its receiver's row. (F, H) -> (V, H)."""
+    senders, receivers = graph.vertex_edge_index[0], graph.vertex_edge_index[1]
+    out = segment_sum(edge_attr, senders, graph.num_vertices)
+    return out.index_add_(0, receivers, edge_attr)
+
+
 def gather_vertices_to_cells(vertex_values: torch.Tensor,
                              vertex_face: torch.Tensor) -> torch.Tensor:
     """Mean of each cell's 3 vertex values (reference ``Fvgn.py:317-321``).

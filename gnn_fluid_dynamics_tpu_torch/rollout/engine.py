@@ -7,7 +7,8 @@ derivation -> error metrics -> feature feedback, with temporal bundling
 reference's ``_error_accumulate`` (rollout.py:121-148): per-graph relative
 MSE of cell velocity and pressure against ground truth, and the divergence of
 the predicted cell flux, face velocity or (by the MLS stencil) cell
-velocity.
+velocity; for VertPot's potential flux also that of the raw telescoped cell
+flux (``divergence_raw_error``).
 """
 
 from __future__ import annotations
@@ -105,7 +106,9 @@ def rollout_scan(model, graph, feats0: Dict[str, torch.Tensor],
 
     Returns:
         (errors, fields): errors holds ``velocity_error``/``pressure_error``/
-        ``divergence_error`` of shape (T, num_graphs); fields holds the
+        ``divergence_error`` of shape (T, num_graphs), and
+        ``divergence_raw_error`` for a model whose outputs carry
+        ``_cell_flux_raw`` (VertPotA, VertPotG); fields holds the
         stacked per-step fields when ``save_fields``, and always
         ``final_cell_state``.
     """
@@ -132,6 +135,16 @@ def rollout_scan(model, graph, feats0: Dict[str, torch.Tensor],
         ys.setdefault("divergence_error", []).append(mse_per_graph(
             div, torch.zeros_like(div), graph.cell_mask, graph.cell_batch,
             num_graphs))
+        if "_cell_flux_raw" in sol:
+            # the raw telescoped flux (VertPotA, G; see VertPotA.forward):
+            # the denormalized cell flux above carries 3 x the mean face
+            # flux per cell from the z-score inverse
+            draw = fvm.divergence_from_cell_flux(sol["_cell_flux_raw"])
+            draw = torch.where(graph.cell_mask[:, None], draw,
+                               torch.zeros_like(draw))
+            ys.setdefault("divergence_raw_error", []).append(mse_per_graph(
+                draw, torch.zeros_like(draw), graph.cell_mask,
+                graph.cell_batch, num_graphs))
 
     feats = feats0
     with torch.inference_mode():

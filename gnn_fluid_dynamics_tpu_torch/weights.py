@@ -2,7 +2,8 @@
 
 The JAX package's variables (``{"params": ..., "batch_stats": ...}``, as
 nested dicts of numpy arrays) map onto the state dict of the port's model
-module, e.g. FluxD's, FvgnF's and those of the other ported families:
+module, e.g. FluxD's, FvgnF's, VertPotA's and those of the other ported
+families:
 
 ==========================================================  ================================================================
 Flax path                                                   torch state-dict key
@@ -15,6 +16,10 @@ Flax path                                                   torch state-dict key
 ``anisotropy_ratio`` (FvgnK, a scalar)                       ``anisotropy_ratio``
 ``integrator/face_area_norm/MaskedBatchNorm_0/BatchNorm_0``  ``integrator.face_area_norm.masked_batch_norm.batch_norm``
 ``face_area_norm/MaskedBatchNorm_0/BatchNorm_0`` (FvgnC)      ``face_area_norm.masked_batch_norm.batch_norm``
+``integrator/vol_dt_norm/MaskedBatchNorm_0/...`` (FluxA)     ``integrator.vol_dt_norm.masked_batch_norm...``
+``Encoder_0/cell_mlp/Dense_0`` (VertPot)                      ``encoder.cell_mlp.dense0``
+``CellBlock_3/MLP_0`` (VertPot, at the top)                   ``blocks.3.cell_block.mlp``
+``decoder_vertex/Dense_2`` (VertPot)                          ``decoder_vertex.dense2``
 ``.../BatchNorm_0/{scale,bias}`` (params)                   ``.../batch_norm.{weight,bias}``
 ``.../BatchNorm_0/{mean,var}`` (batch_stats)                ``.../batch_norm.{running_mean,running_var}``
 ==========================================================  ================================================================
@@ -33,25 +38,34 @@ from typing import Dict
 import numpy as np
 import torch
 
+# (pattern on the Flax name, whether it needs an ``Encoder_0`` beside it,
+# torch name); the first that matches wins. A GN block's sub-blocks are
+# ``CellBlock_0`` and ``FaceBlock_0`` inside ``GNBlock_i`` (or at the top of
+# a bare GN block's tree). VertPot's processor has no GN block: its
+# ``CellBlock_i``/``FaceBlock_i`` sit beside its ``Encoder_0`` and map to the
+# port's ``blocks.i``.
 _NAMES = (
-    (re.compile(r"EncodeProcessDecode_0$"), "epd"),
-    (re.compile(r"Encoder_0$"), "encoder"),
-    (re.compile(r"GNBlock_(\d+)$"), r"blocks.\1"),
-    (re.compile(r"CellBlock_0$"), "cell_block"),
-    (re.compile(r"FaceBlock_0$"), "face_block"),
-    (re.compile(r"MLP_0$"), "mlp"),
-    (re.compile(r"Dense_(\d+)$"), r"dense\1"),
-    (re.compile(r"LayerNorm_0$"), "layer_norm"),
-    (re.compile(r"MaskedBatchNorm_0$"), "masked_batch_norm"),
-    (re.compile(r"BatchNorm_0$"), "batch_norm"),
+    (re.compile(r"EncodeProcessDecode_0$"), False, "epd"),
+    (re.compile(r"Encoder_0$"), False, "encoder"),
+    (re.compile(r"GNBlock_(\d+)$"), False, r"blocks.\1"),
+    (re.compile(r"CellBlock_(\d+)$"), True, r"blocks.\1.cell_block"),
+    (re.compile(r"FaceBlock_(\d+)$"), True, r"blocks.\1.face_block"),
+    (re.compile(r"CellBlock_0$"), False, "cell_block"),
+    (re.compile(r"FaceBlock_0$"), False, "face_block"),
+    (re.compile(r"MLP_0$"), False, "mlp"),
+    (re.compile(r"Dense_(\d+)$"), False, r"dense\1"),
+    (re.compile(r"LayerNorm_0$"), False, "layer_norm"),
+    (re.compile(r"MaskedBatchNorm_0$"), False, "masked_batch_norm"),
+    (re.compile(r"BatchNorm_0$"), False, "batch_norm"),
 )
 _COLLECTIONS = {"params", "batch_stats"}
 _STAT_KEYS = {"mean": "running_mean", "var": "running_var"}
 
 
-def _module_name(flax_name: str) -> str:
-    for pattern, repl in _NAMES:
-        if pattern.match(flax_name):
+def _module_name(flax_name: str, siblings) -> str:
+    beside_encoder = "Encoder_0" in siblings
+    for pattern, needs_encoder, repl in _NAMES:
+        if pattern.match(flax_name) and (beside_encoder or not needs_encoder):
             return pattern.sub(repl, flax_name)
     return flax_name
 
@@ -81,7 +95,8 @@ def params_from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
     def walk(tree, prefix, parent, collection):
         for name, value in tree.items():
             if isinstance(value, Mapping):
-                walk(value, prefix + _module_name(name) + ".", name, collection)
+                walk(value, prefix + _module_name(name, tree) + ".", name,
+                     collection)
                 continue
             arr = np.asarray(value, dtype=np.float32)
             if name == "kernel":

@@ -254,14 +254,16 @@ def test_step_scalars_are_one_based():
 
 def test_registry():
     assert sorted(MODEL_REGISTRY) == [
-        "FluxA", "FluxD", "FvgnA", "FvgnB", "FvgnC", "FvgnD", "FvgnE",
-        "FvgnF", "FvgnH", "FvgnI", "FvgnJ", "FvgnK", "MgnA", "MgnB", "MgnC",
-        "StreamFuncA", "StreamFuncB", "StreamFuncC", "StreamFuncD"]
+        "FluxA", "FluxB", "FluxC", "FluxD", "FvgnA", "FvgnB", "FvgnC",
+        "FvgnD", "FvgnE", "FvgnF", "FvgnH", "FvgnI", "FvgnJ", "FvgnK", "MgnA",
+        "MgnB", "MgnC", "StreamFuncA", "StreamFuncB", "StreamFuncC",
+        "StreamFuncD", "VertPotA", "VertPotB", "VertPotC", "VertPotD",
+        "VertPotE", "VertPotF", "VertPotG"]
     assert get_model_class("FvgnF").name == "FvgnF"
     with pytest.raises(KeyError, match="not ported yet"):
-        get_model_class("FluxB")
+        get_model_class("ConservativeA")
     with pytest.raises(KeyError, match="unknown model"):
         get_model_class("NoSuchModel")
-    with pytest.raises(NotImplementedError, match="FluxIntegrator"):
-        get_model_class("FluxA")(ModelConfig(hidden_width=16, mp_num=1),
-                                 device="cpu")
+    tm = get_model_class("FluxA")(ModelConfig(hidden_width=16, mp_num=1),
+                                  device="cpu")
+    assert set(dict(tm.module.named_children())) == {"epd", "integrator"}

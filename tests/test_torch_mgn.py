@@ -209,7 +209,7 @@ def test_dataset_add_grad_weights_matches_jax():
 
 def test_registry_holds_the_mgn_family():
     assert {"MgnA", "MgnB", "MgnC"} <= set(MODEL_REGISTRY)
-    assert len(MODEL_REGISTRY) == 19
+    assert len(MODEL_REGISTRY) == 28
     for name in GOLDEN:
         cls = get_model_class(name)
         assert cls.cell_grad_weights_use and not cls.face_grad_weights_use
