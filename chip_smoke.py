@@ -2,9 +2,9 @@
 each against its plain PyTorch version, run the FluxD and FvgnF rollouts,
 the trainer's validation rollout of FluxD, FluxD's training, the rollout
 entry point, the MGN family, the rest of the FVGN family (temporal
-bundling included), the StreamFunc family, the rest of the Flux family and
-the VertPot family at their shipped width through them, and report each
-kernel's time beside its bound.
+bundling included), the StreamFunc family, the rest of the Flux family, the
+VertPot family and the Conservative family at their shipped width through
+them, and report each kernel's time beside its bound.
 
     python3 chip_smoke.py
 
@@ -21,7 +21,10 @@ Phases (each prints one flushed line; any failure exits non-zero):
    sequence it replaces, cast to bf16, K4, both rows widened to f32) and
    K6/K7 on the FluxD-valid batch's own tables (int8, and once more cast to
    bf16 and to f32; K6's roll form also on the tables widened to a band of
-   896, K7 on the tables widened to 384), on seeded inputs; K6 and K7 also
+   896, K7 on the tables widened to 384), on seeded inputs; the wide forms
+   of ConservativeH/J/K beside them: K3, K5 and the pair on 2H = 256-wide
+   edge latents at the mesh and the batch, K6's roll form on 256-wide and
+   K7 on 128-wide sources on the batch's tables; K6 and K7 also
    with a NaN source row that a tile's weights skip, whose NaN must reach
    the same places as in the plain version; K7 and its library call timed
    also with L2 flushed between launches; the launch floor (an empty kernel
@@ -32,6 +35,7 @@ Phases (each prints one flushed line; any failure exits non-zero):
    and K3 -> K5 must agree with the plain versions on every round; and for
    200 rounds K1 with both outputs, then K3 on K1's raw output (MgnA's
    face-first order), K3 agreeing with its plain version on every round;
+   and the first check again for 50 rounds at the wide forms' 256 lanes;
 3. the three paths at hidden 128, 15 GN block applications and bf16, with
    seeded weights and statistics from the synthetic channel flow:
 
@@ -135,6 +139,21 @@ Phases (each prints one flushed line; any failure exits non-zero):
      plain routes, per-trajectory mean errors within P8_VALID_TOL;
    * 8d FluxA and VertPotA, P8_TRAIN_STEPS train steps each as 7d;
 
+9. the Conservative family, on phase 7's mesh:
+
+   * 9a each of ConservativeA, B, D-K as 7a: F, G and I run K3 -> K5 on
+     their H-wide ``[e_sym | e_sym]``, H, J and K on their 2H-wide ``[e_s |
+     e_s]`` (the wide forms), 15 a step each; A, B, D and E run no kernel
+     (their aggregation is a gather over each cell's faces);
+   * 9b ConservativeA (the repo's e2e model) and ConservativeH timed and
+     profiled as 7b;
+   * 9c ConservativeH's ``validate`` on FluxD-valid's batch on the table
+     route (K6's roll form on 2H-wide latents 15 and K7 on H-wide vertex
+     sums 15 a step) for P9_VALID_STEPS steps, beside its index and plain
+     routes, per-trajectory mean errors within P9_VALID_TOL;
+   * 9d ConservativeA and ConservativeJ, P9_TRAIN_STEPS train steps each as
+     7d;
+
 then the ``kernels`` line: per kernel its time per launch, launches, bound,
 plain time and library time (K3 and K5 also the pair's time and the launch
 floor).
@@ -148,6 +167,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import functools
+import itertools
 import json
 import os
 import shutil
@@ -227,6 +247,7 @@ STREAMFUNC_STEP_TOL = 0.15
 # CPU rehearsal 3.7 % and 6.3 %). A wrong kernel moves it by O(1).
 STREAMFUNC_DIVERGENCE_TOL = 0.5
 HAZARD_ROUNDS = 200
+WIDE_HAZARD_ROUNDS = 50   # the same check at the wide forms' 2H
 HAZARD_CYCLES = 100_000   # the hazard writer's idle cycles (~50 us) before it writes
 FLOOR_ITERS = 200         # launches per timed batch of K3, K4, K5, the pair, the floor
 K4_FACES_PER_BLOCK = 16   # K4's grid: 16 lanes per face (csrc/face_gather.cu)
@@ -290,6 +311,21 @@ P8_LOSS_WINDOW = 5
 # at most about 3 x 2^-23 of the largest raw flux per cell. The limit on
 # its mean square is (2^-20 max|raw flux|)^2, eight times that bound.
 RAW_DIVERGENCE_ULPS = 2.0 ** -20
+# phase 9: the Conservative family
+CONSERVATIVE_VARIANTS = ("ConservativeA", "ConservativeB", "ConservativeD",
+                         "ConservativeE", "ConservativeF", "ConservativeG",
+                         "ConservativeH", "ConservativeI", "ConservativeJ",
+                         "ConservativeK")
+# the variants whose blocks run the twice message passing: K3 -> K5 (F, G,
+# I on H-wide, H, J, K on 2H-wide edge latents); A, B, D, E run no kernel
+TWICE_MP_VARIANTS = ("ConservativeF", "ConservativeG", "ConservativeH",
+                     "ConservativeI", "ConservativeJ", "ConservativeK")
+P9_TIMED_PATHS = ("ConservativeA", "ConservativeH")     # 9b
+P9_VALID_STEPS = 3          # 9c: ConservativeH's validation steps
+P9_VALID_TOL = 1e-2         # 9c, as 8c's P8_VALID_TOL
+P9_TRAINED = ("ConservativeA", "ConservativeJ")         # 9d
+P9_TRAIN_STEPS = 10
+P9_LOSS_WINDOW = 5
 
 KERNELS = {
     "K1_fused_face_block": dict(
@@ -361,6 +397,16 @@ PATHS.update({name: (get_model_class(name), _FUSED_PER_STEP)
 PATHS["VertPotA-valid"] = (get_model_class("VertPotA"),
                            {"K6_table_dual": 2 * MP_NUM,
                             "K7_table_single": MP_NUM})
+_TWICE_MP_PER_STEP = {"K3_edges_to_vertices": MP_NUM,
+                      "K5_vertices_to_cells": MP_NUM}
+PATHS.update({name: (get_model_class(name),
+                     _TWICE_MP_PER_STEP if name in TWICE_MP_VARIANTS else {})
+              for name in CONSERVATIVE_VARIANTS})
+# the table route: K6's roll form (no cf: the blocks' cell gathers are index
+# gathers) -> K7 per block
+PATHS["ConservativeH-valid"] = (get_model_class("ConservativeH"),
+                                {"K6_table_dual": MP_NUM,
+                                 "K7_table_single": MP_NUM})
 ROLLOUT_PATHS = ("FluxD", "FvgnF", "FluxD-valid")      # phase 3
 # the kernel wrappers a GN block calls, per block application, in order
 # (":dual" K1/K2 with both outputs, ":roll" K6 on es/er with the roll)
@@ -377,6 +423,11 @@ BLOCK_ORDER = {
     # VertPot's vertex sum reads each block's raw face output
     **{name: ["edges_to_vertices", "fused_cell_block:dual",
               "fused_face_block:dual"] for name in VERTPOT_VARIANTS},
+    # the Conservative blocks' MLPs run outside the kernels: only their
+    # twice message passing, where they have one
+    **{name: (["edges_to_vertices", "vertices_to_cells"]
+              if name in TWICE_MP_VARIANTS else [])
+       for name in CONSERVATIVE_VARIANTS},
 }
 
 
@@ -467,16 +518,24 @@ def valid_data(device):
 
 
 # K6's two forms on the table route, and K7's one: (tables, source rows'
-# graph count, combine_roll)
+# graph count, combine_roll, source channels). The wide forms take
+# ConservativeH/J/K's 2H-wide edge latents and their H-wide vertex sums.
 TABLE_FORMS = {
-    ("K6_table_dual", "es_roll"): (("es_onehot", "er_onehot"), "num_faces", True),
+    ("K6_table_dual", "es_roll"): (("es_onehot", "er_onehot"), "num_faces",
+                                   True, H),
     ("K6_table_dual", "cf"): (("cf_row_onehot", "cf_col_onehot"), "num_cells",
-                              False),
+                              False, H),
     ("K6_table_dual", "es_roll896"): (("es_onehot", "er_onehot"), "num_faces",
-                                      True),
-    ("K7_table_single", "vc"): (("vc_onehot",), "num_vertices", None),
-    ("K7_table_single", "vc384"): (("vc_onehot",), "num_vertices", None),
+                                      True, H),
+    ("K6_table_dual", "es_roll_wide"): (("es_onehot", "er_onehot"),
+                                        "num_faces", True, 2 * H),
+    ("K7_table_single", "vc"): (("vc_onehot",), "num_vertices", None, H // 2),
+    ("K7_table_single", "vc384"): (("vc_onehot",), "num_vertices", None,
+                                   H // 2),
+    ("K7_table_single", "vc_wide"): (("vc_onehot",), "num_vertices", None, H),
 }
+WIDE_TABLE_FORMS = (("K6_table_dual", "es_roll_wide"),
+                    ("K7_table_single", "vc_wide"))
 # the table types each form runs on: the path's int8, and the graphs' other
 # two (f32 is the datasets' default)
 TABLE_TYPES = {"int8": torch.int8, "bf16": torch.bfloat16, "f32": torch.float32}
@@ -484,6 +543,9 @@ TABLE_TYPES = {"int8": torch.int8, "bf16": torch.bfloat16, "f32": torch.float32}
 # path: held and timed only)
 WIDENED = {("K6_table_dual", "es_roll896"): 896,
            ("K7_table_single", "vc384"): 384}
+# the forms beside the FluxD-valid path's, held and timed but not in a
+# kernel's top-level numbers
+OFF_PATH_FORMS = (*WIDENED, *WIDE_TABLE_FORMS)
 
 
 def table_form_bound(vg, form, tables) -> tuple:
@@ -492,29 +554,33 @@ def table_form_bound(vg, form, tables) -> tuple:
     once; the products counted for this data's nonzero weights only (a
     multiply and an add per channel), plus K6's one add of the roll and
     K7's division."""
-    (name, _), (keys, count, roll) = form, TABLE_FORMS[form]
+    (name, _), (keys, count, roll, width) = form, TABLE_FORMS[form]
     T, tile, band = tables[0].shape
     rows = T * tile
-    width = H // 2 if name == "K7_table_single" else H
     nnz = sum(int((t != 0).sum()) for t in tables)
     nbytes = (sum(t.numel() * t.element_size() for t in tables)
               + getattr(vg, count) * width * 2 + T * 4)
     if name == "K7_table_single":
-        return nbytes + rows * (H // 2) * 4, 2 * nnz * (H // 2) + rows * (H // 2)
+        return nbytes + rows * width * 4, 2 * nnz * width + rows * width
     if roll:
-        return nbytes + rows * (H // 2) * 2, 2 * nnz * (H // 2) + rows * (H // 2)
-    return nbytes + 2 * rows * H * 2, 2 * nnz * H
+        half = width // 2
+        return nbytes + rows * half * 2, 2 * nnz * half + rows * half
+    return nbytes + 2 * rows * width * 2, 2 * nnz * width
 
 
-def bounds(graph) -> dict:
+def bounds(graph, width: int = H) -> dict:
     """Least time (ms) for each kernel's work at these shapes: the larger of
     its bytes (each input read once, each output written once) over the
     memory rate and its operations over the peak rate for their type (the
     three products in bf16 on the tensor cores for K1/K2, the f32 adds of
     K3 and K5; K4 does none: its rounding is a conversion). K1 runs
     single-output and K2 dual-output on the main path; K4 reads f32 latents
-    there (the FvgnF path's cell MLP output) and K5 stores its f32 mean."""
+    there (the FvgnF path's cell MLP output) and K5 stores its f32 mean.
+    ``width`` is the edge latents' width K3 reads (2H in the wide form of
+    ConservativeH/J/K) and K5's input is half of it; K1, K2 and K4 are at
+    H."""
     F, C, V = graph.num_faces, graph.num_cells, graph.num_vertices
+    W = width
     vec = 5 * H * 2                                   # b0,b1,b2,ln_g,ln_b
     k1_bytes = (F * H * 2 + C * H * 2 + 2 * F * 4
                 + (3 * H * H + 2 * H * H) * 2 + vec + F * H * 2)
@@ -522,11 +588,11 @@ def bounds(graph) -> dict:
     k2_bytes = (C * H * 2 + V * (H // 2) * 2 + 3 * C * 4
                 + ((H + H // 2) * H + 2 * H * H) * 2 + vec + 2 * C * H * 2)
     k2_flops = 2 * C * H * (H + H // 2 + 2 * H)
-    k3_bytes = F * H * 2 + (V + 1) * 4 + 2 * F * 4 + V * (H // 2) * 2
-    k3_flops = 2 * F * (H // 2)
+    k3_bytes = F * W * 2 + (V + 1) * 4 + 2 * F * 4 + V * (W // 2) * 2
+    k3_flops = 2 * F * (W // 2)
     k4_bytes = C * H * 4 + 2 * F * 4 + 2 * F * H * 2
-    k5_bytes = V * (H // 2) * 2 + 3 * C * 4 + C * (H // 2) * 4
-    k5_flops = 3 * C * (H // 2)                       # 2 adds + 1 division
+    k5_bytes = V * (W // 2) * 2 + 3 * C * 4 + C * (W // 2) * 4
+    k5_flops = 3 * C * (W // 2)                       # 2 adds + 1 division
 
     bound = _bound
     return {"K1_fused_face_block": bound(k1_bytes, k1_flops, PEAK_BF16_FLOPS),
@@ -604,26 +670,26 @@ def table_phase(vg) -> dict:
     the table (cast to bf16) by the stacked bands, both made outside the
     timed window. K6's roll form also runs on the tables widened to a band
     of 896 and K7 on the tables widened to 384, and K7 and its
-    ``torch.bmm`` are timed also with L2 flushed between launches. Each
-    form on the path's int8 tables also takes a NaN source row
-    (``nan_case``). A kernel's top-level numbers are per launch on the int8
-    tables the path runs: K6's the mean of its two forms, each launched once
-    per block."""
+    ``torch.bmm`` are timed also with L2 flushed between launches. The wide
+    forms (``WIDE_TABLE_FORMS``: K6's roll form on 2H-wide edge latents, K7
+    on H-wide vertex sums, ConservativeH/J/K's) run on the batch's tables
+    as the narrow ones. Each form on the path's int8 tables also takes a NaN
+    source row (``nan_case``). A kernel's top-level numbers are per launch
+    on the int8 tables the FluxD-valid path runs: K6's the mean of its two
+    narrow forms, each launched once per block."""
     dev = vg.device
     rng = np.random.default_rng(1)
-    srcs = {n: torch.from_numpy(rng.normal(size=(n, H)).astype(np.float32)).to(
-        dev, torch.bfloat16) for n in {vg.num_faces, vg.num_cells,
-                                       vg.num_vertices}}
+    srcs = {n: torch.from_numpy(rng.normal(size=(n, 2 * H)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+        for n in {vg.num_faces, vg.num_cells, vg.num_vertices}}
     if int(vg.vc_onehot.max()) != 3:
         fail("the FluxD-valid batch's vc tables hold no weight of 3 (a "
              "padded cell): K7's weights are not held")
     results = {}
-    for form, (keys, count, roll) in TABLE_FORMS.items():
+    for form, (keys, count, roll, width) in TABLE_FORMS.items():
         name, fname = form
-        src = srcs[getattr(vg, count)]
+        src = srcs[getattr(vg, count)][:, :width].contiguous()
         off = getattr(vg, keys[0].split("_")[0] + "_off")
-        if name == "K7_table_single":
-            src = src[:, :H // 2].contiguous()
         for tdt_name, tdt in TABLE_TYPES.items():
             tables = tuple(getattr(vg, k).to(tdt) for k in keys)
             if form in WIDENED:
@@ -673,7 +739,7 @@ def table_phase(vg) -> dict:
         nan = {f: r for (n, f, d), r in results.items()
                if n == name and d == "nan"}
         main = [r for (n, f, d), r in results.items()
-                if n == name and d == "int8" and (n, f) not in WIDENED]
+                if n == name and d == "int8" and (n, f) not in OFF_PATH_FORMS]
         n = len(main)
         nbytes = sum(r["bound"][2] for r in main) / n
         flops = sum(r["bound"][3] for r in main) / n
@@ -690,7 +756,7 @@ def table_phase(vg) -> dict:
             "nan_through_zero_weight": nan,
             "unit": "per launch, the mean of " + ", ".join(
                 f"{f}_int8" for (n, f) in TABLE_FORMS
-                if n == name and (n, f) not in WIDENED)}
+                if n == name and (n, f) not in OFF_PATH_FORMS)}
     return out
 
 
@@ -700,14 +766,15 @@ def kernel_phase(graph, index_graph) -> dict:
     in four forms each, single- and dual-output at the FluxD mesh and at
     ``index_graph`` (the FluxD-valid batch on its index route), also held
     against an f64 evaluation (``block_forms``); K3, K5 and the pair K3 ->
-    K5 at both (``chain_forms``), and the launch floor; K4 in both input
-    forms at both (``gather_forms``)."""
+    K5 at both, at both widths (``chain_forms``), and the launch floor; K4
+    in both input forms at both (``gather_forms``)."""
     dev = graph.device
     rng = np.random.default_rng(0)
+    wide_rng = np.random.default_rng(5)
 
-    def latents(n):
-        return torch.from_numpy(rng.normal(size=(n, H)).astype(np.float32)).to(
-            dev, torch.bfloat16)
+    def latents(n, rng=rng, width=H):
+        return torch.from_numpy(rng.normal(size=(n, width)).astype(
+            np.float32)).to(dev, torch.bfloat16)
 
     gen = torch.Generator().manual_seed(0)
     w_face = MLP(3 * H, H, H, generator=gen).to(dev).kernel_weights(packed=True)
@@ -716,7 +783,8 @@ def kernel_phase(graph, index_graph) -> dict:
     edges = latents(graph.num_faces)
     vtx = kernels.edges_to_vertices_ref(edges, graph)
     results = {"K4_gather_face_cells": gather_forms(graph, index_graph)}
-    chain = chain_forms(graph, index_graph, latents)
+    chain = chain_forms(graph, index_graph, latents, functools.partial(
+        latents, rng=wide_rng, width=2 * H))
     floor = floor_times(graph)
     for name, rows in (("K3_edges_to_vertices", graph.num_vertices),
                        ("K5_vertices_to_cells", graph.num_cells)):
@@ -729,8 +797,10 @@ def kernel_phase(graph, index_graph) -> dict:
             "unit": "per launch at the FvgnF mesh, back to back without the "
                     "PDL attribute (with it a launch overlaps its own next "
                     "one); forms by rows; pair: K3 -> K5 by cells, with the "
-                    "attribute as the path launches it and without; longest "
-                    f"CSR row {chain['longest_csr_row']}"}
+                    "attribute as the path launches it and without; the "
+                    "wide forms (2H-wide edge latents, H-wide vertex sums) "
+                    "with _wide; longest CSR row "
+                    f"{chain['longest_csr_row']}"}
     # one PyTorch call computing each kernel's function where there is one;
     # timed here, never used by the port. K3: index_add_ of the (2F, H/2)
     # half-rows onto their vertices (bf16 accumulation)
@@ -748,6 +818,20 @@ def kernel_phase(graph, index_graph) -> dict:
     }
     for name, call in library.items():
         results[name]["library_ms"] = gpu_ms(call)
+    # the same two calls at the wide forms' shapes, beside them at the mesh
+    wide_edges = latents(graph.num_faces, rng=wide_rng, width=2 * H)
+    wide_vtx = kernels.edges_to_vertices_ref(wide_edges, graph)
+    wide_out = torch.zeros(graph.num_vertices, H, device=dev,
+                           dtype=torch.bfloat16)
+    wide_library = {
+        ("K3_edges_to_vertices", graph.num_vertices): lambda: (
+            wide_out.index_add_(0, owner_of_row,
+                                wide_edges.view(2 * graph.num_faces, H))),
+        ("K5_vertices_to_cells", graph.num_cells): lambda: F.embedding_bag(
+            cell_vertices, wide_vtx, mode="sum"),
+    }
+    for (name, rows), call in wide_library.items():
+        results[name]["forms"][f"{rows}_wide"]["library_ms"] = gpu_ms(call)
     for name, w in (("K1_fused_face_block", w_face),
                     ("K2_fused_cell_block", w_cell)):
         results[name] = block_forms(name, graph, index_graph, w, latents)
@@ -871,22 +955,27 @@ def csr_longest_row(g) -> int:
     return int((g.vertex_inc_ptr[1:] - g.vertex_inc_ptr[:-1]).max())
 
 
-def chain_forms(graph, index_graph, latents) -> dict:
+def chain_forms(graph, index_graph, latents, wide_latents) -> dict:
     """K3 and K5 at the FvgnF mesh and at ``index_graph`` (the FluxD-valid
     batch on its index route), and the pair K3 -> K5 as FvgnF issues it,
-    each held against its plain version and timed back to back. K3 and K5
-    alone are timed without the PDL attribute: with it a kernel timed alone
-    overlaps its own next launch, which no path does. The pair is timed
-    with the attribute (each K3 may start as the K5 before it ends, as it
-    may behind the kernel ahead of it in FvgnF's step) and without. Fails if
-    the batch's longest CSR row fits in one of K3's rounds (32 incidences)."""
+    each held against its plain version and timed back to back; at H-wide
+    edge latents from ``latents`` (keyed by rows) and at the wide form's
+    2H from ``wide_latents`` (ConservativeH/J/K's, keyed by rows and
+    "_wide"). K3 and K5 alone are timed without the PDL attribute: with it
+    a kernel timed alone overlaps its own next launch, which no path does.
+    The pair is timed with the attribute (each K3 may start as the K5
+    before it ends, as it may behind the kernel ahead of it in FvgnF's
+    step) and without. Fails if the batch's longest CSR row fits in one of
+    K3's rounds (32 incidences)."""
     longest = csr_longest_row(index_graph)
     if longest <= 32:
         fail(f"the padded batch's longest CSR row has {longest} incidences: "
              "K3's round loop is not held")
     out = {"K3_edges_to_vertices": {}, "K5_vertices_to_cells": {}, "pair": {}}
-    for g in (graph, index_graph):
-        edges = latents(g.num_faces)
+    for (width, make), g in itertools.product(
+            ((H, latents), (2 * H, wide_latents)), (graph, index_graph)):
+        suffix = "" if width == H else "_wide"
+        edges = make(g.num_faces)
         vtx = kernels.edges_to_vertices_ref(edges, g)
         k3 = functools.partial(kernels.edges_to_vertices, edges, g)
         k3_ref = functools.partial(kernels.edges_to_vertices_ref, edges, g)
@@ -899,7 +988,7 @@ def chain_forms(graph, index_graph, latents) -> dict:
         def pair_ref(vtx=vtx, g=g):
             return kernels.vertices_to_cells_ref(vtx, g)
 
-        bnd = bounds(g)
+        bnd = bounds(g, width)
         b3, b5 = bnd["K3_edges_to_vertices"], bnd["K5_vertices_to_cells"]
         bnd["pair"] = _bound(b3[2] + b5[2], b3[3] + b5[3], PEAK_F32_FLOPS)
         for name, run, ref, rows in (
@@ -910,14 +999,14 @@ def chain_forms(graph, index_graph, latents) -> dict:
             torch.cuda.synchronize()
             with kernels.without_pdl():
                 ms_no_pdl = gpu_ms(run, FLOOR_ITERS)
-            form = {"max_abs_err": _compare(f"{name} at {rows} rows", got,
-                                            want, exact=False),
+            form = {"max_abs_err": _compare(f"{name} at {rows} rows{suffix}",
+                                            got, want, exact=False),
                     "ms": ms_no_pdl, "plain_ms": gpu_ms(ref),
                     "bound_ms": bnd[name][0], "bound_by": bnd[name][1]}
             if name == "pair":
                 form["ms_no_pdl"] = ms_no_pdl
                 form["ms"] = gpu_ms(run, FLOOR_ITERS)
-            out[name][str(rows)] = form
+            out[name][f"{rows}{suffix}"] = form
     out["longest_csr_row"] = {"mesh": csr_longest_row(graph),
                               "batch": longest}
     return out
@@ -940,19 +1029,21 @@ def floor_times(graph) -> dict:
     return out
 
 
-def pdl_hazard_check(graph) -> dict:
+def pdl_hazard_check(graph, width: int = H,
+                     rounds: int = HAZARD_ROUNDS) -> dict:
     """K3 and K5 start before the kernel ahead of them ends, and must not
-    read its output before their wait. For HAZARD_ROUNDS rounds a writer
+    read its output before their wait. For ``rounds`` rounds a writer
     that lets the next launch start at its own start, then idles
     HAZARD_CYCLES clock cycles, writes fresh edge latents (the sign flipped
     every round) into the buffer K3 reads right after it; then K5. K3 thus
     runs its prologue beside the writer, and K5 beside K3. Every round's
     vertex sums and cell means must agree with the plain versions on that
-    round's edges. Also times a round (writer, K3, K5) back to back with
-    and without the PDL attribute."""
+    round's edges. The edge latents are ``width`` wide (2H: the wide forms
+    of ConservativeH/J/K). Also times a round (writer, K3, K5) back to back
+    with and without the PDL attribute."""
     dev = graph.device
     gen = torch.Generator(device=dev).manual_seed(3)
-    base = torch.empty(graph.num_faces, H, dtype=torch.bfloat16,
+    base = torch.empty(graph.num_faces, width, dtype=torch.bfloat16,
                        device=dev).normal_(generator=gen)
     edges = torch.zeros_like(base)
 
@@ -961,13 +1052,13 @@ def pdl_hazard_check(graph) -> dict:
         vtx = kernels.edges_to_vertices(edges, graph)
         return vtx, kernels.vertices_to_cells(vtx, graph)
 
-    rounds = []
+    outs = []
     torch.cuda.synchronize()
-    for r in range(HAZARD_ROUNDS):
-        rounds.append(round_(r))
+    for r in range(rounds):
+        outs.append(round_(r))
     torch.cuda.synchronize()
     err = 0.0
-    for r, (vtx, cells) in enumerate(rounds):
+    for r, (vtx, cells) in enumerate(outs):
         e = -base if r % 2 else base
         err = max(err,
                   _compare(f"PDL hazard round {r}: K3", vtx,
@@ -976,8 +1067,8 @@ def pdl_hazard_check(graph) -> dict:
                            kernels.vertices_to_cells_ref(vtx, graph), False))
     with kernels.without_pdl():
         round_no_pdl = gpu_ms(functools.partial(round_, 0), 20)
-    return {"rounds": HAZARD_ROUNDS, "writer_idle_cycles": HAZARD_CYCLES,
-            "max_abs_err": err,
+    return {"rounds": rounds, "width": width,
+            "writer_idle_cycles": HAZARD_CYCLES, "max_abs_err": err,
             "ms_per_round": gpu_ms(functools.partial(round_, 0), 20),
             "ms_per_round_no_pdl": round_no_pdl}
 
@@ -2264,6 +2355,49 @@ def flux_vertpot_phase(dev, ds, train_ds, line: str) -> dict:
     return paths
 
 
+# ---- phase 9: the Conservative family -----------------------------------------
+
+def conservative_phase(dev, ds, train_ds, line: str) -> dict:
+    """Phase 9: 9a each of the ten on phase 7's mesh (as 7a: CHECK_STEPS
+    forwards against the plain route, the kernels' order in a block, then
+    LAUNCH_STEPS steps with the counters: K3 15 and K5 15 a step for F, G,
+    I at H and H, J, K at 2H, nothing for A, B, D, E), 9b ConservativeA
+    and ConservativeH timed and profiled (as 7b), 9c ConservativeH's
+    ``validate`` on FluxD-valid's batch on the table route (K6's roll form
+    15 and K7 15 a step, at 2H and H) beside its index and plain routes,
+    9d ConservativeA's and ConservativeJ's training (as 7d). Returns the
+    paths' records."""
+    t9 = time.perf_counter()
+    graph = phase7_mesh(dev)
+    paths, models = {}, {}
+    for name in CONSERVATIVE_VARIANTS:
+        paths[name], kern, feats = variant_phase(name, graph, phase="9a")
+        if name in P9_TIMED_PATHS:
+            models[name] = (kern, feats)
+    for name in P9_TIMED_PATHS:
+        kern, feats = models[name]
+        paths[f"{name}-timed"] = timed_variant(name, kern, graph, feats, line,
+                                               phase="9b")
+    paths["ConservativeH-valid"], paths["ConservativeH-valid-index"] = (
+        routes_validation("ConservativeH-valid", "ConservativeH", ds,
+                          P9_VALID_STEPS, 1, P9_VALID_TOL, "9c",
+                          "ConservativeH on FluxD-valid's batch"))
+    for name in P9_TRAINED:
+        paths[f"{name}-train"] = train_steps(name, train_ds, line, "9d",
+                                             P9_TRAIN_STEPS, P9_LOSS_WINDOW)
+    say(f"phase 9 card {line}; " + "; ".join(
+        f"{name} {p['steps_per_s']:.1f} steps/s, {p['ms_per_step']:.4f} "
+        "ms per step" + ("" if p["profile"] is None else
+                         f", device {p['profile']['device_ms_per_step']:.4f}"
+                         f" ms per step, busy "
+                         f"{100 * p['profile']['busy_share']:.1f} %, "
+                         f"{p['profile']['kernels_per_step']:g} kernels "
+                         "per step")
+        for name, p in paths.items() if name.endswith("-timed"))
+        + f"; phase 9 wall time {time.perf_counter() - t9:.1f} s")
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2300,13 +2434,16 @@ def main() -> int:
         + json.dumps(k4["rounding_cases"]) + "; launch floor at K4's grid, "
         "ms per empty launch back to back, by faces: "
         + json.dumps(k4["launch_floor_ms"]))
-    say("phase 2 K3 -> K5 pair by cells: "
+    say("phase 2 K3 -> K5 pair by cells (the wide forms with _wide): "
         + json.dumps(per_kernel["K3_edges_to_vertices"]["pair"])
         + "; launch floor, ms per empty launch back to back: "
         + json.dumps(per_kernel["K3_edges_to_vertices"]["launch_floor_ms"]))
     hazard = pdl_hazard_check(graph)
     say("phase 2 PDL hazard check, K3 -> K5 right behind a slow writer of "
         "their input: ok " + json.dumps(hazard))
+    say("phase 2 PDL hazard check at the wide forms' width, K3 -> K5 on "
+        f"{2 * H}-wide edge latents: ok " + json.dumps(pdl_hazard_check(
+            graph, 2 * H, WIDE_HAZARD_ROUNDS)))
     say("phase 2 PDL hazard check, K3 on K1's raw output right behind K1 "
         "with both outputs (MgnA's face-first block): ok "
         + json.dumps(k1_k3_hazard_check(graph)))
@@ -2358,6 +2495,7 @@ def main() -> int:
         + f"; phase 6 wall time {time.perf_counter() - t6:.1f} s")
     paths.update(families_phase(dev, ds, train_ds, line))
     paths.update(flux_vertpot_phase(dev, ds, train_ds, line))
+    paths.update(conservative_phase(dev, ds, train_ds, line))
 
     bnd = bounds(graph)
     rows = []

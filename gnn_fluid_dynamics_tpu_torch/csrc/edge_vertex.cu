@@ -5,11 +5,14 @@
 // _dual_colidx_kernel (banded_dual_colidx_pallas), wrapped there by
 // aggregate_edges_to_vertices_pallas.
 //
-// Vertex v sums, in f32, the forward halves (channels 0:64) of the edges it
-// sends and the reverse halves (channels 64:128) of the edges it receives,
-// and stores the sum as bf16 (V, 64). Viewing the (F, 128) edge latents as
-// (2F, 64) half-rows, the incidences of v are the half-rows
-// inc_row[inc_ptr[v] : inc_ptr[v + 1]] (2f + 0 sent, 2f + 1 received).
+// Vertex v sums, in f32, the forward halves (channels 0:W/2) of the edges it
+// sends and the reverse halves (channels W/2:W) of the edges it receives,
+// and stores the sum as bf16 (V, W/2). Viewing the (F, W) edge latents as
+// (2F, W/2) half-rows, the incidences of v are the half-rows
+// inc_row[inc_ptr[v] : inc_ptr[v + 1]] (2f + 0 sent, 2f + 1 received). W is
+// 128 (every model's GN block) or 256 (ConservativeH/J/K, whose twice
+// message passing takes [e_s | e_s] of their 128-wide symmetric latents);
+// the half-row width is a template parameter, one instantiation per width.
 //
 // The TPU kernel rebuilt send/receive one-hot tables on chip and multiplied
 // them with a DMA'd band of edges. Here one warp owns one vertex; no
@@ -21,10 +24,11 @@
 // and the launch's fixed cost is most of its time. The design shortens the
 // chain and hides what it can:
 //  * a round brings 32 incidence ids in one coalesced load, one per lane;
-//    the half-rows go as 16-byte loads, 8 lanes per half-row, 4 half-rows
-//    per pass, all 8 passes of a round issued before any is summed, with the
-//    next round's ids already in flight (rows past 32, as the pad vertex of
-//    a padded graph has, take more rounds);
+//    the half-rows go as 16-byte loads, HALF / 8 lanes per half-row (8 at
+//    W = 128, 16 at W = 256), 32 / (HALF / 8) half-rows per pass (4 or 2),
+//    all passes of a round issued before any is summed, with the next
+//    round's ids already in flight (rows past 32, as the pad vertex of a
+//    padded graph has, take more rounds);
 //  * it is launched by programmatic dependent launch (pdl.cuh): a warp's
 //    row bounds and first ids, constant index vectors, load while the
 //    kernel before it finishes, and K5 may start once every block of it
@@ -34,11 +38,17 @@
 
 namespace gfd {
 
-constexpr int HALF = H / 2;                    // channels of a half-row
-constexpr int ROW_LANES = 8;                   // lanes per half-row, 16 B each
-constexpr int ROWS_PER_PASS = 32 / ROW_LANES;  // half-rows per warp load
 constexpr int ROUND = 32;                      // incidence ids per round
-constexpr int PASSES = ROUND / ROWS_PER_PASS;
+
+// A warp's layout for half-rows of HALF channels: ROW_LANES lanes of 16 B
+// per half-row, ROWS_PER_PASS half-rows per warp load, PASSES loads a round.
+template <int HALF>
+struct Rows {
+  static constexpr int ROW_LANES = HALF / 8;
+  static constexpr int ROWS_PER_PASS = 32 / ROW_LANES;
+  static constexpr int PASSES = ROUND / ROWS_PER_PASS;
+  static_assert(ROW_LANES == 8 || ROW_LANES == 16, "HALF is 64 or 128");
+};
 constexpr int WARPS = 8;
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -53,40 +63,44 @@ __device__ __forceinline__ void add_bf16x8(float (&s)[8], const uint4& x) {
 }
 
 // The f32 sum of the half-rows edge[inc_row[j]], j in [start, end), in
-// channels 8q .. 8q + 7 (q = lane % 8), left in every lane. `ids` holds the
-// first round's ids (lane l: inc_row[start + l], where that lies below
-// end). Lane group g = lane / 8 sums each round's incidences g, g + 4, ... in
-// order; the four groups' sums meet by two shuffles in a fixed order, so
-// every run gives the same bits.
+// channels 8q .. 8q + 7 (q = lane % ROW_LANES), left in every lane. `ids`
+// holds the first round's ids (lane l: inc_row[start + l], where that lies
+// below end). Lane group g = lane / ROW_LANES sums each round's incidences
+// g, g + ROWS_PER_PASS, ... in order; the groups' sums meet by shuffles in
+// a fixed order (xor 8 then 16 at HALF 64, xor 16 at HALF 128), so every
+// run gives the same bits.
+template <int HALF>
 __device__ __forceinline__ void vertex_sum(const bf16* edge,
                                            const int* __restrict__ inc_row,
                                            int start, int end, int ids,
                                            int lane, float (&s)[8]) {
-  const int g = lane / ROW_LANES, q = lane % ROW_LANES;
+  using R = Rows<HALF>;
+  const int g = lane / R::ROW_LANES, q = lane % R::ROW_LANES;
 #pragma unroll
   for (int k = 0; k < 8; ++k) s[k] = 0.0f;
   for (int base = start; base < end; base += ROUND) {
     const int next = base + ROUND + lane;
     const int next_ids = next < end ? inc_row[next] : 0;
     const int n = min(end - base, ROUND);
-    uint4 x[PASSES];
+    uint4 x[R::PASSES];
 #pragma unroll
-    for (int p = 0; p < PASSES; ++p) {
-      const int i = p * ROWS_PER_PASS + g;
+    for (int p = 0; p < R::PASSES; ++p) {
+      const int i = p * R::ROWS_PER_PASS + g;
       const int row = __shfl_sync(FULL, ids, i);
       x[p] = i < n ? reinterpret_cast<const uint4*>(edge + (size_t)row * HALF)[q]
                    : make_uint4(0, 0, 0, 0);
     }
 #pragma unroll
-    for (int p = 0; p < PASSES; ++p) add_bf16x8(s, x[p]);  // + 0 is exact
+    for (int p = 0; p < R::PASSES; ++p) add_bf16x8(s, x[p]);  // + 0 is exact
     ids = next_ids;
   }
 #pragma unroll
-  for (int k = 0; k < 8; ++k) s[k] += __shfl_xor_sync(FULL, s[k], 8);
+  for (int m = R::ROW_LANES; m < 32; m *= 2)
 #pragma unroll
-  for (int k = 0; k < 8; ++k) s[k] += __shfl_xor_sync(FULL, s[k], 16);
+    for (int k = 0; k < 8; ++k) s[k] += __shfl_xor_sync(FULL, s[k], m);
 }
 
+template <int HALF>
 __global__ void __launch_bounds__(WARPS * 32)
 edge_vertex_kernel(const bf16* edge, const int* __restrict__ ptr,
                    const int* __restrict__ inc_row, int n_vertices,
@@ -104,8 +118,8 @@ edge_vertex_kernel(const bf16* edge, const int* __restrict__ ptr,
   pdl_wait();
   if (v >= n_vertices) return;
   float s[8];
-  vertex_sum(edge, inc_row, start, end, ids, lane, s);
-  if (lane < ROW_LANES) {
+  vertex_sum<HALF>(edge, inc_row, start, end, ids, lane, s);
+  if (lane < Rows<HALF>::ROW_LANES) {
     uint4 o;
     __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&o);
 #pragma unroll
@@ -138,18 +152,22 @@ __global__ void slow_writer_kernel(const bf16* src, int n, int negate,
 
 }  // namespace gfd
 
-// Launches K3 on `stream`; returns the CUDA error code (0 on success).
+// Launches K3 on `stream` for (F, width) edge latents, width 128 or 256;
+// returns the CUDA error code (0 on success).
 extern "C" int gfd_edge_vertex(int device, const void* edge, const void* ptr,
-                               const void* inc_row, int n_vertices, void* out,
-                               void* stream) {
+                               const void* inc_row, int n_vertices, int width,
+                               void* out, void* stream) {
   using namespace gfd;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
+  if (width != H && width != 2 * H) return cudaErrorInvalidValue;
   if (n_vertices == 0) return cudaSuccess;
   const int blocks = (n_vertices + WARPS - 1) / WARPS;
-  return launch_pdl(edge_vertex_kernel, dim3(blocks), dim3(WARPS * 32),
-                    (cudaStream_t)stream, (const bf16*)edge, (const int*)ptr,
-                    (const int*)inc_row, n_vertices, (bf16*)out);
+  return launch_pdl(width == H ? edge_vertex_kernel<H / 2>
+                               : edge_vertex_kernel<H>,
+                    dim3(blocks), dim3(WARPS * 32), (cudaStream_t)stream,
+                    (const bf16*)edge, (const int*)ptr, (const int*)inc_row,
+                    n_vertices, (bf16*)out);
 }
 
 // Launches the empty kernel on `stream` with `blocks` x `threads` through

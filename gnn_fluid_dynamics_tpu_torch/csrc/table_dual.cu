@@ -16,12 +16,14 @@
 // a dense product, as on the TPU: every weight is multiplied, so a zero
 // weight times a NaN source row gives NaN. What it stores:
 //
-// * with the roll (es/er): only the vertex sum, bf16(A[:, 0:64] +
-//   Bt[:, 64:128]), a (rows, 64) array. The TPU kernel stores the whole
-//   A + roll(Bt, 64) row, but its consumer keeps lanes 0:64 only
-//   (pallas_agg.py:471); this is K3's output, the same function on the
-//   other representation.
-// * without (cf): two bf16 (rows, 128) arrays, A and Bt.
+// * with the roll (es/er): only the vertex sum, bf16(A[:, 0:W/2] +
+//   Bt[:, W/2:W]), a (rows, W/2) array, for a (S, W) source of W = 128
+//   channels or, in the wide form, 256 (ConservativeH/J/K's twice message
+//   passing on [e_s | e_s]). The TPU kernel stores the whole A + roll(Bt,
+//   W/2) row, but its consumer keeps lanes 0:W/2 only (pallas_agg.py:471);
+//   this is K3's output, the same function on the other representation.
+// * without (cf): two bf16 (rows, 128) arrays, A and Bt (128 channels
+//   only).
 //
 // The tables are read as the graph carries them: int8, bf16 or f32.
 //
@@ -69,10 +71,13 @@
 //   warps have arrived on its `empty` barrier, which they do once the
 //   products that read it are done. The ring takes any band width and runs
 //   on from one tile into the block's next.
-// * With the roll the output is one (128 x 64) accumulator over k = 2B: the
-//   first B steps take oh_a with the band's channels 0:64, the next B take
-//   oh_b with channels 64:128; m64n64k16 products. The add of the roll
-//   costs nothing.
+// * With the roll the output is one (128 x W/2) accumulator over k = 2B:
+//   the first B steps take oh_a with the band's channels 0:W/2, the next B
+//   take oh_b with channels W/2:W; m64n64k16 products at W = 128, one band
+//   box a unit. The add of the roll costs nothing. The wide form (W = 256)
+//   holds a (128 x 128) accumulator, 64 f32 registers a thread, and takes
+//   m64n128k16 products, the n-tiles of the form without the roll: a unit
+//   brings both 64-channel boxes of its half, side by side in the stage.
 // * Without the roll, two (128 x 128) accumulators in one block, 128 f32
 //   registers a thread: m64n128k16 products, one per table and step, B
 //   both channel halves (two boxes, side by side in the stage). Chosen over
@@ -94,20 +99,25 @@ constexpr unsigned FULL_MASK = 0xffffffffu;
 
 // How a block walks its tables. A unit is the table columns of one
 // 128-byte box per table row (128 int8, 64 bf16 or 32 f32 columns, STEPS
-// product steps) and the matching band rows; a stage of the ring holds one.
-// GROUP steps are one wgmma group, whose fragments take 32 registers or
-// fewer.
-template <typename T, bool ROLL>
+// product steps) and the matching band rows, in BOXES boxes of 64 channels;
+// a stage of the ring holds one. GROUP steps are one wgmma group, whose
+// fragments take 32 registers or fewer. WIDE: the roll form on a 256-channel
+// source.
+template <typename T, bool ROLL, bool WIDE = false>
 struct Plan {
+  static_assert(ROLL || !WIDE, "only the roll form takes 256 channels");
   static constexpr int TABLES = ROLL ? 1 : 2;  // tables per product step
-  static constexpr int NT = ROLL ? 8 : 16;     // n-tiles of 8 per table
+  static constexpr int WIDTH = WIDE ? 2 * H : H;  // the source's channels
+  static constexpr int OUT = ROLL ? WIDTH / 2 : WIDTH;  // stored per table
+  static constexpr int BOXES = OUT / BOX_COLS;  // band boxes per unit
+  static constexpr int NT = OUT / 8;            // n-tiles of 8 per table
   static constexpr int UNIT_COLS = 128 / (int)sizeof(T);
   static constexpr int STEPS = UNIT_COLS / 16;
   static constexpr int GROUP = ROLL || STEPS < 4 ? STEPS : 4;
   static constexpr int GROUPS = STEPS / GROUP;  // per unit
   static constexpr int BAND_BOX = UNIT_COLS * BOX_COLS * 2;  // bytes
   static constexpr int STAGE_BYTES =
-      TABLES * SLICE_BYTES + (ROLL ? 1 : 2) * BAND_BOX;
+      TABLES * SLICE_BYTES + BOXES * BAND_BOX;
   static constexpr int RING = 192 * 1024;
   static constexpr int STAGES =
       RING / STAGE_BYTES > 8 ? 8 : RING / STAGE_BYTES;
@@ -119,8 +129,8 @@ struct Plan {
 };
 
 // A unit's tables and channel half: with the roll every chunk of 128 rows
-// with oh_a in channels 0:64, then every chunk with oh_b in channels
-// 64:128; without, each chunk with both tables and both halves.
+// with oh_a in channels 0:W/2, then every chunk with oh_b in channels
+// W/2:W; without, each chunk with both tables and both halves.
 template <bool ROLL>
 __device__ __forceinline__ void unit_coords(int u, int chunks, int& chunk,
                                             int& half) {
@@ -230,7 +240,7 @@ __device__ __forceinline__ void store_rows(bf16* out, int ld,
     }
 }
 
-template <typename T, bool ROLL>
+template <typename T, bool ROLL, bool WIDE>
 __global__ void __launch_bounds__(THREADS, 1)
 table_dual_kernel(const __grid_constant__ CUtensorMap map_a,
                   const __grid_constant__ CUtensorMap map_b,
@@ -238,7 +248,7 @@ table_dual_kernel(const __grid_constant__ CUtensorMap map_a,
                   const __grid_constant__ CUtensorMap band_map, int band,
                   int tiles, bf16* __restrict__ out_a,
                   bf16* __restrict__ out_b) {
-  using P = Plan<T, ROLL>;
+  using P = Plan<T, ROLL, WIDE>;
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t full = smem_addr(smem), empty = full + 8 * P::STAGES;
   const uint32_t ring = (full + 16 * P::STAGES + 1023) & ~1023u;
@@ -278,8 +288,8 @@ table_dual_kernel(const __grid_constant__ CUtensorMap map_a,
                        chunk * P::UNIT_COLS, row0, bar, read_once);
       const uint32_t bands = stage + P::TABLES * SLICE_BYTES;
 #pragma unroll
-      for (int h = 0; h < (ROLL ? 1 : 2); ++h) {
-        const int x = (half + h) * BOX_COLS;
+      for (int h = 0; h < P::BOXES; ++h) {
+        const int x = (half * P::BOXES + h) * BOX_COLS;
         const int y = src_off[tile] + chunk * P::UNIT_COLS;
         if constexpr (P::PERMUTED)
           tensor_copy_5d(bands + h * P::BAND_BOX, &band_map, x, y, 0, 0, 0,
@@ -341,7 +351,7 @@ table_dual_kernel(const __grid_constant__ CUtensorMap map_a,
           band_desc(bands + step * 16 * BOX_COLS * 2, P::BAND_BOX);
 #pragma unroll
       for (int t = 0; t < P::TABLES; ++t) {
-        if constexpr (ROLL)
+        if constexpr (P::NT == 8)
           wgmma_rs64<true>(&acc[t][0][0], a[t][s], desc, 1);
         else
           wgmma_rs<true>(&acc[t][0][0], a[t][s], desc, 1);
@@ -373,7 +383,7 @@ table_dual_kernel(const __grid_constant__ CUtensorMap map_a,
     const int r = tile_of(tl * per_tile) * TABLE_TILE + 16 * warp + lane / 4;
     const int q = lane % 4;
     if constexpr (ROLL) {
-      store_rows<P::NT>(out_a + (size_t)r * (H / 2), H / 2, acc[0], q);
+      store_rows<P::NT>(out_a + (size_t)r * P::OUT, P::OUT, acc[0], q);
     } else {
       store_rows<P::NT>(out_a + (size_t)r * H, H, acc[0], q);
       store_rows<P::NT>(out_b + (size_t)r * H, H, acc[1], q);
@@ -388,21 +398,22 @@ table_dual_kernel(const __grid_constant__ CUtensorMap map_a,
   release_upto(units);
 }
 
-template <typename T, bool ROLL>
+template <typename T, bool ROLL, bool WIDE>
 cudaError_t launch(int device, const CUtensorMap& map_a,
                    const CUtensorMap& map_b, const void* src_off,
                    const CUtensorMap& band, int n_rows, int band_rows,
                    void* out_a, void* out_b, cudaStream_t stream) {
+  using P = Plan<T, ROLL, WIDE>;
   static std::atomic<uint64_t> opted_in{0};
   const cudaError_t err =
-      smem_opt_in_once((const void*)table_dual_kernel<T, ROLL>, device,
-                       Plan<T, ROLL>::SMEM, opted_in);
+      smem_opt_in_once((const void*)table_dual_kernel<T, ROLL, WIDE>, device,
+                       P::SMEM, opted_in);
   if (err != cudaSuccess) return err;
   const int sms = sm_count(device);
   if (sms <= 0) return cudaErrorInvalidDevice;
   const int tiles = n_rows / TABLE_TILE;
-  table_dual_kernel<T, ROLL>
-      <<<tiles < sms ? tiles : sms, THREADS, Plan<T, ROLL>::SMEM, stream>>>(
+  table_dual_kernel<T, ROLL, WIDE>
+      <<<tiles < sms ? tiles : sms, THREADS, P::SMEM, stream>>>(
           map_a, map_b, (const int*)src_off, band, band_rows, tiles,
           (bf16*)out_a, (bf16*)out_b);
   return cudaGetLastError();
@@ -412,37 +423,44 @@ template <typename T>
 cudaError_t launch_table_dual(int device, const void* oh_a, const void* oh_b,
                               const void* src_off, const void* src,
                               int src_rows, int n_rows, int band, int roll,
-                              void* out_a, void* out_b, cudaStream_t stream) {
+                              int width, void* out_a, void* out_b,
+                              cudaStream_t stream) {
   CUtensorMap map_a, map_b, band_map_;
   cudaError_t err = table_map(device, oh_a, n_rows, band, sizeof(T), &map_a);
   if (err == cudaSuccess)
     err = table_map(device, oh_b, n_rows, band, sizeof(T), &map_b);
   if (err == cudaSuccess)
-    err = band_map(device, src, src_rows, H, Plan<T, true>::PERMUTED,
+    err = band_map(device, src, src_rows, width, Plan<T, true>::PERMUTED,
                    Plan<T, true>::UNIT_COLS, &band_map_);
   if (err != cudaSuccess) return err;
-  return roll ? launch<T, true>(device, map_a, map_b, src_off, band_map_,
-                                n_rows, band, out_a, nullptr, stream)
-              : launch<T, false>(device, map_a, map_b, src_off, band_map_,
-                                 n_rows, band, out_a, out_b, stream);
+  if (!roll)
+    return launch<T, false, false>(device, map_a, map_b, src_off, band_map_,
+                                   n_rows, band, out_a, out_b, stream);
+  return width == H
+             ? launch<T, true, false>(device, map_a, map_b, src_off,
+                                      band_map_, n_rows, band, out_a, nullptr,
+                                      stream)
+             : launch<T, true, true>(device, map_a, map_b, src_off, band_map_,
+                                     n_rows, band, out_a, nullptr, stream);
 }
 
 }  // namespace gfd
 
 // Launches K6 on `stream`; returns the CUDA error code (0 on success).
 // table_dtype: 0 int8, 1 bf16, 2 f32. n_rows = tiles * 128; band is a
-// multiple of 128, at most 1,792; src is (src_rows, 128) bf16. With roll,
-// out_a is (n_rows, 64) and out_b unused; else both are (n_rows, 128).
+// multiple of 128, at most 1,792; src is (src_rows, width) bf16, width 128,
+// or 256 with roll. With roll, out_a is (n_rows, width / 2) and out_b
+// unused; else both are (n_rows, 128).
 extern "C" int gfd_table_dual(int device, const void* oh_a, const void* oh_b,
                               const void* src_off, const void* src,
                               int src_rows, int n_rows, int band,
-                              int table_dtype, int roll, void* out_a,
-                              void* out_b, void* stream) {
+                              int table_dtype, int roll, int width,
+                              void* out_a, void* out_b, void* stream) {
   using namespace gfd;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (n_rows % TABLE_TILE || band % BOX || band <= 0 || band > MAX_BAND ||
-      src_rows < band)
+      src_rows < band || !(width == H || (roll && width == 2 * H)))
     return cudaErrorInvalidValue;
   if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
   if (n_rows == 0) return cudaSuccess;
@@ -450,16 +468,16 @@ extern "C" int gfd_table_dual(int device, const void* oh_a, const void* oh_b,
   switch (table_dtype) {
     case 0:
       return launch_table_dual<int8_t>(device, oh_a, oh_b, src_off, src,
-                                       src_rows, n_rows, band, roll, out_a,
-                                       out_b, s);
+                                       src_rows, n_rows, band, roll, width,
+                                       out_a, out_b, s);
     case 1:
       return launch_table_dual<bf16>(device, oh_a, oh_b, src_off, src,
-                                     src_rows, n_rows, band, roll, out_a,
-                                     out_b, s);
+                                     src_rows, n_rows, band, roll, width,
+                                     out_a, out_b, s);
     case 2:
       return launch_table_dual<float>(device, oh_a, oh_b, src_off, src,
-                                      src_rows, n_rows, band, roll, out_a,
-                                      out_b, s);
+                                      src_rows, n_rows, band, roll, width,
+                                      out_a, out_b, s);
     default:
       return cudaErrorInvalidValue;
   }

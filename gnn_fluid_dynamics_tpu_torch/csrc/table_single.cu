@@ -15,8 +15,9 @@
 // every table weight rounded to bf16 first, as the TPU kernel's
 // oh.astype(band.dtype) does (int8 weights are exact in bf16; vc stores 3
 // on a padded cell, whose three vertices are all the pad vertex). The
-// source is K6's bf16 (V, 64) vertex sum (the lanes the TPU wrapper keeps,
-// pallas_agg.py:471). The TPU kernel stores bf16(s) and its wrapper casts
+// source is K6's bf16 (V, HALF) vertex sum (the lanes the TPU wrapper keeps,
+// pallas_agg.py:471): HALF 64, or 128 behind K6's wide roll form
+// (ConservativeH/J/K), a template parameter. The TPU kernel stores bf16(s) and its wrapper casts
 // that to f32 and divides by 3 (pallas_agg.py:471-473); this kernel stores
 // the f32 mean, with the wrapper's rounding points. The product is dense,
 // as on the TPU: a zero weight times a NaN source gives NaN.
@@ -27,13 +28,18 @@
 // dense product is 0.9 GFLOP, under 1 us on the tensor cores.
 //
 // Design: one block of 8 warps per tile (128 cells), warp w taking cells
-// 16w..16w+15 and all 64 channels (8 n-tiles of mma.sync m16n8k16, bf16 x
-// bf16 -> f32): the tile's 8 warps share one copy of its band (measured
-// faster than two 64-cell blocks, which load it twice; PERF.md §6).
-// * The band (B rows of 128 bytes) goes to shared memory whole, as boxes of
-//   128 rows by bulk tensor copies, each box on its own mbarrier, all
-//   issued by one thread at the start; the product starts on a box as soon
-//   as it lands.
+// 16w..16w+15 and all HALF channels (HALF / 8 n-tiles of mma.sync
+// m16n8k16, bf16 x bf16 -> f32): the tile's 8 warps share one copy of its
+// band (measured faster than two 64-cell blocks, which load it twice;
+// PERF.md §6).
+// * The band (B rows of 2 HALF bytes) goes to shared memory whole, as boxes
+//   of 128 rows by 64 channels by bulk tensor copies, each 128 rows on
+//   their own mbarrier, all issued by one thread at the start; the product
+//   starts on a box as soon as it lands. A whole band must fit one block's
+//   shared memory: at HALF 64 the widest band, 1,792 rows, takes 230,528
+//   bytes; at HALF 128 each row is twice as wide, so the wide form takes
+//   bands of at most 896 rows (MAX_BAND_WIDE, the same bytes), which the
+//   wrapper checks.
 // * The table goes straight from device memory into registers, a chunk of
 //   128 columns ahead of the product, in the permuted k order of
 //   table_mma.cuh (with `swap` for q >= 2), which also holds the word
@@ -51,13 +57,16 @@
 namespace gfd {
 
 constexpr int ROWS = TABLE_TILE;  // cells per block: a whole tile
-constexpr int HALF = 64;         // the vertex sums' width
 constexpr int THREADS = ROWS / 16 * 32;  // a warp per 16 cells
 constexpr int BAR_BYTES = 8 * 16;
+constexpr int MAX_BAND_WIDE = MAX_BAND / 2;  // the widest band at HALF 128
 
-// Shared memory for a band of `band` rows: the barriers, then the band,
-// aligned to 1,024 bytes as the 128-byte swizzle requires.
-inline int smem_bytes(int band) { return BAR_BYTES + 1024 + band * HALF * 2; }
+// Shared memory for a band of `band` rows of `half` channels: the
+// barriers, then the band, aligned to 1,024 bytes as the 128-byte swizzle
+// requires.
+inline int smem_bytes(int band, int half) {
+  return BAR_BYTES + 1024 + band * half * 2;
+}
 
 // Where this lane's ldmatrix.trans reads in a box: lane l gives a row of
 // block l / 8 (k positions 0-7 or 8-15, channels n or n + 8), the band row
@@ -88,7 +97,7 @@ __device__ __forceinline__ void mma_16816(float* d, const uint32_t (&a)[4],
 
 // One mma step over a box's 64 channels: `step` is the shared address of
 // the box plus the step's 16 rows (box + 16 * s * 128), and acc[0..7] the
-// 8 n-tiles of 8 channels.
+// box's 8 n-tiles of 8 channels.
 __device__ __forceinline__ void box_step(uint32_t step, const BandLane& b,
                                          const uint32_t (&a)[4],
                                          float (*acc)[4]) {
@@ -118,12 +127,14 @@ __device__ __forceinline__ void load_words(typename Word<T>::type (*w)[8],
   }
 }
 
-template <typename T>
+template <typename T, int HALF>
 __global__ void __launch_bounds__(THREADS)
 table_single_kernel(const T* __restrict__ oh, const int* __restrict__ src_off,
                     const __grid_constant__ CUtensorMap band_map, int band,
                     float* __restrict__ out) {
   typedef typename Word<T>::type W;
+  constexpr int CBOXES = HALF / BOX_COLS;  // channel boxes per 128 rows
+  constexpr int NT = HALF / 8;             // n-tiles of 8 channels
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t bars = smem_addr(smem);
   const uint32_t band_base = (bars + BAR_BYTES + 1023) & ~1023u;
@@ -138,8 +149,10 @@ table_single_kernel(const T* __restrict__ oh, const int* __restrict__ src_off,
     const int off = src_off[row0 / TABLE_TILE];
     for (int b = 0; b < boxes; ++b) {
       mbar_expect_tx(bars + 8 * b, BOX * HALF * 2);
-      tensor_copy_2d(band_base + b * BOX * HALF * 2, &band_map, 0,
-                     off + b * BOX, bars + 8 * b);
+#pragma unroll
+      for (int cb = 0; cb < CBOXES; ++cb)
+        tensor_copy_2d(band_base + (b * CBOXES + cb) * BOX_BYTES, &band_map,
+                       cb * BOX_COLS, off + b * BOX, bars + 8 * b);
     }
   }
 
@@ -151,7 +164,7 @@ table_single_kernel(const T* __restrict__ oh, const int* __restrict__ src_off,
   W cur[2][8], nxt[2][8];
   load_words<T>(cur, r0, r1, 0);
   __syncthreads();  // the barriers are initialised
-  float acc[8][4] = {};
+  float acc[NT][4] = {};
   for (int c = 0; c < boxes; ++c) {
     if (c + 1 < boxes) load_words<T>(nxt, r0, r1, (c + 1) * BOX);
     mbar_wait(bars + 8 * c, 0);
@@ -159,7 +172,11 @@ table_single_kernel(const T* __restrict__ oh, const int* __restrict__ src_off,
     for (int s = 0; s < 8; ++s) {
       uint32_t a[4];
       a_fragment(cur[0][s], cur[1][s], q >= 2, a);
-      box_step(band_base + (c * BOX + 16 * s) * HALF * 2, bl, a, acc);
+#pragma unroll
+      for (int cb = 0; cb < CBOXES; ++cb)
+        box_step(band_base + (c * CBOXES + cb) * BOX_BYTES +
+                     16 * s * BOX_COLS * 2,
+                 bl, a, acc + 8 * cb);
     }
 #pragma unroll
     for (int r = 0; r < 2; ++r)
@@ -172,7 +189,7 @@ table_single_kernel(const T* __restrict__ oh, const int* __restrict__ src_off,
   // n-tiles, so each holds 4 neighbouring channels: 16-byte stores.
   float* base = out + (row0 + warp * 16 + g) * HALF;
 #pragma unroll
-  for (int j = 0; j < 8; j += 2) {
+  for (int j = 0; j < NT; j += 2) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       float v[2][2];
@@ -195,53 +212,66 @@ table_single_kernel(const T* __restrict__ oh, const int* __restrict__ src_off,
   }
 }
 
-template <typename T>
+template <typename T, int HALF>
 cudaError_t launch_table_single(int device, const void* oh, const void* src_off,
                                 const CUtensorMap& map, int n_rows, int band,
                                 void* out, cudaStream_t stream) {
   // opted in once per device at the largest band's size
   static std::atomic<uint64_t> opted_in{0};
-  cudaError_t err =
-      smem_opt_in_once((const void*)table_single_kernel<T>, device,
-                       smem_bytes(MAX_BAND), opted_in);
+  cudaError_t err = smem_opt_in_once(
+      (const void*)table_single_kernel<T, HALF>, device,
+      smem_bytes(HALF == H / 2 ? MAX_BAND : MAX_BAND_WIDE, HALF), opted_in);
   if (err != cudaSuccess) return err;
-  table_single_kernel<T><<<n_rows / ROWS, THREADS, smem_bytes(band), stream>>>(
-      (const T*)oh, (const int*)src_off, map, band, (float*)out);
+  table_single_kernel<T, HALF>
+      <<<n_rows / ROWS, THREADS, smem_bytes(band, HALF), stream>>>(
+          (const T*)oh, (const int*)src_off, map, band, (float*)out);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_table_single(int device, const void* oh, const void* src_off,
+                                const CUtensorMap& map, int n_rows, int band,
+                                int half, void* out, cudaStream_t stream) {
+  return half == H / 2
+             ? launch_table_single<T, H / 2>(device, oh, src_off, map, n_rows,
+                                             band, out, stream)
+             : launch_table_single<T, H>(device, oh, src_off, map, n_rows,
+                                         band, out, stream);
 }
 
 }  // namespace gfd
 
 // Launches K7 on `stream`; returns the CUDA error code (0 on success).
-// table_dtype: 0 int8, 1 bf16, 2 f32. n_rows = tiles * 128; band is a
-// multiple of 128, at most 1,792; src is (src_rows, 64) bf16, out
-// (n_rows, 64) f32.
+// table_dtype: 0 int8, 1 bf16, 2 f32. n_rows = tiles * 128; src is
+// (src_rows, half) bf16, half 64 or 128, out (n_rows, half) f32; band is a
+// multiple of 128, at most 1,792 at half 64 and 896 at half 128.
 extern "C" int gfd_table_single(int device, const void* oh, const void* src_off,
                                 const void* src, int src_rows, int n_rows,
-                                int band, int table_dtype, void* out,
+                                int band, int table_dtype, int half, void* out,
                                 void* stream) {
   using namespace gfd;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
+  if (half != H / 2 && half != H) return cudaErrorInvalidValue;
   if (n_rows % TABLE_TILE || band % BOX || band <= 0 ||
-      band > MAX_BAND || src_rows < band)
+      band > (half == H ? MAX_BAND_WIDE : MAX_BAND) || src_rows < band)
     return cudaErrorInvalidValue;
   if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
   if (n_rows == 0) return cudaSuccess;
   CUtensorMap map;
-  err = band_map(device, src, src_rows, HALF, false, BOX, &map);
+  err = band_map(device, src, src_rows, half, false, BOX, &map);
   if (err != cudaSuccess) return err;
   cudaStream_t s = (cudaStream_t)stream;
   switch (table_dtype) {
     case 0:
       return launch_table_single<int8_t>(device, oh, src_off, map, n_rows,
-                                         band, out, s);
+                                         band, half, out, s);
     case 1:
       return launch_table_single<bf16>(device, oh, src_off, map, n_rows, band,
-                                       out, s);
+                                       half, out, s);
     case 2:
       return launch_table_single<float>(device, oh, src_off, map, n_rows, band,
-                                        out, s);
+                                        half, out, s);
     default:
       return cudaErrorInvalidValue;
   }

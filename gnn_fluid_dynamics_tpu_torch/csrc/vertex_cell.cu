@@ -5,7 +5,8 @@
 // aggregate_vertices_to_cells_pallas, together with that wrapper's epilogue.
 //
 // Per cell c with vertices v0, v1, v2 (vertex_face): the f32 sum
-// (x[v0] + x[v1]) + x[v2] of three rows of K3's bf16 (V, 64) vertex sums,
+// (x[v0] + x[v1]) + x[v2] of three rows of K3's bf16 (V, HALF) vertex sums
+// (HALF 64, or 128 behind K3's wide form: a template parameter),
 // rounded to bf16 (the TPU kernel's output dtype is its source's), then
 // divided by 3 in f32 (pallas_agg.py:471-473). The kernel stores that f32
 // mean, so the wrapper's cast and division cost no launches of their own;
@@ -15,9 +16,10 @@
 // B), the three vertex ids (12 B per cell) and writes 256 B per cell: 1.17
 // MB at the rollout's 1,899 vertices and 3,462 cells, 0.35 us at 3.35 TB/s.
 // Each cell is two dependent round trips (its vertex ids, then its three
-// rows), and the launch's fixed cost is most of its time. Design: 8 threads
-// per cell, each summing one 16-byte chunk (8 bf16) of the three rows in
-// f32 registers and storing 32 bytes of the f32 mean. It is launched by
+// rows), and the launch's fixed cost is most of its time. Design: HALF / 8
+// threads per cell (8, or 16 at HALF 128), each summing one 16-byte chunk
+// (8 bf16) of the three rows in f32 registers and storing 32 bytes of the
+// f32 mean. It is launched by
 // programmatic dependent launch (pdl.cuh) behind K3: a thread loads its
 // cell's vertex ids (a constant index vector) while K3 still runs, waits,
 // and then issues its three row loads and its stores. No shared memory and
@@ -27,15 +29,15 @@
 
 namespace gfd {
 
-constexpr int HALF = H / 2;
-constexpr int VTX_CHUNKS = HALF / 8;                 // 16-byte chunks per row
 constexpr int MEAN_THREADS = 256;
-constexpr int CELLS_PER_BLOCK = MEAN_THREADS / VTX_CHUNKS;
 
+template <int HALF>
 __global__ void __launch_bounds__(MEAN_THREADS)
 vertex_cell_kernel(const bf16* vtx, const int* __restrict__ v0,
                    const int* __restrict__ v1, const int* __restrict__ v2,
                    int n_cells, float* out) {
+  constexpr int VTX_CHUNKS = HALF / 8;               // 16-byte chunks per row
+  constexpr int CELLS_PER_BLOCK = MEAN_THREADS / VTX_CHUNKS;
   const int c = blockIdx.x * CELLS_PER_BLOCK + threadIdx.x / VTX_CHUNKS;
   const int q = threadIdx.x % VTX_CHUNKS;
   int i0 = 0, i1 = 0, i2 = 0;  // before the wait: the constant vertex ids
@@ -67,16 +69,21 @@ vertex_cell_kernel(const bf16* vtx, const int* __restrict__ v0,
 
 }  // namespace gfd
 
-// Launches K5 on `stream`; returns the CUDA error code (0 on success).
+// Launches K5 on `stream` for (V, half) vertex sums, half 64 or 128;
+// returns the CUDA error code (0 on success).
 extern "C" int gfd_vertex_cell(int device, const void* vtx, const void* v0,
                                const void* v1, const void* v2, int n_cells,
-                               void* out, void* stream) {
+                               int half, void* out, void* stream) {
   using namespace gfd;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
+  if (half != H / 2 && half != H) return cudaErrorInvalidValue;
   if (n_cells == 0) return cudaSuccess;
-  const int blocks = (n_cells + CELLS_PER_BLOCK - 1) / CELLS_PER_BLOCK;
-  return launch_pdl(vertex_cell_kernel, dim3(blocks), dim3(MEAN_THREADS),
-                    (cudaStream_t)stream, (const bf16*)vtx, (const int*)v0,
-                    (const int*)v1, (const int*)v2, n_cells, (float*)out);
+  const int cells_per_block = MEAN_THREADS / (half / 8);
+  const int blocks = (n_cells + cells_per_block - 1) / cells_per_block;
+  return launch_pdl(half == H / 2 ? vertex_cell_kernel<H / 2>
+                                  : vertex_cell_kernel<H>,
+                    dim3(blocks), dim3(MEAN_THREADS), (cudaStream_t)stream,
+                    (const bf16*)vtx, (const int*)v0, (const int*)v1,
+                    (const int*)v2, n_cells, (float*)out);
 }

@@ -124,22 +124,25 @@ def block_route(cfg: ArchConfig, graph, latent: torch.Tensor, extra=None,
 
 def _init_dense(layer: nn.Linear, generator: torch.Generator) -> None:
     """Flax ``Dense``'s init: LeCun-normal kernel truncated at 2 std, zero
-    bias."""
+    bias (where the layer has one)."""
     std = (1.0 / layer.in_features) ** 0.5 / 0.87962566103423978
     with torch.no_grad():
         nn.init.trunc_normal_(layer.weight, 0.0, std, -2 * std, 2 * std,
                               generator=generator)
-        nn.init.zeros_(layer.bias)
+        if layer.bias is not None:
+            nn.init.zeros_(layer.bias)
 
 
 def _flax_layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
     """LayerNorm as Flax computes it: f32 statistics with var = E[x^2] -
     mean^2 clamped at 0, eps 1e-5 (the reference's torch default), result in
-    ``x``'s dtype."""
+    ``x``'s dtype; a LayerNorm without bias adds none."""
     xf = x.float()
     mu = xf.mean(dim=-1, keepdim=True)
     var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mu * mu, min=0.0)
-    y = (xf - mu) * (torch.rsqrt(var + ln.eps) * ln.weight) + ln.bias
+    y = (xf - mu) * (torch.rsqrt(var + ln.eps) * ln.weight)
+    if ln.bias is not None:
+        y = y + ln.bias
     return y.to(x.dtype)
 
 
@@ -216,13 +219,66 @@ class MLP(nn.Module):
         return self._kernel_cache[1]
 
 
+class AntisymMLP(nn.Module):
+    """Bias-free tanh MLP for antisymmetric edge features: an odd activation
+    and no bias keep f(-x) = -f(x) (reference
+    ``Conservative.build_mlp_antisym``, Conservative.py:31-43). Always f32,
+    whatever the compute dtype; no dropout. The optional LayerNorm has a
+    scale and no bias."""
+
+    def __init__(self, in_size: int, hidden: int, out_size: int,
+                 layer_norm: bool = False,
+                 generator: torch.Generator = None):
+        super().__init__()
+        self.dense0 = nn.Linear(in_size, hidden, bias=False)
+        self.dense1 = nn.Linear(hidden, hidden, bias=False)
+        self.dense2 = nn.Linear(hidden, out_size, bias=False)
+        self.layer_norm = (nn.LayerNorm(out_size, eps=1e-5, bias=False)
+                           if layer_norm else None)
+        for layer in (self.dense0, self.dense1, self.dense2):
+            _init_dense(layer, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = torch.tanh(self.dense0(x))
+        h = torch.tanh(self.dense1(h))
+        h = self.dense2(h)
+        return h if self.layer_norm is None else _flax_layer_norm(
+            h, self.layer_norm)
+
+
+def aggregate_faces_to_cells(edge_attr: torch.Tensor, graph,
+                             antisym: bool) -> torch.Tensor:
+    """The Conservative family's direct face -> cell two-way aggregation
+    (reference ``Conservative.py:243-254, 636-652``) as a gather over each
+    cell's 3 faces, weighted per slot: antisymmetric, the negated
+    ``cell_face_sign`` (+1 where the cell is the neighbour, -1 where it
+    owns the face) and 0 on a boundary self-loop (its +e/-e pair cancels);
+    symmetric, 1 and 2 on a boundary self-loop (the cell takes both
+    copies). Pad slots weigh as ``face_index``/``cell_face_sign`` of the
+    padded graph say. (F, W) -> (C, W) in ``edge_attr``'s dtype; no
+    kernel, as in the JAX package."""
+    gface = graph.face_index.T                                # (C, 3)
+    e = edge_attr[gface]                                      # (C, 3, W)
+    boundary = graph.face_boundary_mask[gface]
+    sign = graph.cell_face_sign.to(edge_attr.dtype)
+    if antisym:
+        w = torch.where(boundary, torch.zeros_like(sign), -sign)
+    else:
+        w = torch.where(boundary, torch.full_like(sign, 2.0),
+                        torch.ones_like(sign))
+    return torch.sum(e * w[..., None], dim=1)
+
+
 def aggregate_twice_mp(edge_attr: torch.Tensor, graph,
                        use_kernels: bool = False) -> torch.Tensor:
     """The reference's 'twice message passing': forward/reverse halves of the
     edge latents summed onto vertices, then each cell's 3-vertex mean
-    (``Fvgn.py:305-321``). Returns (C, H/2) f32. With ``use_kernels`` the
-    unfused block's kernels on bf16 latents: K6 (es/er) then K7 (vc) on a
-    graph on the table route, K3 then K5 on the index route."""
+    (``Fvgn.py:305-321``). (F, W) -> (C, W/2) f32, for W = H in the GN
+    blocks and W = 2H in ConservativeH/J/K's blocks (``[e_s | e_s]``). With
+    ``use_kernels`` the unfused block's kernels on the latents rounded to
+    bf16 (``aggregate_edges_to_vertices_pallas``'s cast): K6 (es/er) then
+    K7 (vc) on a graph on the table route, K3 then K5 on the index route,
+    each at the input's width."""
     if use_kernels:
         e = edge_attr.to(torch.bfloat16)
         if graph.table_route:

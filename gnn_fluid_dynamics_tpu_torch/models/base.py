@@ -120,6 +120,12 @@ class FluidModel:
         """Rollout-mode features of ``graph``: (graph, feats)."""
         return self.transform_features(graph)
 
+    def module_inputs(self, nfeats: Dict) -> tuple:
+        """The normalized feature tensors the module takes before the graph
+        (the Conservative family's split symmetric and antisymmetric face
+        features replace ``face_x``)."""
+        return (nfeats["cell_x"], nfeats["face_x"])
+
     def forward(self, graph, feats: Dict, mode: str = "rollout",
                 generator: torch.Generator = None) -> Dict[str, torch.Tensor]:
         """The outputs for normalized inputs; in ``"rollout"`` mode in

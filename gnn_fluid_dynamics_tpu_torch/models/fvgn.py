@@ -149,7 +149,7 @@ class FvgnA(FluidModel):
         """One step's outputs, mapped back to physical units in rollout mode
         only (Fvgn.py:150-174)."""
         nfeats = norm.normalize_inputs(feats, self.nmap, self.stats)
-        acc, face_out, extras = self.module(nfeats["cell_x"], nfeats["face_x"],
+        acc, face_out, extras = self.module(*self.module_inputs(nfeats),
                                             graph, mode == "train", generator)
         bundle = {"cell_out": acc, "face_out": face_out}
         if mode == "rollout":

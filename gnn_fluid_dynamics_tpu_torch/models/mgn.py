@@ -130,7 +130,7 @@ class MgnA(FluidModel):
         """One step's outputs, mapped back to physical units in rollout mode
         only (Mgn.py:153-173)."""
         nfeats = norm.normalize_inputs(feats, self.nmap, self.stats)
-        cell_out = self.module(nfeats["cell_x"], nfeats["face_x"], graph,
+        cell_out = self.module(*self.module_inputs(nfeats), graph,
                                mode == "train", generator)
         bundle = {"cell_out": cell_out}
         if mode == "rollout":

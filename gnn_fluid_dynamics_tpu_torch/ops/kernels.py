@@ -16,12 +16,19 @@ K7     :func:`table_single`      :func:`table_single_ref`            ``csrc/tabl
 =====  =======================  ===================================  ==========================
 
 K1-K3 carry the fused GN block; K3, K5 and K4 carry the unfused one, whose
-MLPs run outside the kernels (a block with a step scalar, as in FvgnF). K1-K5
+MLPs run outside the kernels (a block with a step scalar, as in FvgnF), and
+K3 -> K5 the Conservative family's twice message passing. K1-K5
 read the graph's index vectors. K6 and K7 read its banded one-hot tables
 instead (a graph on the table route, :mod:`gnn_fluid_dynamics_tpu_torch.graph`):
 per block K6 on the es/er tables and K7 on vc in place of K3 and K5, and K6 on
 the cf tables in place of K4. Each launches once per table application to a
 whole batch of graphs.
+
+The latents are H = 128 channels wide. K3 and K6's roll form also take
+edge latents of 2H = 256 channels (``WIDTHS``), and K5 and K7 the (., H)
+vertex sums those give: ConservativeH/J/K's twice message passing runs on
+``[e_s | e_s]`` of their H-wide symmetric latents. Each width is its own
+instantiation of the kernel's template, one launch a call.
 
 A wrapper given tensors on the CPU returns its plain version; given CUDA
 tensors it launches its kernel or raises. Each launch adds one to the
@@ -66,6 +73,11 @@ SOURCES = {"face_block": "face_block.cu", "cell_block": "cell_block.cu",
 HEADERS = ("async_copy.cuh", "common.cuh", "gn_wgmma.cuh", "pdl.cuh",
            "table_mma.cuh", "wgmma.cuh")
 H = 128          # the latent width the kernels are built for
+# the edge-latent widths K3 and K6's roll form take: every GN block's H, and
+# ConservativeH/J/K's [e_s | e_s]; K5 and K7 take the vertex sums, half of
+# each
+WIDTHS = (H, 2 * H)
+VERTEX_WIDTHS = tuple(w // 2 for w in WIDTHS)
 LN_EPS = 1e-5
 
 _P = ctypes.c_void_p
@@ -73,19 +85,23 @@ _I = ctypes.c_int
 _ARGTYPES = {
     "gfd_face_block": [_I] + [_P] * 4 + [_I] + [_P] * 11,
     "gfd_cell_block": [_I] + [_P] * 5 + [_I] + [_P] * 11,
-    "gfd_edge_vertex": [_I] + [_P] * 3 + [_I] + [_P] * 2,
+    "gfd_edge_vertex": [_I] + [_P] * 3 + [_I] * 2 + [_P] * 2,
     "gfd_face_gather": [_I] + [_P] * 3 + [_I] * 2 + [_P] * 3,
-    "gfd_vertex_cell": [_I] + [_P] * 4 + [_I] + [_P] * 2,
-    "gfd_table_dual": [_I] + [_P] * 4 + [_I] * 5 + [_P] * 3,
-    "gfd_table_single": [_I] + [_P] * 3 + [_I] * 4 + [_P] * 2,
+    "gfd_vertex_cell": [_I] + [_P] * 4 + [_I] * 2 + [_P] * 2,
+    "gfd_table_dual": [_I] + [_P] * 4 + [_I] * 6 + [_P] * 3,
+    "gfd_table_single": [_I] + [_P] * 3 + [_I] * 5 + [_P] * 2,
     "gfd_launch_floor": [_I] * 3 + [_P],
     "gfd_slow_writer": [_I, _P] + [_I] * 4 + [_P] * 2,
     "gfd_set_pdl": [_I],
 }
 TABLE_TILE = 128  # target rows per table tile
 # the widest band K6 and K7 take: K7 holds its whole band in shared memory,
-# K6 streams its band and takes the same, so the two accept the same graphs
+# K6 streams its band and takes the same, so the two accept the same graphs.
+# K7's rows of H channels (behind K6's wide roll form) are twice as wide, so
+# it takes half the band there: 896 rows, the same 230,528 bytes of shared
+# memory of the 232,448 a block may have
 TABLE_MAX_BAND = 1792
+TABLE_MAX_BAND_WIDE = TABLE_MAX_BAND // 2
 # the table dtypes K6/K7 read, by the code their C entry points take
 TABLE_DTYPES = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
 # the cell latents K4 reads, by the code its C entry point takes
@@ -253,6 +269,14 @@ def _check(t: torch.Tensor, what: str, device, dtype, shape) -> None:
         raise ValueError(f"{what} is not 16-byte aligned")
 
 
+def _width(t: torch.Tensor, what: str, widths) -> int:
+    """The channels of the 2-D ``t``, which must be one of ``widths``."""
+    if t.ndim != 2 or t.shape[1] not in widths:
+        raise ValueError(f"{what} has shape {tuple(t.shape)}; the kernel takes "
+                         f"(rows, w) for w in {tuple(widths)}")
+    return t.shape[1]
+
+
 def _check_packed(w, k0: int, device, kernel: str) -> None:
     """What a fused kernel reads of its :class:`PackedWeights`: the packed
     matrices for input width ``k0`` and the five vectors, bf16 on
@@ -346,7 +370,7 @@ def fused_cell_block_ref(cell_attr, vtx, graph, w, dual_out: bool = False):
 def edges_to_vertices_ref(edge_attr, graph):
     """Plain version of K3: the f32 scatter-sum of forward halves onto
     senders and reverse halves onto receivers (``ops/segment.py``), rounded
-    to the latents' dtype. (F, H) -> (V, H/2)."""
+    to the latents' dtype. (F, W) -> (V, W/2), any W."""
     e = edge_attr.float()
     h2 = e.shape[1] // 2
     out = aggregate_edges_to_vertices_scatter(
@@ -363,10 +387,10 @@ def gather_face_cells_ref(cell_attr, graph):
 
 
 def vertices_to_cells_ref(vtx, graph):
-    """Plain version of K5: each cell's 3 rows of K3's (V, H/2) vertex sums,
+    """Plain version of K5: each cell's 3 rows of K3's (V, W/2) vertex sums,
     summed in f32 and rounded to their dtype, then divided by 3 in f32
-    (``pallas_agg.py::aggregate_vertices_to_cells_pallas``). -> (C, H/2)
-    f32."""
+    (``pallas_agg.py::aggregate_vertices_to_cells_pallas``). -> (C, W/2)
+    f32, any width."""
     vf = graph.vertex_face
     v = vtx.float()
     return (v[vf[0]] + v[vf[1]] + v[vf[2]]).to(vtx.dtype).float() / 3.0
@@ -387,10 +411,10 @@ def _table_apply(oh: torch.Tensor, bands: torch.Tensor) -> torch.Tensor:
 
 def table_dual_ref(oh_a, oh_b, src_off, src, combine_roll: bool = False):
     """Plain version of K6: both tables applied to each tile's band of the
-    bf16 (S, H) source (``src_off`` the bands' first rows in ``src``), in
+    bf16 (S, W) source (``src_off`` the bands' first rows in ``src``), in
     f32, each stored in ``src``'s dtype. With ``combine_roll`` only the
-    vertex sum ``A[:, :H/2] + B[:, H/2:]``, rounded once: (T*128, H/2);
-    else (A, B), two (T*128, H)."""
+    vertex sum ``A[:, :W/2] + B[:, W/2:]``, rounded once: (T*128, W/2);
+    else (A, B), two (T*128, W). Any width."""
     bands = _table_bands(src, src_off, oh_a.shape[2])
     a, b = _table_apply(oh_a, bands), _table_apply(oh_b, bands)
     if combine_roll:
@@ -401,9 +425,9 @@ def table_dual_ref(oh_a, oh_b, src_off, src, combine_roll: bool = False):
 
 def table_single_ref(oh, src_off, src):
     """Plain version of K7: the table applied to each tile's band of the
-    bf16 (S, H/2) vertex sums in f32, rounded to ``src``'s dtype, then
+    bf16 (S, W/2) vertex sums in f32, rounded to ``src``'s dtype, then
     divided by 3 in f32 (``aggregate_vertices_to_cells_pallas``'s
-    epilogue). -> (T*128, H/2) f32."""
+    epilogue). -> (T*128, W/2) f32, any width."""
     s = _table_apply(oh, _table_bands(src, src_off, oh.shape[2]))
     return s.to(src.dtype).float() / 3.0
 
@@ -454,17 +478,19 @@ def fused_cell_block(cell_attr, vtx, graph, w, dual_out: bool = False):
 
 
 def edges_to_vertices(edge_attr, graph):
-    """K3: the edge->vertex half sum. See :func:`edges_to_vertices_ref`."""
+    """K3: the edge->vertex half sum of (F, W) latents, W in ``WIDTHS``.
+    See :func:`edges_to_vertices_ref`."""
     if edge_attr.device.type == "cpu":
         return edges_to_vertices_ref(edge_attr, graph)
     dev = edge_attr.device
     nf, nv = graph.num_faces, graph.num_vertices
-    _check(edge_attr, "edge_attr", dev, torch.bfloat16, (nf, H))
+    w = _width(edge_attr, "edge_attr", WIDTHS)
+    _check(edge_attr, "edge_attr", dev, torch.bfloat16, (nf, w))
     _check(graph.vertex_inc_ptr, "vertex_inc_ptr", dev, torch.int32, (nv + 1,))
     _check(graph.vertex_inc_row, "vertex_inc_row", dev, torch.int32, (2 * nf,))
-    out = torch.empty((nv, H // 2), dtype=torch.bfloat16, device=dev)
+    out = torch.empty((nv, w // 2), dtype=torch.bfloat16, device=dev)
     _launch("edge_vertex", dev, _ptr(edge_attr), _ptr(graph.vertex_inc_ptr),
-            _ptr(graph.vertex_inc_row), nv, _ptr(out))
+            _ptr(graph.vertex_inc_row), nv, w, _ptr(out))
     edges_to_vertices.launches += 1
     return out
 
@@ -492,17 +518,19 @@ def gather_face_cells(cell_attr, graph):
 
 
 def vertices_to_cells(vtx, graph):
-    """K5: the 3-vertex cell mean. See :func:`vertices_to_cells_ref`."""
+    """K5: the 3-vertex cell mean of (V, W/2) vertex sums, W in ``WIDTHS``.
+    See :func:`vertices_to_cells_ref`."""
     if vtx.device.type == "cpu":
         return vertices_to_cells_ref(vtx, graph)
     dev = vtx.device
     nc, nv = graph.num_cells, graph.num_vertices
-    _check(vtx, "vtx", dev, torch.bfloat16, (nv, H // 2))
+    half = _width(vtx, "vtx", VERTEX_WIDTHS)
+    _check(vtx, "vtx", dev, torch.bfloat16, (nv, half))
     _check(graph.vertex_face, "vertex_face", dev, torch.int32, (3, nc))
-    out = torch.empty((nc, H // 2), dtype=torch.float32, device=dev)
+    out = torch.empty((nc, half), dtype=torch.float32, device=dev)
     vf = graph.vertex_face
     _launch("vertex_cell", dev, _ptr(vtx), _ptr(vf[0]), _ptr(vf[1]),
-            _ptr(vf[2]), nc, _ptr(out))
+            _ptr(vf[2]), nc, half, _ptr(out))
     vertices_to_cells.launches += 1
     return out
 
@@ -572,7 +600,8 @@ def _check_table(oh, what, dev, like=None) -> None:
 
 def table_dual(oh_a, oh_b, src_off, src, combine_roll: bool = False):
     """K6: the dense-table dual apply. See :func:`table_dual_ref`. The
-    bands must lie inside ``src`` (``off + B <= S``, checked)."""
+    source is (S, H), or with ``combine_roll`` (S, W) for W in ``WIDTHS``;
+    the bands must lie inside it (``off + B <= S``, checked)."""
     if src.device.type == "cpu":
         return table_dual_ref(oh_a, oh_b, src_off, src, combine_roll)
     dev = src.device
@@ -580,38 +609,45 @@ def table_dual(oh_a, oh_b, src_off, src, combine_roll: bool = False):
     _check_table(oh_b, "oh_b", dev, like=oh_a)
     T, _, band = oh_a.shape
     _check(src_off, "src_off", dev, torch.int32, (T,))
-    _check(src, "src", dev, torch.bfloat16, (src.shape[0], H))
+    w = _width(src, "src", WIDTHS if combine_roll else (H,))
+    _check(src, "src", dev, torch.bfloat16, (src.shape[0], w))
     _check_bands(src_off, band, src.shape[0])
     rows = T * TABLE_TILE
     if combine_roll:
-        out_a = torch.empty((rows, H // 2), dtype=torch.bfloat16, device=dev)
+        out_a = torch.empty((rows, w // 2), dtype=torch.bfloat16, device=dev)
         out_b = None
     else:
         out_a = torch.empty((rows, H), dtype=torch.bfloat16, device=dev)
         out_b = torch.empty_like(out_a)
     _launch("table_dual", dev, _ptr(oh_a), _ptr(oh_b), _ptr(src_off),
             _ptr(src), src.shape[0], rows, band, TABLE_DTYPES[oh_a.dtype],
-            int(combine_roll), _ptr(out_a), _ptr(out_b))
+            int(combine_roll), w, _ptr(out_a), _ptr(out_b))
     table_dual.launches += 1
     return out_a if combine_roll else (out_a, out_b)
 
 
 def table_single(oh, src_off, src):
-    """K7: the dense-table single apply with the 1/3 epilogue. See
-    :func:`table_single_ref`; the bands must lie inside ``src``, as for
-    :func:`table_dual`."""
+    """K7: the dense-table single apply with the 1/3 epilogue on (S, W/2)
+    vertex sums, W in ``WIDTHS``. See :func:`table_single_ref`; the bands
+    must lie inside ``src``, as for :func:`table_dual`, and at W/2 = H be
+    at most TABLE_MAX_BAND_WIDE rows wide."""
     if src.device.type == "cpu":
         return table_single_ref(oh, src_off, src)
     dev = src.device
     _check_table(oh, "oh", dev)
     T, _, band = oh.shape
+    half = _width(src, "src", VERTEX_WIDTHS)
+    if half == H and band > TABLE_MAX_BAND_WIDE:
+        raise ValueError(f"oh has band {band}; on vertex sums of {H} channels "
+                         "K7 holds its band in shared memory, which takes at "
+                         f"most {TABLE_MAX_BAND_WIDE}")
     _check(src_off, "src_off", dev, torch.int32, (T,))
-    _check(src, "src", dev, torch.bfloat16, (src.shape[0], H // 2))
+    _check(src, "src", dev, torch.bfloat16, (src.shape[0], half))
     _check_bands(src_off, band, src.shape[0])
     rows = T * TABLE_TILE
-    out = torch.empty((rows, H // 2), dtype=torch.float32, device=dev)
+    out = torch.empty((rows, half), dtype=torch.float32, device=dev)
     _launch("table_single", dev, _ptr(oh), _ptr(src_off), _ptr(src),
-            src.shape[0], rows, band, TABLE_DTYPES[oh.dtype], _ptr(out))
+            src.shape[0], rows, band, TABLE_DTYPES[oh.dtype], half, _ptr(out))
     table_single.launches += 1
     return out
 

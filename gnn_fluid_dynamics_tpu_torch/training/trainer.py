@@ -79,9 +79,19 @@ def optimizer_step(optimizer: torch.optim.Optimizer, lr: float,
     """The update from the parameters' ``.grad``: clipped to the global norm
     ``clip_norm`` when given, then the optimizer's step at learning rate
     ``lr`` (the JAX package's ``_set_lr`` + ``optimizer.update``). Returns
-    the gradients' global norm before clipping."""
+    the gradients' global norm before clipping.
+
+    optax updates every parameter, and one the loss does not reach (as the
+    last block's cell MLP of ConservativeA, D and E, whose heads read the
+    edge latents only) has a zero gradient there, so AdamW's weight decay
+    still shrinks it. ``torch.optim`` skips a parameter whose ``.grad`` is
+    None, so such a parameter is given a zero gradient first."""
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            if p.grad is None and p.requires_grad:
+                p.grad = torch.zeros_like(p)
     grads = [p.grad for group in optimizer.param_groups
-             for p in group["params"] if p.grad is not None]
+             for p in group["params"]]
     if clip_norm:
         norm = clip_by_global_norm_(grads, clip_norm)
     else:

@@ -2,8 +2,8 @@
 
 The JAX package's variables (``{"params": ..., "batch_stats": ...}``, as
 nested dicts of numpy arrays) map onto the state dict of the port's model
-module, e.g. FluxD's, FvgnF's, VertPotA's and those of the other ported
-families:
+module, e.g. FluxD's, FvgnF's, VertPotA's, ConservativeH's and those of the
+other families:
 
 ==========================================================  ================================================================
 Flax path                                                   torch state-dict key
@@ -20,6 +20,11 @@ Flax path                                                   torch state-dict key
 ``Encoder_0/cell_mlp/Dense_0`` (VertPot)                      ``encoder.cell_mlp.dense0``
 ``CellBlock_3/MLP_0`` (VertPot, at the top)                   ``blocks.3.cell_block.mlp``
 ``decoder_vertex/Dense_2`` (VertPot)                          ``decoder_vertex.dense2``
+``_ConsEncoder_0/faceA_mlp/Dense_0/kernel`` (Conservative)     ``encoder.faceA_mlp.dense0.weight`` (no bias)
+``_ConsHBlock_3/face_asym/Dense_1`` (any ``_Cons?Block_i``)     ``blocks.3.face_asym.dense1``
+``faceS_mlp/Dense_0``, ``cell_mlp`` (H/J/K, at the top)       ``faceS_mlp.dense0``, ``cell_mlp``
+``decoder/even_mlp/Dense_0`` (H/J/K)                          ``decoder.even_mlp.dense0``
+``diffusion_scale`` (ConservativeJ, a (1,) parameter)         ``diffusion_scale``
 ``.../BatchNorm_0/{scale,bias}`` (params)                   ``.../batch_norm.{weight,bias}``
 ``.../BatchNorm_0/{mean,var}`` (batch_stats)                ``.../batch_norm.{running_mean,running_var}``
 ==========================================================  ================================================================
@@ -43,10 +48,16 @@ import torch
 # ``CellBlock_0`` and ``FaceBlock_0`` inside ``GNBlock_i`` (or at the top of
 # a bare GN block's tree). VertPot's processor has no GN block: its
 # ``CellBlock_i``/``FaceBlock_i`` sit beside its ``Encoder_0`` and map to the
-# port's ``blocks.i``.
+# port's ``blocks.i``. The Conservative family's blocks are ``_ConsABlock_i``
+# ... ``_ConsIBlock_i`` (``blocks.i``) and A/B/D's encoder ``_ConsEncoder_0``
+# (``encoder``; ``Encoder_0$`` does not match it, ``re.match`` anchoring at
+# the start). Every other name, such as H/J/K's top-level ``cell_mlp``, is
+# kept as it is.
 _NAMES = (
     (re.compile(r"EncodeProcessDecode_0$"), False, "epd"),
     (re.compile(r"Encoder_0$"), False, "encoder"),
+    (re.compile(r"_ConsEncoder_0$"), False, "encoder"),
+    (re.compile(r"_Cons[A-Z]Block_(\d+)$"), False, r"blocks.\1"),
     (re.compile(r"GNBlock_(\d+)$"), False, r"blocks.\1"),
     (re.compile(r"CellBlock_(\d+)$"), True, r"blocks.\1.cell_block"),
     (re.compile(r"FaceBlock_(\d+)$"), True, r"blocks.\1.face_block"),

@@ -46,6 +46,8 @@ from gnn_fluid_dynamics_tpu.models.base import ModelConfig as JaxModelConfig
 from gnn_fluid_dynamics_tpu.models.base import feature_masks as jax_masks
 from gnn_fluid_dynamics_tpu.models.normalizer import \
     StatsAccumulator as JaxStatsAccumulator
+from gnn_fluid_dynamics_tpu.models.registry import \
+    MODEL_REGISTRY as JAX_MODEL_REGISTRY
 from gnn_fluid_dynamics_tpu.ops import fvm as jax_fvm
 from gnn_fluid_dynamics_tpu.ops import mls as jax_mls
 from gnn_fluid_dynamics_tpu.ops.geometry import knn as jax_knn
@@ -209,7 +211,10 @@ def test_dataset_add_grad_weights_matches_jax():
 
 def test_registry_holds_the_mgn_family():
     assert {"MgnA", "MgnB", "MgnC"} <= set(MODEL_REGISTRY)
-    assert len(MODEL_REGISTRY) == 28
+    # every name of the JAX package's registry, the Conservative family's
+    # the last to come
+    assert set(MODEL_REGISTRY) == set(JAX_MODEL_REGISTRY)
+    assert len(MODEL_REGISTRY) == 38
     for name in GOLDEN:
         cls = get_model_class(name)
         assert cls.cell_grad_weights_use and not cls.face_grad_weights_use

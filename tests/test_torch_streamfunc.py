@@ -40,6 +40,8 @@ from gnn_fluid_dynamics_tpu.models import streamfunc as jax_sf
 from gnn_fluid_dynamics_tpu.models.base import ModelConfig as JaxModelConfig
 from gnn_fluid_dynamics_tpu.models.base import feature_masks as jax_masks
 from gnn_fluid_dynamics_tpu.ops import mls as jax_mls
+from gnn_fluid_dynamics_tpu.models.registry import \
+    MODEL_REGISTRY as JAX_MODEL_REGISTRY
 from gnn_fluid_dynamics_tpu.ops.reorder import rcm_reorder_geometry
 from gnn_fluid_dynamics_tpu.rollout import engine as jax_engine
 from test_golden import GOLDEN
@@ -50,8 +52,7 @@ from gnn_fluid_dynamics_tpu_torch.graph import from_geometry, to_static_bands
 from gnn_fluid_dynamics_tpu_torch.models import streamfunc
 from gnn_fluid_dynamics_tpu_torch.models.base import ModelConfig, feature_masks
 from gnn_fluid_dynamics_tpu_torch.models.normalizer import StatsAccumulator
-from gnn_fluid_dynamics_tpu_torch.models.registry import (JAX_MODEL_NAMES,
-                                                          MODEL_REGISTRY,
+from gnn_fluid_dynamics_tpu_torch.models.registry import (MODEL_REGISTRY,
                                                           get_model_class)
 from gnn_fluid_dynamics_tpu_torch.ops import kernels
 from gnn_fluid_dynamics_tpu_torch.rollout import engine
@@ -374,12 +375,13 @@ def test_feedback_clamps_inflow_and_wall_faces_only(cylinder):
 
 
 def test_registry_holds_nineteen_names():
-    # nineteen names when the StreamFunc family came; 28 with Flux and VertPot
-    assert len(MODEL_REGISTRY) == 28
-    assert set(MODEL_REGISTRY) <= set(JAX_MODEL_NAMES)
+    # nineteen names when the StreamFunc family came; 28 with Flux and
+    # VertPot; all 38 of the JAX package's with the Conservative family
+    assert len(MODEL_REGISTRY) == 38
+    assert set(MODEL_REGISTRY) == set(JAX_MODEL_REGISTRY)
     for name in VARIANTS:
         cls = get_model_class(name)
         assert cls.name == name and cls.cell_grad_weights_use
         assert cls.block_order(cls.__new__(cls)) == "face_first"
-    with pytest.raises(KeyError, match="not ported yet"):
-        get_model_class("ConservativeA")
+    with pytest.raises(KeyError, match="unknown model"):
+        get_model_class("StreamFuncE")
