@@ -4,9 +4,13 @@ the trainer's validation rollout of FluxD, FluxD's training, the rollout
 entry point, the MGN family, the rest of the FVGN family (temporal
 bundling included), the StreamFunc family, the rest of the Flux family, the
 VertPot family and the Conservative family at their shipped width through
-them, and report each kernel's time beside its bound.
+them, and FluxD's recipe of fused train calls, and report each kernel's
+time beside its bound.
 
     python3 chip_smoke.py
+
+(``python3 chip_smoke.py --phase10b`` is phase 10b's own process, which the
+script starts.)
 
 Phases (each prints one flushed line; any failure exits non-zero):
 
@@ -154,6 +158,32 @@ Phases (each prints one flushed line; any failure exits non-zero):
    * 9d ConservativeA and ConservativeJ, P9_TRAIN_STEPS train steps each as
      7d;
 
+10. the fused train calls of ``config/e2e/fluxd-r5.json`` (FluxD h128, 15
+    blocks, bf16, AdamW, clip 10, its loss weights, noise_std_norm 0.045,
+    pushforward 2, 16 steps a call, static_chunked, batch 4) on phase 5's
+    trajectories in windows of 4 (an epoch of 38 steps):
+
+    * 10a ``Trainer.run`` for FUSED_EPOCHS epochs (the first the
+      pushforward warm-up, FUSED_WARMUP_EPOCHS) with mini-epochs of
+      FUSED_MINI_EPOCH samples and the ``auto`` aggregation: the indexed
+      path chosen by the JAX package's rule, the calls 16, 16, 6 in each
+      epoch, the counters by the JAX package's crossing rule, the
+      trajectory store on the card as large as
+      ``estimate_device_field_bytes``; no kernel in a warm-up call, in a
+      pushforward call only the unroll's rollout-mode forwards on the fused
+      route (K1-K3 15 each a forward, 2 forwards a step); each of the two
+      validations phase 5a's launches; finite losses, epoch 1's falling;
+    * 10b in a process of its own (``--phase10b``, beside 10a;
+      CUBLAS_WORKSPACE_CONFIG=:4096:8, deterministic algorithms with the
+      ops that have none reported): from one state, an indexed call of 16
+      pushforward steps, a multi call and 16 single steps on the same
+      batches, equal bit for bit (see FUSED_ND_LOSS_RTOL otherwise);
+    * 10c ms per train step of single steps through ``prefetch``, a multi
+      call through ``prefetch_grouped`` and an indexed call through
+      ``prefetch_indexed``, FUSED_TIMED_CALLS each in turns (host clock,
+      ending in a synchronize), and a device profile of one indexed call
+      with its host-to-device copies;
+
 then the ``kernels`` line: per kernel its time per launch, launches, bound,
 plain time and library time (K3 and K5 also the pair's time and the launch
 floor).
@@ -173,7 +203,9 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -181,6 +213,10 @@ import torch.nn.functional as F
 
 from gnn_fluid_dynamics_tpu_torch.data.samplers import get_sampler
 from gnn_fluid_dynamics_tpu_torch.data.pipeline import (MeshDataset, Trajectory,
+                                                        compute_window,
+                                                        prefetch,
+                                                        prefetch_grouped,
+                                                        prefetch_indexed,
                                                         rollout_batch)
 from gnn_fluid_dynamics_tpu_torch.data.synthetic import (channel_flow_trajectory,
                                                          make_geometry)
@@ -326,6 +362,22 @@ P9_VALID_TOL = 1e-2         # 9c, as 8c's P8_VALID_TOL
 P9_TRAINED = ("ConservativeA", "ConservativeJ")         # 9d
 P9_TRAIN_STEPS = 10
 P9_LOSS_WINDOW = 5
+# phase 10: the fused train calls of config/e2e/fluxd-r5.json (16 steps a
+# call) on phase 5's trajectories (41 states: 38 windows of 4 a mesh, so an
+# epoch of static_chunked batches of the four meshes is calls of 16, 16, 6)
+RECIPE_CONFIG = os.path.join(ROOT, "config", "e2e", "fluxd-r5.json")
+FUSED_EPOCHS = 2
+FUSED_WARMUP_EPOCHS = 1    # epoch 1 the warm slice, epoch 2 the pushforward
+FUSED_MINI_EPOCH = 40      # samples: 10 steps, a boundary inside each call
+FUSED_LOSS_WINDOW = 10     # epoch 1's first and last steps averaged
+FUSED_TIMED_CALLS = 3      # 10c: calls of each kind, in turns
+# 10b: should an op of the step have no deterministic CUDA implementation
+# (warned under use_deterministic_algorithms(True, warn_only=True)), the
+# three ways are held within these instead of bit for bit: each loss within
+# 1e-2 relative (an f32 sum in another order, through 16 bf16 steps) and
+# each parameter within 2 k lr + 1e-6 (see CPU_LOSS_RTOL: a parameter moves
+# by about lr a step, either way where its gradient is near 0)
+FUSED_ND_LOSS_RTOL = 1e-2
 
 KERNELS = {
     "K1_fused_face_block": dict(
@@ -1520,7 +1572,7 @@ def device_profile(model, graph, feats, steps: int = 10):
         lambda: rollout_scan(model, graph, feats, config=cfg), steps)
 
 
-def profile_steps(run, steps: int):
+def profile_steps(run, steps: int, copies: bool = False):
     """Device time per step by kernel name over ``run()``, which takes
     ``steps`` steps (the 8 largest kernels, and each of this package's), and
     the share of the window's wall time with a kernel running, from
@@ -1528,7 +1580,8 @@ def profile_steps(run, steps: int):
     device time. The device time per step is the sum of the kernels' spans,
     and also their union: a kernel launched by PDL starts before the one
     ahead of it ends (its prologue, then its wait), so the sum counts that
-    overlap twice."""
+    overlap twice. With ``copies``, also the host-to-device copies of the
+    window and their bytes, from the exported trace."""
     from torch.profiler import ProfilerActivity, profile
     try:
         torch.cuda.synchronize()
@@ -1539,6 +1592,15 @@ def profile_steps(run, steps: int):
             wall_us = 1e6 * (time.perf_counter() - t0)
         events = [e for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        htod = None
+        if copies:
+            with tempfile.TemporaryDirectory() as tmp:
+                trace = os.path.join(tmp, "trace.json")
+                prof.export_chrome_trace(trace)
+                with open(trace) as f:
+                    htod = [e.get("args", {}).get("bytes", 0)
+                            for e in json.load(f).get("traceEvents", [])
+                            if "HtoD" in str(e.get("name", ""))]
     except Exception as exc:  # measurement only: report, do not fail the run
         say(f"profiler unavailable: {exc!r}")
         return None
@@ -1566,7 +1628,9 @@ def profile_steps(run, steps: int):
             "wall_ms_per_step": wall_us / steps / 1e3,
             "kernels_per_step": len(events) / steps,
             "top_ms_per_step": {n[:60]: t / steps / 1e3 for n, t in top},
-            "gfd_ms_per_step": {n: t / steps / 1e3 for n, t in ours.items()}}
+            "gfd_ms_per_step": {n: t / steps / 1e3 for n, t in ours.items()},
+            **({} if htod is None else {"htod_copies": len(htod),
+                                        "htod_bytes": int(sum(htod))})}
 
 
 # ---- phase 5: training ------------------------------------------------------
@@ -2398,6 +2462,382 @@ def conservative_phase(dev, ds, train_ds, line: str) -> dict:
     return paths
 
 
+# ---- phase 10: the fused train calls ------------------------------------------
+
+def recipe_config():
+    """``config/e2e/fluxd-r5.json`` as phase 10 trains it: its model (FluxD
+    at h128, 15 blocks, bf16) with the ``auto`` aggregation, so that its
+    validation takes the kernel route; its training section (AdamW, clip
+    10, its loss weights, noise_std_norm 0.045, pushforward 2, 16 steps a
+    call, static_chunked, batch 4) for FUSED_EPOCHS epochs, the first the
+    pushforward warm-up, mini-epochs of FUSED_MINI_EPOCH samples; no
+    checkpoint; statistics over every 4th sample, not cached."""
+    cfg = load_config(RECIPE_CONFIG)
+    cfg.model.aggregation = "auto"
+    t = cfg.training
+    t.epochs = FUSED_EPOCHS
+    t.pushforward_warmup_epochs = FUSED_WARMUP_EPOCHS
+    t.mini_epoch_size = FUSED_MINI_EPOCH
+    cfg.logging.save_frequency = 0
+    cfg.logging.name = "FluxD-r5-chip-smoke"
+    cfg.dataset.stats_fpath = None
+    cfg.dataset.stats_stride = 4
+    return cfg
+
+
+def fused_dataset(train_ds, cfg) -> MeshDataset:
+    """Phase 5's trajectories in windows of the recipe's pushforward
+    (pushforward_factor + 2 states)."""
+    stride, window = compute_window(cfg.model.timestep_stride,
+                                    cfg.training.pushforward_factor,
+                                    cfg.model.bundle_size)
+    return MeshDataset(train_ds.trajectories, stride=stride,
+                       data_window=window, device=train_ds.device)
+
+
+def crossing_rule(calls, steps_per_mini_epoch: int) -> tuple:
+    """(steps, mini-epochs) after fused calls of ``calls`` steps each, by
+    the JAX package's rule: a call that carries the step count past a
+    mini-epoch boundary ends one mini-epoch."""
+    steps = mini_epochs = 0
+    for n in calls:
+        steps += n
+        if steps // steps_per_mini_epoch > mini_epochs:
+            mini_epochs += 1
+    return steps, mini_epochs
+
+
+def fused_training(train_ds, valid_ds, device_line: str) -> tuple:
+    """Phase 10a: ``Trainer.run`` of the fluxd-r5 recipe on the card. The
+    automatic choice must be the indexed path, the calls of each epoch 16,
+    16, 6, the counters JAX's rule, the trajectory store on the card as
+    large as ``estimate_device_field_bytes``; no kernel in a warm-up call,
+    and in a pushforward call only the unroll's rollout-mode forwards on
+    the fused route (K1-K3 15 each a forward, PF forwards a step); each
+    validation phase 5's launches; the losses finite, epoch 1's falling.
+    Returns (the path's record, the trainer, its state, the dataset)."""
+    cfg = recipe_config()
+    ds = fused_dataset(train_ds, cfg)
+    t = cfg.training
+    spc, pf = t.steps_per_call, t.pushforward_factor
+    per_epoch = len(list(get_sampler(cfg.dataset.sampler)(
+        ds, t.batch_size, np.random.default_rng(0))))
+    want_calls = [min(spc, per_epoch - i)
+                  for i in range(0, per_epoch, spc)] * FUSED_EPOCHS
+    spme = max(t.mini_epoch_size // t.batch_size, 1)
+    want_steps, want_me = crossing_rule(want_calls, spme)
+    cfg.logging.valid_frequency = want_me
+    trainer, state = build_trainer(cfg, ds)
+    path = trainer.train_path(ds)
+    if path != "indexed":
+        fail(f"FluxD-r5: the trainer chose the {path} path, not indexed "
+             f"({ds.estimate_device_field_bytes()} bytes of trajectories)")
+
+    calls, valid_launches = [], []
+    fused_fn, validate_fn = trainer.train_step_indexed, trainer.validate
+
+    def counted_call(state, graph, dev, ts, lrs, window):
+        before = launch_counts()
+        out = fused_fn(state, graph, dev, ts, lrs, window)
+        calls.append({"epoch": trainer.epoch_count, "steps": len(lrs),
+                      "launches": {k: v - before[k]
+                                   for k, v in launch_counts().items()},
+                      "losses": out["total_log_loss"]})
+        return out
+
+    def counted_validate(*args, **kw):
+        before = launch_counts()
+        out = validate_fn(*args, **kw)
+        valid_launches.append({k: v - before[k]
+                               for k, v in launch_counts().items()})
+        return out
+
+    trainer.train_step_indexed, trainer.validate = counted_call, counted_validate
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.run(state, ds, valid_ds, num_valid_steps=CHECK_STEPS)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    run_launches = launch_counts()
+    trainer.train_step_indexed, trainer.validate = fused_fn, validate_fn
+
+    got_calls = [c["steps"] for c in calls]
+    if got_calls != want_calls:
+        fail(f"FluxD-r5: calls of {got_calls} steps, expected {want_calls}")
+    counters = (trainer.epoch_count, trainer.step_count,
+                trainer.mini_epoch_count, trainer.sample_count, state.step)
+    want_counters = (FUSED_EPOCHS, want_steps, want_me,
+                     want_steps * t.batch_size, want_steps)
+    if counters != want_counters:
+        fail(f"FluxD-r5: epoch, step, mini-epoch, sample counts and state "
+             f"step {counters}, expected {want_counters}")
+    unroll = PATHS["FluxD"][1]
+    for c in calls:
+        forwards = c["steps"] * pf if c["epoch"] > FUSED_WARMUP_EPOCHS else 0
+        want = {k: unroll.get(k, 0) * forwards for k in KERNELS}
+        if c["launches"] != want:
+            fail(f"FluxD-r5: launches in a call of {c['steps']} steps in "
+                 f"epoch {c['epoch']}: {c['launches']}, expected {want}")
+    per_valid = {k: PATHS["FluxD-valid"][1].get(k, 0) * CHECK_STEPS
+                 for k in KERNELS}
+    if len(valid_launches) != 2 or any(v != per_valid for v in valid_launches):
+        fail(f"FluxD-r5: launches per validation {valid_launches}, expected "
+             f"2 validations of {per_valid}")
+    store = [v for combo in ds._device_fields_cache.values()
+             for v in combo.values()]
+    store_bytes = sum(v.numel() * v.element_size() for v in store)
+    if (store_bytes != ds.estimate_device_field_bytes()
+            or any(v.device != ds.device for v in store)):
+        fail(f"FluxD-r5: the trajectory store holds {store_bytes} bytes on "
+             f"{sorted({str(v.device) for v in store})}, the estimate "
+             f"{ds.estimate_device_field_bytes()} on {ds.device}")
+    by_epoch = {e: torch.cat([c["losses"] for c in calls if c["epoch"] == e])
+                .tolist() for e in range(1, FUSED_EPOCHS + 1)}
+    mini = logged(trainer, "train/total_log_loss")
+    if (not all(np.isfinite(v).all() for v in by_epoch.values())
+            or len(mini) != want_me or not np.isfinite(mini).all()):
+        fail(f"FluxD-r5: losses by epoch {by_epoch}, mini-epochs {mini}")
+    first = float(np.mean(by_epoch[1][:FUSED_LOSS_WINDOW]))
+    last = float(np.mean(by_epoch[1][-FUSED_LOSS_WINDOW:]))
+    if not last < first:
+        fail(f"FluxD-r5: epoch 1's mean loss of its last {FUSED_LOSS_WINDOW} "
+             f"steps {last} not below its first {FUSED_LOSS_WINDOW} {first}")
+    say(f"phase 10a FluxD-r5 Trainer.run (config/e2e/fluxd-r5.json's "
+        f"training, h{H} mp{MP_NUM} bf16, batch {t.batch_size}, "
+        f"{spc} steps a call, {cfg.dataset.sampler}, "
+        f"{FUSED_EPOCHS} epochs, pushforward {pf} after {FUSED_WARMUP_EPOCHS}"
+        f" warm-up epoch): ok, path {path}; calls {got_calls}; epoch, step, "
+        f"mini-epoch, sample counts {list(counters[:4])} (JAX's crossing rule "
+        f"at {spme} steps a mini-epoch); trajectory store {store_bytes} bytes "
+        "on the card = estimate_device_field_bytes; launches per call "
+        + json.dumps([{k: v for k, v in c["launches"].items() if v}
+                      for c in calls])
+        + " (the pushforward unroll's rollout-mode forwards only); per "
+        "validation " + json.dumps({k: v for k, v in per_valid.items() if v})
+        + f"; epoch 1 mean loss of the first {FUSED_LOSS_WINDOW} steps "
+        f"{first:.6f}, of the last {last:.6f}; mini-epoch losses "
+        + json.dumps([round(v, 6) for v in mini])
+        + f"; {run_s:.2f} s (two validations included); card {device_line}")
+    record = {"launches": run_launches,
+              "rollout_steps": 2 * CHECK_STEPS + pf * sum(
+                  c["steps"] for c in calls if c["epoch"] > FUSED_WARMUP_EPOCHS),
+              "loss_first": first, "loss_last": last, "run_s": run_s}
+    return record, trainer, state, ds
+
+
+def _snapshot(state):
+    """A copy of the train state's tensors: module, optimizer, generator,
+    step."""
+    def clone(tree):
+        if isinstance(tree, dict):
+            return {k: clone(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [clone(v) for v in tree]
+        return tree.clone() if isinstance(tree, torch.Tensor) else tree
+    return (clone(state.module.state_dict()),
+            clone(state.optimizer.state_dict()), state.generator.get_state(),
+            state.step)
+
+
+def _restore(state, snap):
+    state.module.load_state_dict(snap[0])
+    state.optimizer.load_state_dict(copy.deepcopy(snap[1]))
+    state.generator.set_state(snap[2])
+    state.step = snap[3]
+
+
+def three_ways_child() -> int:
+    """Phase 10b, run as ``python3 chip_smoke.py --phase10b`` (in a process
+    of its own, CUBLAS_WORKSPACE_CONFIG set by the parent, under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)``): from one
+    state, one indexed call of 16 pushforward steps, one multi call and 16
+    ``train_step``s on the same batches, learning rates and generator
+    state. Prints the comparison as one JSON line; exits 1 when the three
+    part (bit for bit, or, where an op warned that it has no deterministic
+    implementation, beyond FUSED_ND_LOSS_RTOL and 2 k lr + 1e-6)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels.build_kernels()
+    return three_ways_run(torch.device("cuda", 0))
+
+
+def three_ways_run(dev) -> int:
+    """``three_ways_child``'s comparison on ``dev``."""
+    cfg = recipe_config()
+    ds = fused_dataset(train_data(dev), cfg)
+    trainer, state = build_trainer(cfg, ds)
+    trainer.epoch_count = FUSED_WARMUP_EPOCHS + 1
+    t = cfg.training
+    k = t.steps_per_call
+    batches = list(itertools.islice(get_sampler(cfg.dataset.sampler)(
+        ds, t.batch_size, np.random.default_rng(0)), k))
+    combo = tuple(m for m, _ in batches[0])
+    ts = np.asarray([[s for _, s in b] for b in batches], np.int32)
+    lrs = [t.lr_max] * k
+    snap = _snapshot(state)
+    ways = {}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        singles = [trainer.train_step(state, ds.get_batch(b), lr)
+                   for b, lr in zip(batches, lrs)]
+        ways["single"] = ({n: torch.stack([s[n] for s in singles])
+                           for n in singles[0]}, _snapshot(state))
+        _restore(state, snap)
+        ways["multi"] = (trainer.train_step_multi(
+            state, *ds.get_batch_stack(batches), lrs), _snapshot(state))
+        _restore(state, snap)
+        ways["indexed"] = (trainer.train_step_indexed(
+            state, ds._batched_static(combo), ds.device_fields(combo), ts,
+            lrs, ds.data_window), _snapshot(state))
+        torch.cuda.synchronize()
+    nondeterministic = sorted({str(w.message).split("\n")[0] for w in caught
+                               if "deterministic" in str(w.message)})
+    losses, (module, opt, gen, step) = ways["single"]
+    result = {"steps": k, "nondeterministic_ops": nondeterministic}
+    ok = True
+    for name in ("multi", "indexed"):
+        l2, (m2, o2, g2, s2) = ways[name]
+        moments = [(v, o2["state"][i][key]) for i, st in opt["state"].items()
+                   for key, v in st.items()]
+        same = {"losses": all(torch.equal(l2[n], losses[n]) for n in losses),
+                "parameters": all(torch.equal(m2[n], module[n])
+                                  for n in module),
+                "optimizer": all(torch.equal(a, b) for a, b in moments),
+                "generator": torch.equal(g2, gen) and s2 == step}
+        loss_rel = max(float(((l2[n] - losses[n]).abs()
+                              / losses[n].abs().clamp_min(1e-30)).max())
+                       for n in losses)
+        param_abs = max(float((m2[n].float() - module[n].float()).abs().max())
+                        for n in module if module[n].is_floating_point())
+        result[name] = {"bit_for_bit": same, "loss_max_rel": loss_rel,
+                        "param_max_abs": param_abs}
+        if nondeterministic:
+            ok &= (loss_rel <= FUSED_ND_LOSS_RTOL
+                   and param_abs <= 2 * k * t.lr_max + 1e-6)
+        else:
+            ok &= all(same.values())
+    result["losses"] = [round(v, 6) for v in losses["total_log_loss"].tolist()]
+    say("phase 10b result: " + json.dumps(result))
+    return 0 if ok else 1
+
+
+def start_three_ways() -> subprocess.Popen:
+    """Phase 10b's process: ``three_ways_child``, with
+    CUBLAS_WORKSPACE_CONFIG=:4096:8 set before its first product, so that
+    deterministic algorithms bind no other phase. It runs beside 10a, which
+    times nothing, and is waited for before 10c."""
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--phase10b"],
+        env={**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def three_ways(proc: subprocess.Popen, t0: float, device_line: str) -> dict:
+    """Phase 10b: the result of ``start_three_ways``'s process, started at
+    ``t0``; fails unless it ran to its end and the three ways agreed."""
+    stdout, stderr = proc.communicate(timeout=600)
+    lines = [ln for ln in stdout.splitlines()
+             if ln.startswith("phase 10b result: ")]
+    if proc.returncode != 0 or not lines:
+        fail(f"phase 10b: exit {proc.returncode}; {lines[-1:]}; stderr "
+             + stderr[-3000:])
+    result = json.loads(lines[-1].removeprefix("phase 10b result: "))
+    kind = ("within the stated tolerance, ops without a deterministic "
+            "implementation: " + "; ".join(result["nondeterministic_ops"])
+            if result["nondeterministic_ops"] else "bit for bit")
+    say(f"phase 10b FluxD-r5 one state three ways ({result['steps']} "
+        "pushforward steps: an indexed call, a multi call, single steps; "
+        "deterministic algorithms, CUBLAS_WORKSPACE_CONFIG=:4096:8, a process "
+        f"of its own): ok, {kind}; " + json.dumps(result)
+        + f"; {time.perf_counter() - t0:.1f} s beside 10a; card {device_line}")
+    return result
+
+
+def fused_times(trainer, state, ds, device_line: str) -> dict:
+    """Phase 10c: ms per train step, host clock ending in a synchronize,
+    of FUSED_TIMED_CALLS calls of each kind in turns on one combination's
+    first ``steps_per_call`` batches, through the feed ``Trainer.run``
+    gives each: single steps through ``prefetch`` (its worker thread),
+    one multi call through ``prefetch_grouped``, one indexed call through
+    ``prefetch_indexed``; then a device profile of one indexed call (its
+    device time and kernels per step, busy share, host-to-device copies)."""
+    t = trainer.config.training
+    k = t.steps_per_call
+    batches = list(itertools.islice(get_sampler(trainer.config.dataset.sampler)(
+        ds, t.batch_size, np.random.default_rng(1)), k))
+    lr = t.lr_min
+
+    def single():
+        for g in prefetch(iter(batches), ds, size=t.prefetch_buffer):
+            trainer.train_step(state, g, lr)
+
+    def multi():
+        for _, graph, stack in prefetch_grouped(iter(batches), ds, k,
+                                                size=t.prefetch_buffer):
+            trainer.train_step_multi(state, graph, stack, [lr] * k)
+
+    def indexed():
+        for _, graph, dev, ts in prefetch_indexed(iter(batches), ds, k):
+            trainer.train_step_indexed(state, graph, dev, ts, [lr] * k,
+                                       ds.data_window)
+
+    runs = {"single": single, "multi": multi, "indexed": indexed}
+    times = {name: [] for name in runs}
+    zero_launches()
+    for _ in range(FUSED_TIMED_CALLS):
+        for name, fn in runs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[name].append(1e3 * (time.perf_counter() - t0) / k)
+    launches = {n: v for n, v in launch_counts().items() if v}
+    prof = profile_steps(indexed, k, copies=True)
+    _, stack = ds.get_batch_stack(batches)
+    stack_bytes = sum(v.numel() * v.element_size() for v in stack.values())
+    ts_bytes = 8 * k * t.batch_size     # the call's (k, B) int64 start steps
+    say(f"phase 10c FluxD-r5 ms per train step ({k} pushforward steps a call"
+        f", {FUSED_TIMED_CALLS} calls of each kind in turns, host clock ending"
+        " in a synchronize, the feed's assembly included): "
+        + json.dumps({n: [round(v, 3) for v in ts] for n, ts in times.items()})
+        + f"; launches over them {json.dumps(launches)}; a multi call copies "
+        f"{stack_bytes} bytes of windows to the card, an indexed call its "
+        f"({k}, {t.batch_size}) int64 start steps, {ts_bytes} bytes (pinned, "
+        "asynchronous); device profile of one indexed call (htod_*: the "
+        "host-to-device copies its trace records): "
+        + ("not measured" if prof is None else json.dumps(prof))
+        + f"; card {device_line}")
+    return {"ms_per_step": times, "profile": prof,
+            "multi_bytes_per_call": stack_bytes,
+            "indexed_bytes_per_call": ts_bytes}
+
+
+def fused_phase(train_ds, valid_ds, line: str) -> dict:
+    """Phase 10: 10a with 10b's process beside it, then 10c. Returns the
+    path's record."""
+    t10 = time.perf_counter()
+    child = start_three_ways()
+    try:
+        record, trainer, state, ds = fused_training(train_ds, valid_ds, line)
+        record["three_ways"] = three_ways(child, t10, line)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    record.update(fused_times(trainer, state, ds, line))
+    say(f"phase 10 card {line}; FluxD-r5 ms per train step (median of "
+        f"{FUSED_TIMED_CALLS} calls): " + json.dumps(
+            {n: float(np.median(v))
+             for n, v in record["ms_per_step"].items()})
+        + f"; phase 10 wall time {time.perf_counter() - t10:.1f} s")
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2496,6 +2936,7 @@ def main() -> int:
     paths.update(families_phase(dev, ds, train_ds, line))
     paths.update(flux_vertpot_phase(dev, ds, train_ds, line))
     paths.update(conservative_phase(dev, ds, train_ds, line))
+    paths["FluxD-r5-train"] = fused_phase(train_ds, ds, line)
 
     bnd = bounds(graph)
     rows = []
@@ -2526,4 +2967,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(three_ways_child() if sys.argv[1:] == ["--phase10b"] else main())

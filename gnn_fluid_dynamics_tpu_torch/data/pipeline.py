@@ -8,21 +8,30 @@ time-window fields in. With ``with_banded`` each mesh carries its own banded
 tables, and :func:`~gnn_fluid_dynamics_tpu_torch.graph.batch_graphs` brings a
 batch's tables to one band width.
 
-Training reads it through :func:`train_batches` or the samplers of
-:mod:`gnn_fluid_dynamics_tpu_torch.data.samplers`, one ``get_batch`` per step,
-in the training process (no prefetch thread).
+Training reads it through the samplers of
+:mod:`gnn_fluid_dynamics_tpu_torch.data.samplers` and one of three feeds,
+as the JAX package's trainer does: :func:`prefetch` (one batch a step,
+assembled and copied to the device by a worker thread),
+:func:`prefetch_grouped` (``k`` batches of one mesh combination stacked,
+:meth:`MeshDataset.get_batch_stack`) and :func:`prefetch_indexed` (the
+combination's whole trajectories held on the device once,
+:meth:`MeshDataset.device_fields`, and ``(k, B)`` start indices a call).
+Unlike the JAX package's workers, whose exception ends the epoch early
+without a word, a worker's exception is raised in the consuming thread.
 
 Not ported: the size buckets (``num_buckets``) and the per-pad canonical
 band offsets, which the JAX package keeps so that its compiled programs see
-few shapes; the out-of-core mode (``max_cached_graphs``), the prefetchers,
-``device_fields``, ``get_batch_stack`` and the incidence tables of the
-``"gather"`` backend (the port's graphs always carry
-their index vectors).
+few shapes; the out-of-core mode (``max_cached_graphs``) and the incidence
+tables of the ``"gather"`` backend (the port's graphs always carry their
+index vectors).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import queue
+import threading
+from collections import OrderedDict
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -124,6 +133,10 @@ class MeshDataset:
         self._static_graphs: Dict[str, MeshGraph] = {}
         self._batched_cache: Dict[Tuple[str, ...], MeshGraph] = {}
         self._batched_cache_size = 8
+        # the indexed train path's trajectory stores, by mesh combination
+        self._device_fields_cache: "OrderedDict[Tuple[str, ...], Dict]" = (
+            OrderedDict())
+        self._device_fields_cache_size = 16
 
     def __len__(self):
         return len(self.sample_map)
@@ -174,12 +187,78 @@ class MeshDataset:
         for key in FIELD_KEYS:
             if key in winds[0]:
                 arr = np.concatenate([w[key] for w in winds], axis=0)
-                updates[key] = torch.from_numpy(
-                    np.ascontiguousarray(arr, np.float32)).to(self.device)
+                updates[key] = self._to_device(arr)
         return dataclasses.replace(g, **updates)
 
     def get_item(self, idx: int) -> MeshGraph:
         return self.get_batch([self.sample_map[idx]])
+
+    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
+        # a plain copy from pageable memory: the host buffer may be freed
+        # as soon as it returns, and it is ordered on the current stream
+        return torch.from_numpy(np.ascontiguousarray(arr, np.float32)).to(
+            self.device)
+
+    def get_batch_stack(self, sample_batches: Sequence[Sequence[Tuple[str, int]]]
+                        ) -> Tuple[MeshGraph, Dict[str, torch.Tensor]]:
+        """``k`` batches that share one mesh combination as (the static
+        batched graph, ``{field: (k, N, W, D)}`` on the dataset's device):
+        the input of the trainer's ``train_step_multi``."""
+        mesh_ids = tuple(m for m, _ in sample_batches[0])
+        if any(tuple(m for m, _ in sb) != mesh_ids for sb in sample_batches):
+            raise ValueError("the batches of a stack must share one mesh "
+                             "combination")
+        g = self._batched_static(mesh_ids)
+        per_key: Dict[str, list] = {}
+        for sb in sample_batches:
+            winds = [self._window(m, ts) for m, ts in sb]
+            for key in FIELD_KEYS:
+                if key in winds[0]:
+                    per_key.setdefault(key, []).append(
+                        np.concatenate([w[key] for w in winds], axis=0))
+        return g, {key: self._to_device(np.stack(v))
+                   for key, v in per_key.items()}
+
+    # ---- device-resident trajectory fields ----------------------------------
+    def estimate_device_field_bytes(self) -> int:
+        """Bytes the whole dataset's trajectory fields take on the device,
+        padded, in f32: the budget check of the indexed train path."""
+        total = 0
+        for t in self.trajectories:
+            for key, arr in t.fields.items():
+                if key not in FIELD_KEYS:
+                    continue
+                npad = self.pad_to["cell" if key.startswith("cell") else "face"]
+                total += arr.shape[0] * npad * arr.shape[2] * 4
+        return total
+
+    def device_fields(self, mesh_ids: Tuple[str, ...]
+                      ) -> Dict[str, torch.Tensor]:
+        """The whole trajectories of one mesh combination (a mesh may appear
+        more than once) on the dataset's device, ``{key: (T, B*Npad, D)}``
+        f32 in batch layout, zero-padded, ``T`` the combination's shortest
+        trajectory; kept in an LRU of 16 combinations. With a fixed-chunk
+        sampler each combination is copied once for the whole run, and the
+        indexed train step gathers its windows there."""
+        cache = self._device_fields_cache
+        if mesh_ids in cache:
+            cache.move_to_end(mesh_ids)
+            return cache[mesh_ids]
+        T = min(self.by_id[m].num_timesteps for m in mesh_ids)
+        out = {}
+        for key in FIELD_KEYS:
+            if not all(key in self.by_id[m].fields for m in mesh_ids):
+                continue
+            npad = self.pad_to["cell" if key.startswith("cell") else "face"]
+            rows = []
+            for m in mesh_ids:
+                x = np.asarray(self.by_id[m].fields[key][:T])
+                rows.append(np.pad(x, ((0, 0), (0, npad - x.shape[1]), (0, 0))))
+            out[key] = self._to_device(np.concatenate(rows, axis=1))
+        while len(cache) >= self._device_fields_cache_size:
+            cache.popitem(last=False)
+        cache[mesh_ids] = out
+        return out
 
     # ---- rollout ground truth ----------------------------------------------
     def trajectory_fields(self, mesh_ids: Sequence[str], t0: int,
@@ -242,6 +321,114 @@ def train_batches(dataset: MeshDataset, batch_size: int,
                for i in range(0, len(order) - batch_size + 1, batch_size)]
     for i in rng.permutation(len(batches)):
         yield batches[i]
+
+
+class _Closed(Exception):
+    """The consumer of a background feed has gone."""
+
+
+def _background(produce, size: int):
+    """Run ``produce(put)`` in a worker thread and yield what it puts, at
+    most ``size`` items ahead. An exception of the worker is raised here,
+    in the consuming thread, where the JAX package's feeds end the epoch
+    early; when the consumer stops early, the worker stops at its next
+    ``put``."""
+    q: "queue.Queue" = queue.Queue(maxsize=max(int(size), 1))
+    closed = threading.Event()
+
+    def put(item):
+        while not closed.is_set():
+            try:
+                q.put(item, timeout=0.05)
+                return
+            except queue.Full:
+                pass
+        raise _Closed
+
+    def worker():
+        try:
+            produce(lambda item: put((True, item)))
+            put((False, None))
+        except _Closed:
+            pass
+        except BaseException as exc:  # handed to the consumer, raised there
+            try:
+                put((False, exc))
+            except _Closed:
+                pass
+
+    thread = threading.Thread(target=worker, daemon=True)
+    thread.start()
+    try:
+        while True:
+            more, item = q.get()
+            if not more:
+                if item is not None:
+                    raise item
+                return
+            yield item
+    finally:
+        closed.set()
+        thread.join()
+
+
+def prefetch(batch_iter, dataset: MeshDataset, size: int = 2):
+    """Batches of ``batch_iter`` assembled and copied to the device by a
+    worker thread, up to ``size`` ahead of the consumer. Yields
+    MeshGraphs."""
+    def produce(put):
+        for samples in batch_iter:
+            put(dataset.get_batch(samples))
+    return _background(produce, size)
+
+
+def _runs(batch_iter, k: int):
+    """Runs of consecutive batches that share one mesh combination, each cut
+    at ``k`` batches: (combination, batches)."""
+    run, cur = [], None
+    for samples in batch_iter:
+        ids = tuple(m for m, _ in samples)
+        if ids != cur:
+            if run:
+                yield cur, run
+            run, cur = [], ids
+        run.append(samples)
+        if len(run) == k:
+            yield cur, run
+            run = []
+    if run:
+        yield cur, run
+
+
+def prefetch_grouped(batch_iter, dataset: MeshDataset, k: int,
+                     size: int = 2):
+    """The multi-step feed: a run of ``k`` consecutive batches that share a
+    mesh combination as ``("multi", graph, field_stack)``
+    (:meth:`MeshDataset.get_batch_stack`), a shorter run (a chunk's tail, a
+    change of combination) as single batches, ``("single", graph)``;
+    assembled by a worker thread up to ``size`` ahead, in the JAX
+    package's order."""
+    def produce(put):
+        for _, run in _runs(batch_iter, k):
+            if len(run) == k:
+                put(("multi", *dataset.get_batch_stack(run)))
+            else:
+                for samples in run:
+                    put(("single", dataset.get_batch(samples)))
+    return _background(produce, size)
+
+
+def prefetch_indexed(batch_iter, dataset: MeshDataset, k: int):
+    """The device-resident feed: each run of at most ``k`` consecutive
+    batches that share a mesh combination as ``("indexed", graph,
+    dev_fields, ts)``, with the combination's trajectory store
+    (:meth:`MeshDataset.device_fields`) and the run's ``(k', B)`` int32
+    start steps (a run's tail is a shorter one). No worker thread: a
+    call's host work is one small index array."""
+    for combo, run in _runs(batch_iter, k):
+        ts = np.asarray([[t for _, t in sb] for sb in run], np.int32)
+        yield ("indexed", dataset._batched_static(combo),
+               dataset.device_fields(combo), ts)
 
 
 def rollout_batch(dataset: MeshDataset, t0: Optional[int] = None):

@@ -12,8 +12,10 @@ module's state dict (BatchNorm statistics included), the optimizer's state
 dict, the generator's state and the step count. A checkpoint of the JAX
 package (orbax) is converted outside the package by
 ``scripts/torch_convert_flax_checkpoint.py`` into this layout with the
-module's state dict and the step only: it serves a rollout or a warm start,
-and a resume from it raises, since it holds no optimizer state.
+module's and the optimizer's state dicts and the step, and no generator
+state: the JAX package's random key has no torch counterpart, so a resume
+from it keeps the generator ``Trainer.init_state`` seeded from
+``settings.random_seed``.
 """
 
 from __future__ import annotations
@@ -129,18 +131,24 @@ class Checkpointer:
 
 
 def restore_train_state(tree: Dict, state):
-    """``state`` (a ``TrainState``) with the module, optimizer, generator
-    and step of ``tree`` put in place; returns it. Raises for a checkpoint
-    without optimizer state (one converted from the JAX package)."""
-    missing = [k for k in ("optimizer", "generator") if k not in tree]
-    if missing:
+    """``state`` (a ``TrainState`` from ``Trainer.init_state``) with the
+    module, optimizer, generator and step of ``tree`` put in place; returns
+    it. A tree without generator state (one converted from the JAX package)
+    leaves the generator as ``init_state`` seeded it, from
+    ``settings.random_seed``, and says so. Raises for a tree without
+    optimizer state."""
+    if "optimizer" not in tree:
         raise ValueError(
-            f"the checkpoint holds no {' or '.join(missing)} state (a "
-            "checkpoint converted from the JAX package holds the module and "
-            "the step only), so training cannot resume from it; use it for "
-            "a rollout, or as a warm start through model.fpath")
+            "the checkpoint holds no optimizer state (a module and a step "
+            "only), so training cannot resume from it; use it for a "
+            "rollout, or as a warm start through model.fpath")
     state.module.load_state_dict(tree["module"])
     state.optimizer.load_state_dict(tree["optimizer"])
-    state.generator.set_state(tree["generator"])
+    if "generator" in tree:
+        state.generator.set_state(tree["generator"])
+    else:
+        print("The checkpoint holds no generator state (one converted from "
+              "the JAX package, whose random key has no torch counterpart): "
+              "the generator starts from settings.random_seed")
     state.step = int(tree["step"])
     return state

@@ -9,9 +9,11 @@ It runs on the card unless ``--device cpu`` is given, and raises when there
 is none. Data comes from the ``synthetic`` module (Taylor-Green
 trajectories) or, for any other module, from the reference-layout HDF5 files
 ``<dataset.dpath>/<subset>.h5`` read into memory (the out-of-core mode is
-not ported: ``dataset.lazy`` true raises). A warm start from
-``model.fpath`` reads this package's checkpoints, those converted from the
-JAX package's included (``scripts/torch_convert_flax_checkpoint.py``).
+not ported: ``dataset.lazy`` true raises, and so does ``dataset.num_buckets``
+above 1, the size buckets not being ported either). ``--resume`` and a
+warm start from ``model.fpath`` read this package's checkpoints, those
+converted from the JAX package's included
+(``scripts/torch_convert_flax_checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -50,6 +52,11 @@ def build_datasets(config, model_cls, splits=("train", "valid"),
         raise NotImplementedError(
             "dataset.lazy: the out-of-core HDF5 store is not ported yet "
             "(ROADMAP §1 item 4); the port reads the files into memory")
+    if (config.dataset.num_buckets or 1) > 1:
+        raise NotImplementedError(
+            f"dataset.num_buckets = {config.dataset.num_buckets}: the size "
+            "buckets are not ported yet (ROADMAP §1 item 4); the port pads "
+            "every mesh to the largest")
 
     stride, window = compute_window(config.model.timestep_stride,
                                     config.training.pushforward_factor,

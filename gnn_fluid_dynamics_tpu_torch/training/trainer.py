@@ -8,7 +8,12 @@ scan-fused ``multi`` and ``indexed`` steps) to amortize the per-call
 dispatch. Here a step is eager PyTorch: autograd for the gradient,
 ``torch.optim`` for the update, and one explicit ``torch.Generator`` on the
 model's device for the noise, the edge flip and dropout, where the JAX
-package splits its key three ways.
+package splits its key three ways. The fused calls (``train_step_multi``,
+``train_step_indexed``) take the same inputs as the JAX package's and run
+their ``k`` steps one after another, each exactly :meth:`Trainer.train_step`
+with its own AdamW update, so that they draw from the generator in the order
+``k`` single steps do and equal them bit for bit; the indexed call gathers
+each step's window on the device from the trajectory store.
 
 The train step takes the plain route: ``arch.kernel_route(..., train=True)``
 refuses the kernels, which have no backward, as the JAX package's
@@ -18,9 +23,8 @@ validation, a rollout in eval mode, does (K6 and K7 on the validation
 graph's tables). The no-grad unroll of pushforward training is a rollout-mode
 forward, so it takes whatever route the model's aggregation gives a rollout.
 
-Not ported here: the scan-fused steps (``steps_per_call > 1``, ROADMAP §1
-item 3), data parallelism (``settings.multi_gpu``, §1 item 6) and the
-grad/param monitor (§1 item 7). Each raises.
+Not ported here: data parallelism (``settings.multi_gpu``, ROADMAP §1 item
+6) and the grad/param monitor (§1 item 7); the first raises.
 """
 
 from __future__ import annotations
@@ -33,7 +37,9 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from gnn_fluid_dynamics_tpu_torch.data.pipeline import MeshDataset
+from gnn_fluid_dynamics_tpu_torch.data.pipeline import (MeshDataset, prefetch,
+                                                        prefetch_grouped,
+                                                        prefetch_indexed)
 from gnn_fluid_dynamics_tpu_torch.data.samplers import get_sampler
 from gnn_fluid_dynamics_tpu_torch.rollout.engine import error_summary
 from gnn_fluid_dynamics_tpu_torch.training.config import Config
@@ -50,17 +56,24 @@ class TrainState:
     generator: torch.Generator      # on the module's device
 
 
+def _f32(x: float) -> float:
+    return float(np.float32(x))
+
+
 def select_optimizer(cfg: Config, params) -> torch.optim.Optimizer:
     """Adam or AdamW by name (reference ``select_optimizer``,
     train.py:70-95), with optax's defaults: betas (0.9, 0.999), eps 1e-8,
     and for AdamW a weight decay of 1e-4 on every parameter (torch's default
-    is 1e-2). Clipping is :func:`clip_by_global_norm_`."""
+    is 1e-2). Each is rounded to f32, as the JAX package's
+    ``inject_hyperparams`` holds it: 1 - b2 is then 0.99998713e-3, not
+    1e-3, which a resumed second moment, a sum over tens of thousands of
+    steps, shows. Clipping is :func:`clip_by_global_norm_`."""
     t = cfg.training
-    kw = dict(lr=t.lr_max, betas=(0.9, 0.999), eps=1e-8)
+    kw = dict(lr=t.lr_max, betas=(_f32(0.9), _f32(0.999)), eps=_f32(1e-8))
     if t.optimizer_name == "Adam":
         return torch.optim.Adam(params, **kw)
     if t.optimizer_name == "AdamW":
-        return torch.optim.AdamW(params, weight_decay=1e-4, **kw)
+        return torch.optim.AdamW(params, weight_decay=_f32(1e-4), **kw)
     raise ValueError(f"Optimizer {t.optimizer_name} not recognised")
 
 
@@ -124,6 +137,34 @@ _WINDOW_FIELDS = ("cell_velocity", "cell_pressure", "face_velocity",
                   "face_pressure", "face_flux")
 
 
+# the indexed path is taken, unless ``training.device_fields`` says, when
+# the whole dataset's trajectories fit this many bytes on the device (the
+# JAX package's rule; it decides which path a config takes)
+DEVICE_FIELD_BUDGET = 4e9
+
+
+def gather_windows(dev_fields: Dict[str, torch.Tensor], ts_b: torch.Tensor,
+                   window: int) -> Dict[str, torch.Tensor]:
+    """Each trajectory's ``window`` states from its start step: the store
+    ``{key: (T, B*Npad, D)}`` and ``(B,)`` start steps on its device give
+    ``{key: (B*Npad, window, D)}``, laid out as ``MeshDataset.get_batch``
+    lays a batch (the JAX package's ``gather_windows``)."""
+    B = ts_b.shape[0]
+    steps = ts_b[:, None] + torch.arange(window, device=ts_b.device)
+    rows = torch.arange(B, device=ts_b.device)[:, None]
+    out = {}
+    for key, arr in dev_fields.items():
+        T, NB, D = arr.shape
+        win = arr.reshape(T, B, NB // B, D)[steps, rows]    # (B, W, Npad, D)
+        out[key] = win.permute(0, 2, 1, 3).reshape(NB, window, D)
+    return out
+
+
+def _stack(per_step) -> Dict[str, torch.Tensor]:
+    return {k: torch.stack([losses[k] for losses in per_step])
+            for k in per_step[0]}
+
+
 def warmup_window(graph):
     """A pushforward-sized trajectory window cut to its final 2 steps, so
     that the warmup epochs (no retarget) supervise one step ahead of the
@@ -140,10 +181,6 @@ class Trainer:
         if config.settings.multi_gpu:
             raise NotImplementedError(
                 "data-parallel training is not ported (ROADMAP §1 item 6)")
-        if int(config.training.steps_per_call or 1) > 1:
-            raise NotImplementedError(
-                "steps_per_call > 1 (the scan-fused multi/indexed steps) is "
-                "not ported (ROADMAP §1 item 3)")
         self.config = config
         self.model = model
         self.logger = logger
@@ -198,15 +235,83 @@ class Trainer:
         state.step += 1
         return {k: v.detach() for k, v in losses.items()}
 
+    def train_step_multi(self, state: TrainState, graph, field_stack,
+                         lrs) -> Dict[str, torch.Tensor]:
+        """``len(lrs)`` steps on one static batched graph, step ``i`` on the
+        windows ``field_stack[key][i]`` at learning rate ``lrs[i]`` (the
+        counterpart of ``train_step_multi``). Returns ``{loss: (k,)}`` on
+        the device."""
+        return _stack([self.train_step(
+            state, graph.replace(**{k: v[i] for k, v in field_stack.items()}),
+            lr) for i, lr in enumerate(lrs)])
+
+    def train_step_indexed(self, state: TrainState, graph, dev_fields, ts,
+                           lrs, window: int) -> Dict[str, torch.Tensor]:
+        """``len(lrs)`` steps on the trajectory store ``dev_fields``
+        (``MeshDataset.device_fields``), step ``i`` on the ``window`` states
+        from the start steps ``ts[i]`` (``ts``: ``(k, B)`` int), gathered on
+        the device (the counterpart of ``train_step_indexed``). Returns
+        ``{loss: (k,)}`` on the device."""
+        ts = np.asarray(ts)
+        T = min(v.shape[0] for v in dev_fields.values())
+        if ts.size and (ts.min() < 0 or ts.max() + window > T):
+            raise ValueError(f"start steps {ts.min()}..{ts.max()} with a "
+                             f"window of {window} leave a store of {T} steps")
+        ts_host = torch.from_numpy(np.ascontiguousarray(ts, np.int64))
+        if graph.device.type == "cuda":
+            # pinned, so the copy needs no host sync; the caching host
+            # allocator keeps the buffer until the copy has completed
+            ts_host = ts_host.pin_memory()
+        ts_dev = ts_host.to(graph.device, non_blocking=True)
+        return _stack([self.train_step(
+            state, graph.replace(**gather_windows(dev_fields, ts_dev[i],
+                                                  window)), lr)
+            for i, lr in enumerate(lrs)])
+
+    def train_path(self, dataset: MeshDataset) -> str:
+        """``"indexed"``, ``"multi"`` or ``"single"``: how :meth:`run`
+        feeds ``dataset``. ``steps_per_call > 1`` takes the indexed path
+        when ``training.device_fields`` says so or, where it is None, when
+        the dataset's trajectories fit DEVICE_FIELD_BUDGET on the device."""
+        t = self.config.training
+        if max(1, int(t.steps_per_call or 1)) == 1:
+            return "single"
+        use_dev = t.device_fields
+        if use_dev is None:
+            use_dev = (dataset.estimate_device_field_bytes()
+                       <= DEVICE_FIELD_BUDGET)
+        return "indexed" if use_dev else "multi"
+
+    def _batches(self, dataset: MeshDataset, rng: np.random.Generator):
+        """One epoch of the sampler's batches through the feed of
+        :meth:`train_path`: ``("single", graph)``, ``("multi", graph,
+        field_stack)`` or ``("indexed", graph, dev_fields, ts)``."""
+        t = self.config.training
+        spc = max(1, int(t.steps_per_call or 1))
+        batches = get_sampler(self.config.dataset.sampler)(
+            dataset, t.batch_size, rng)
+        path = self.train_path(dataset)
+        if path == "indexed":
+            return prefetch_indexed(batches, dataset, spc)
+        if path == "multi":
+            return prefetch_grouped(batches, dataset, spc,
+                                    size=t.prefetch_buffer)
+        return (("single", g) for g in prefetch(batches, dataset,
+                                                size=t.prefetch_buffer))
+
     # ---- loop ---------------------------------------------------------------
     def run(self, state: TrainState, train_dataset: MeshDataset,
             valid_dataset: Optional[MeshDataset] = None,
             num_valid_steps: int = 50) -> TrainState:
         """Validate, then train ``training.epochs`` epochs of the sampler's
-        batches; at each mini-epoch boundary log the mean losses, validate
-        every ``valid_frequency`` and checkpoint every ``save_frequency``
-        mini-epochs. ``GFD_EPOCH_LIMIT`` bounds the epochs of this call; a
-        run it cuts saves its tail."""
+        batches, one step a call or ``steps_per_call`` (:meth:`train_path`);
+        when the step count crosses a mini-epoch boundary, log the mean
+        losses, validate every ``valid_frequency`` and checkpoint every
+        ``save_frequency`` mini-epochs. A fused call of ``n`` steps takes one
+        learning rate and advances the counters by ``n``; a boundary it
+        crosses is taken after it (the JAX package's crossing rule, one
+        mini-epoch a call). ``GFD_EPOCH_LIMIT`` bounds the epochs of this
+        call; a run it cuts saves its tail."""
         cfg = self.config
         t = cfg.training
         total_mini_epochs = max(
@@ -231,21 +336,35 @@ class Trainer:
                 break
             epochs_this_run += 1
             self.epoch_count += 1
-            for samples in get_sampler(cfg.dataset.sampler)(
-                    train_dataset, t.batch_size, np_rng):
-                graph = train_dataset.get_batch(samples)
-                self.step_count += 1
-                self.sample_count += graph.num_graphs
+            for item in self._batches(train_dataset, np_rng):
+                graph = item[1]
                 lr = schedule(self.mini_epoch_count)
+                if item[0] == "indexed":
+                    n = item[3].shape[0]
+                elif item[0] == "multi":
+                    n = next(iter(item[2].values())).shape[0]
+                else:
+                    n = 1
+                self.step_count += n
+                self.sample_count += graph.num_graphs * n
                 # the losses stay on the device until the mini-epoch ends:
                 # reading one per step would sync host and card every step
-                pending.append(self.train_step(state, graph, lr))
+                if item[0] == "indexed":
+                    pending.append(self.train_step_indexed(
+                        state, graph, item[2], item[3], [lr] * n,
+                        train_dataset.data_window))
+                elif item[0] == "multi":
+                    pending.append(self.train_step_multi(state, graph, item[2],
+                                                         [lr] * n))
+                else:
+                    pending.append(self.train_step(state, graph, lr))
                 if self.step_count // steps_per_mini_epoch <= self.mini_epoch_count:
                     continue
                 self.mini_epoch_count += 1
                 keys = list(pending[0])
-                sums = torch.stack([torch.stack([p[k] for k in keys])
-                                    for p in pending]).double().sum(0).tolist()
+                # a single step's losses are scalars, a fused call's (n,)
+                sums = torch.cat([torch.stack([p[k] for k in keys]).reshape(
+                    len(keys), -1) for p in pending], 1).double().sum(1).tolist()
                 for k, v in zip(keys, sums):
                     mini_losses[k] = mini_losses.get(k, 0.0) + v
                 pending = []

@@ -32,6 +32,12 @@ Flax path                                                   torch state-dict key
 A Flax ``Dense`` kernel is (in, out); a torch ``Linear.weight`` is (out, in).
 The fused kernels take their own split of ``W0`` (``MLP.kernel_weights``), so
 the state dict holds each matrix whole.
+
+:func:`optimizer_state_from_optax` carries the JAX package's optimizer
+state (optax's ``inject_hyperparams(adamw)`` or ``adam``, behind
+``clip_by_global_norm``, which holds none) onto ``torch.optim.AdamW`` or
+``Adam``: the moments ``mu`` and ``nu`` by the same names, the count as the
+step.
 """
 
 from __future__ import annotations
@@ -42,6 +48,9 @@ from typing import Dict
 
 import numpy as np
 import torch
+
+from gnn_fluid_dynamics_tpu_torch.training.model_loading import (
+    backward_compatibility)
 
 # (pattern on the Flax name, whether it needs an ``Encoder_0`` beside it,
 # torch name); the first that matches wins. A GN block's sub-blocks are
@@ -118,3 +127,67 @@ def params_from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
     for collection, tree in collections.items():
         walk(tree, "", "", collection)
     return out
+
+
+def _adam_state(opt_state):
+    """The ``inject_hyperparams`` state in an optax state tree restored
+    without a template (mappings and lists): the mapping with
+    ``hyperparams``, alone or an element of a chain's list."""
+    if isinstance(opt_state, Mapping):
+        if "hyperparams" in opt_state:
+            return opt_state
+    elif isinstance(opt_state, (list, tuple)):
+        for part in opt_state:
+            found = _adam_state(part)
+            if found is not None:
+                return found
+    return None
+
+
+def optimizer_state_from_optax(opt_state, optimizer: torch.optim.Optimizer,
+                               module: torch.nn.Module) -> Dict:
+    """The state dict of ``optimizer`` (a ``torch.optim.AdamW`` or ``Adam``
+    over ``module``'s parameters) holding the optax state ``opt_state`` of
+    the JAX package's optimizer, as its checkpoints hold it (numpy, restored
+    without a template): per parameter ``exp_avg`` from ``mu`` and
+    ``exp_avg_sq`` from ``nu``, named through :func:`params_from_flax` after
+    ``backward_compatibility``'s renames, and ``step`` from the count, a
+    float32 tensor as torch keeps it. Raises ``ValueError`` when ``b1``,
+    ``b2``, ``eps``, ``eps_root`` or ``weight_decay`` differ from the
+    optimizer's (in f32, as optax holds them), or when the moments and the
+    parameters do not match by name and shape."""
+    state = _adam_state(opt_state)
+    if state is None:
+        raise ValueError("no inject_hyperparams state in the optax state")
+    adam = next(s for s in state["inner_state"]
+                if isinstance(s, Mapping) and "mu" in s)
+    hyper = {k: float(np.asarray(v)) for k, v in state["hyperparams"].items()}
+    own = optimizer.state_dict()["param_groups"]
+    for group in own:
+        want = {"b1": group["betas"][0], "b2": group["betas"][1],
+                "eps": group["eps"], "eps_root": 0.0,
+                "weight_decay": group["weight_decay"]}
+        for key, value in want.items():
+            got = hyper.get(key, 0.0)
+            if np.float32(got) != np.float32(value):
+                raise ValueError(f"optax's {key} is {got}, the optimizer's "
+                                 f"{value}")
+    names = {id(p): name for name, p in module.named_parameters()}
+    order = [names[id(p)] for group in optimizer.param_groups
+             for p in group["params"]]
+    mu = params_from_flax(backward_compatibility(adam["mu"]))
+    nu = params_from_flax(backward_compatibility(adam["nu"]))
+    params = dict(module.named_parameters())
+    if set(mu) != set(order) or set(nu) != set(order):
+        raise ValueError("optax's moments and the module's parameters differ: "
+                         f"{sorted(set(mu) ^ set(order))[:8]}")
+    step = torch.tensor(float(np.asarray(adam["count"])), dtype=torch.float32)
+    out = {}
+    for i, name in enumerate(order):
+        shape = params[name].shape
+        if mu[name].shape != shape or nu[name].shape != shape:
+            raise ValueError(f"{name}: moments of shape {tuple(mu[name].shape)}"
+                             f", parameter of shape {tuple(shape)}")
+        out[i] = {"step": step.clone(), "exp_avg": mu[name],
+                  "exp_avg_sq": nu[name]}
+    return {"state": out, "param_groups": own}

@@ -6,9 +6,14 @@
 The JAX checkpoint directory holds ``state`` (orbax) and ``meta.json`` (the
 training config and the normalization statistics). The output directory
 gets ``state.pt`` — the port's module state dict (the Flax ``params`` and
-``batch_stats`` through ``weights.params_from_flax``, legacy names renamed)
-and the step, no optimizer state — and a copy of ``meta.json``. The port's
-``rollout.run`` takes the output directory as its ``model.fpath``.
+``batch_stats`` through ``weights.params_from_flax``, legacy names renamed),
+the optimizer's state dict (optax's AdamW or Adam moments and count through
+``weights.optimizer_state_from_optax``, for the optimizer the checkpoint's
+config selects) and the step — and a copy of ``meta.json``. The port's
+``rollout.run`` takes the output directory as its ``model.fpath``, and
+``training.train --resume <out_dir>`` continues the run from it (the JAX
+package's random key has no torch counterpart: the generator starts from
+``settings.random_seed``).
 
 This script, and the tests, are the only code of the port's side that
 import JAX and orbax; the port's package does not.
@@ -17,6 +22,7 @@ import JAX and orbax; the port's package does not.
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import shutil
 import sys
@@ -28,9 +34,14 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
+from gnn_fluid_dynamics_tpu_torch.training.config import Config  # noqa: E402
 from gnn_fluid_dynamics_tpu_torch.training.model_loading import (  # noqa: E402
     backward_compatibility)
-from gnn_fluid_dynamics_tpu_torch.weights import params_from_flax  # noqa: E402
+from gnn_fluid_dynamics_tpu_torch.training.train import build_model  # noqa: E402
+from gnn_fluid_dynamics_tpu_torch.training.trainer import (  # noqa: E402
+    select_optimizer)
+from gnn_fluid_dynamics_tpu_torch.weights import (  # noqa: E402
+    optimizer_state_from_optax, params_from_flax)
 
 
 def restore_flax_state(ckpt_dir: str) -> dict:
@@ -50,9 +61,18 @@ def convert(ckpt_dir: str, out_dir: str):
     if tree.get("batch_stats"):
         variables["batch_stats"] = backward_compatibility(tree["batch_stats"])
     module = params_from_flax(variables)
+    out = {"module": module, "step": int(np.asarray(tree["step"]))}
+    if tree.get("opt_state") is not None:
+        with open(os.path.join(ckpt_dir, "meta.json")) as f:
+            config = Config.from_dict(json.load(f)["config"])
+        # the checkpoint's model on the CPU: its parameters' order and shapes
+        model = build_model(config, "cpu")
+        model.module.load_state_dict(module)
+        optimizer = select_optimizer(config, model.module.parameters())
+        out["optimizer"] = optimizer_state_from_optax(
+            tree["opt_state"], optimizer, model.module)
     os.makedirs(out_dir, exist_ok=True)
-    torch.save({"module": module, "step": int(np.asarray(tree["step"]))},
-               os.path.join(out_dir, "state.pt"))
+    torch.save(out, os.path.join(out_dir, "state.pt"))
     shutil.copyfile(os.path.join(ckpt_dir, "meta.json"),
                     os.path.join(out_dir, "meta.json"))
     return module, tree

@@ -185,7 +185,8 @@ def _mask(gt, key):
 
 def test_converter_writes_the_port_checkpoint(converted):
     """Every tensor of the port's FluxD (267, 2,210,316 values) with its
-    shape, the step, and the meta with its statistics."""
+    shape, the optimizer's state, the step, and the meta with its
+    statistics."""
     out, state, _, meta = converted
     tm = FluxD(ModelConfig(hidden_width=128, mp_num=15, scale_init="stats"),
                device="cpu")
@@ -195,18 +196,22 @@ def test_converter_writes_the_port_checkpoint(converted):
     tm.module.load_state_dict(state, strict=True)
     tree, read_meta = Checkpointer(str(out.parent)).load(str(out))
     assert tree["step"] == meta["step"] == 52224
-    assert set(tree) == {"module", "step"}
+    assert set(tree) == {"module", "optimizer", "step"}
     assert read_meta["stats"] == meta["stats"]
     assert read_meta["config"] == meta["config"]
 
 
 def test_resume_from_a_converted_checkpoint_raises(converted):
+    """A converted checkpoint of the module and the step only (the
+    converter's layout before it wrote the optimizer's state) cannot be
+    resumed from."""
     out, _, _, meta = converted
     config = Config.from_dict(meta["config"])
     tm = FluxD(ModelConfig(hidden_width=128, mp_num=15, scale_init="stats"),
                device="cpu")
     state = Trainer(config, tm).init_state()
     tree, _ = Checkpointer(str(out.parent)).load(str(out))
+    del tree["optimizer"]
     with pytest.raises(ValueError, match="optimizer"):
         restore_train_state(tree, state)
 

@@ -233,6 +233,9 @@ def test_validate_inputs_follow_the_dataset(data, models):
         torch.testing.assert_close(second[name], first[name].flip(1),
                                    rtol=1e-5, atol=0)
     ref = weakref.ref(other)
+    # garbage of earlier tests (a traceback's frame holding a validation
+    # dataset) is collected first, so that the count moves by this one
+    gc.collect()
     cached = len(validate_module._VALID_INPUTS)
     del other
     gc.collect()
