@@ -9,8 +9,9 @@ time beside its bound.
 
     python3 chip_smoke.py
 
-(``python3 chip_smoke.py --phase10b`` is phase 10b's own process, which the
-script starts.)
+(``python3 chip_smoke.py --phase10b``, ``--phase11a`` and ``--phase11b <rank>
+<dir>`` are the processes of phases 10b, 11a and 11b, which the script
+starts.)
 
 Phases (each prints one flushed line; any failure exits non-zero):
 
@@ -173,6 +174,9 @@ Phases (each prints one flushed line; any failure exits non-zero):
       pushforward call only the unroll's rollout-mode forwards on the fused
       route (K1-K3 15 each a forward, 2 forwards a step); each of the two
       validations phase 5a's launches; finite losses, epoch 1's falling;
+      the grad/param monitor (``train.main`` builds one for this config)
+      logging at every mini-epoch, its gradients copied once a mini-epoch
+      (at the last step of the call that closes it) and its time measured;
     * 10b in a process of its own (``--phase10b``, beside 10a;
       CUBLAS_WORKSPACE_CONFIG=:4096:8, deterministic algorithms with the
       ops that have none reported): from one state, an indexed call of 16
@@ -183,6 +187,34 @@ Phases (each prints one flushed line; any failure exits non-zero):
       ``prefetch_indexed``, FUSED_TIMED_CALLS each in turns (host clock,
       ending in a synchronize), and a device profile of one indexed call
       with its host-to-device copies;
+
+11. data-parallel training of the same recipe with ``settings.multi_gpu``
+    (``parallel/data_parallel.py``, one process a rank; the run has one
+    card, so NCCL across cards is not exercised):
+
+    * 11a in a process of its own (``--phase11a``; CUBLAS_WORKSPACE_CONFIG
+      and deterministic algorithms as 10b): an NCCL group of one rank;
+      DP_STEPS ``dp_train_step``s across the warm-up -> pushforward switch
+      against as many ``train_step``s from one state on phase 5's meshes
+      cut to DP_STATES states, bit for bit (losses, parameters and
+      buffers, moments, generator); then ms per step of each, in turns,
+      the flat all-reduce's bytes and a profile of one step of each (the
+      NCCL kernels, what the DP step adds);
+    * 11b DP_RANKS processes (``--phase11b``), a gloo group on CUDA tensors
+      of the one card: one f32 warm-up DP step, rank r on half r of a
+      global batch of 4, against the mean of both halves' gradients, the
+      clip and AdamW on rank 0: the mean losses and AdamW's moments (see
+      DP_F32_LOSS_RTOL), and rank 0's half alone beyond; then ``Trainer.run``
+      of the recipe on phase 5's meshes cut to DP_STATES states, FUSED_EPOCHS
+      epochs: the counters by the JAX package's DP rule, the replicas (all
+      parameters and buffers) equal on every rank after every barrier,
+      rank 0 alone validating (phase 10a's launches each) and writing its
+      metrics, its monitor's records (the update and the parameters, no
+      gradients, as the JAX package's DP path) and checkpoints, K1-K3 only
+      in epoch 2's unroll on each rank, finite losses, epoch 1's falling;
+    * 11c the times: 11a's ms per DP step against the single step, the
+      all-reduce's bytes and device time, 11b's ms per DP step (gloo's,
+      staged through the host: not a multi-card figure);
 
 then the ``kernels`` line: per kernel its time per launch, launches, bound,
 plain time and library time (K3 and K5 also the pair's time and the launch
@@ -241,8 +273,11 @@ from gnn_fluid_dynamics_tpu_torch.training import train as train_cli
 from gnn_fluid_dynamics_tpu_torch.training.checkpoint import Checkpointer
 from gnn_fluid_dynamics_tpu_torch.training.config import load_config
 from gnn_fluid_dynamics_tpu_torch.training.logging import Logger
+from gnn_fluid_dynamics_tpu_torch.training.monitoring import ModelMonitor
 from gnn_fluid_dynamics_tpu_torch.training.lr_schedule import get_schedule
-from gnn_fluid_dynamics_tpu_torch.training.trainer import Trainer, optimizer_step
+from gnn_fluid_dynamics_tpu_torch.parallel import data_parallel
+from gnn_fluid_dynamics_tpu_torch.training.trainer import (Trainer, gradients,
+                                                           optimizer_step)
 from gnn_fluid_dynamics_tpu_torch.training.validate import (validate,
                                                             validation_errors)
 
@@ -378,6 +413,21 @@ FUSED_TIMED_CALLS = 3      # 10c: calls of each kind, in turns
 # each parameter within 2 k lr + 1e-6 (see CPU_LOSS_RTOL: a parameter moves
 # by about lr a step, either way where its gradient is near 0)
 FUSED_ND_LOSS_RTOL = 1e-2
+# phase 11: data-parallel training of the fluxd-r5 recipe, one process a rank
+DP_STEPS = 8               # 11a: 4 warm-up and 4 pushforward steps
+DP_TIMED_STEPS = 3         # 11a: steps of each kind timed, in turns
+DP_RANKS = 2               # 11b: gloo ranks on the one card
+DP_STATES = 15             # 12 windows of 4 a mesh: 12 global steps an epoch
+DP_LOSS_WINDOW = 5         # 11b: epoch 1's first and last steps averaged
+# 11b's f32 step against its reference: the mean losses within this, and
+# AdamW's moments after the step, which carry the averaged gradients (step
+# 1: (1 - b1) clip(g) and (1 - b2) clip(g)^2), each tensor's largest error
+# within DP_F32_MOMENT_RTOL of its largest magnitude (the two sides'
+# backward passes add in orders the card does not fix); the reference from
+# rank 0's half alone must lie beyond it. The parameters are not compared:
+# a first AdamW step moves each by about lr whatever its gradient.
+DP_F32_LOSS_RTOL = 1e-5
+DP_F32_MOMENT_RTOL = 1e-4
 
 KERNELS = {
     "K1_fused_face_block": dict(
@@ -1572,7 +1622,8 @@ def device_profile(model, graph, feats, steps: int = 10):
         lambda: rollout_scan(model, graph, feats, config=cfg), steps)
 
 
-def profile_steps(run, steps: int, copies: bool = False):
+def profile_steps(run, steps: int, copies: bool = False,
+                  named: str = None):
     """Device time per step by kernel name over ``run()``, which takes
     ``steps`` steps (the 8 largest kernels, and each of this package's), and
     the share of the window's wall time with a kernel running, from
@@ -1581,7 +1632,9 @@ def profile_steps(run, steps: int, copies: bool = False):
     and also their union: a kernel launched by PDL starts before the one
     ahead of it ends (its prologue, then its wait), so the sum counts that
     overlap twice. With ``copies``, also the host-to-device copies of the
-    window and their bytes, from the exported trace."""
+    window and their bytes, from the exported trace. With ``named``, also
+    the device time per step of each kernel whose name holds it (case
+    aside)."""
     from torch.profiler import ProfilerActivity, profile
     try:
         torch.cuda.synchronize()
@@ -1629,6 +1682,9 @@ def profile_steps(run, steps: int, copies: bool = False):
             "kernels_per_step": len(events) / steps,
             "top_ms_per_step": {n[:60]: t / steps / 1e3 for n, t in top},
             "gfd_ms_per_step": {n: t / steps / 1e3 for n, t in ours.items()},
+            **({} if named is None else {"named_ms_per_step": {
+                n[:80]: t / steps / 1e3 for n, t in per_name.items()
+                if named.lower() in n.lower()}}),
             **({} if htod is None else {"htod_copies": len(htod),
                                         "htod_bytes": int(sum(htod))})}
 
@@ -1670,15 +1726,17 @@ def train_config(name: str, steps: int):
     return cfg
 
 
-def build_trainer(cfg, ds, checkpointer=None):
+def build_trainer(cfg, ds, checkpointer=None, monitor=None):
     """The model of ``cfg`` on ``ds``'s device with statistics from ``ds``,
-    a trainer logging to SMOKE_DIR, and its initial state."""
+    a trainer logging to SMOKE_DIR (with ``monitor``), and its initial
+    state."""
     model = train_cli.build_model(cfg, ds.device)
     stats = train_cli.compute_stats(cfg, model, ds)
     model.set_stats(stats)
     train_cli.set_noise_std(cfg, stats)
     logger = Logger(cfg, base_dir=os.path.join(SMOKE_DIR, "runs"))
-    trainer = Trainer(cfg, model, logger=logger, checkpointer=checkpointer)
+    trainer = Trainer(cfg, model, logger=logger, checkpointer=checkpointer,
+                      monitor=monitor)
     return trainer, trainer.init_state()
 
 
@@ -2527,7 +2585,10 @@ def fused_training(train_ds, valid_ds, device_line: str) -> tuple:
     spme = max(t.mini_epoch_size // t.batch_size, 1)
     want_steps, want_me = crossing_rule(want_calls, spme)
     cfg.logging.valid_frequency = want_me
-    trainer, state = build_trainer(cfg, ds)
+    if not cfg.logging.use_monitor:
+        fail("FluxD-r5: the recipe no longer sets logging.use_monitor")
+    monitor = TimedMonitor()
+    trainer, state = build_trainer(cfg, ds, monitor=monitor)
     path = trainer.train_path(ds)
     if path != "indexed":
         fail(f"FluxD-r5: the trainer chose the {path} path, not indexed "
@@ -2536,9 +2597,9 @@ def fused_training(train_ds, valid_ds, device_line: str) -> tuple:
     calls, valid_launches = [], []
     fused_fn, validate_fn = trainer.train_step_indexed, trainer.validate
 
-    def counted_call(state, graph, dev, ts, lrs, window):
+    def counted_call(state, graph, dev, ts, lrs, window, **kw):
         before = launch_counts()
-        out = fused_fn(state, graph, dev, ts, lrs, window)
+        out = fused_fn(state, graph, dev, ts, lrs, window, **kw)
         calls.append({"epoch": trainer.epoch_count, "steps": len(lrs),
                       "launches": {k: v - before[k]
                                    for k, v in launch_counts().items()},
@@ -2603,6 +2664,15 @@ def fused_training(train_ds, valid_ds, device_line: str) -> tuple:
     if not last < first:
         fail(f"FluxD-r5: epoch 1's mean loss of its last {FUSED_LOSS_WINDOW} "
              f"steps {last} not below its first {FUSED_LOSS_WINDOW} {first}")
+    mon = monitored(trainer)
+    if (monitor.calls["copy_gradients"] != want_me
+            or mon["steps"] != list(range(1, want_me + 1))
+            or mon["gradient_steps"] != mon["steps"]
+            or mon["update_steps"] != mon["steps"][1:]
+            or not mon["scalar_keys"] or not mon["finite"]):
+        fail(f"FluxD-r5: the monitor copied gradients "
+             f"{monitor.calls['copy_gradients']} times for {want_me} "
+             f"mini-epochs and logged {mon}")
     say(f"phase 10a FluxD-r5 Trainer.run (config/e2e/fluxd-r5.json's "
         f"training, h{H} mp{MP_NUM} bf16, batch {t.batch_size}, "
         f"{spc} steps a call, {cfg.dataset.sampler}, "
@@ -2618,12 +2688,80 @@ def fused_training(train_ds, valid_ds, device_line: str) -> tuple:
         + f"; epoch 1 mean loss of the first {FUSED_LOSS_WINDOW} steps "
         f"{first:.6f}, of the last {last:.6f}; mini-epoch losses "
         + json.dumps([round(v, 6) for v in mini])
-        + f"; {run_s:.2f} s (two validations included); card {device_line}")
+        + f"; {run_s:.2f} s (two validations included); the monitor: "
+        f"gradients copied {monitor.calls['copy_gradients']} times (once a "
+        f"mini-epoch), {len(mon['gradient_keys'])} gradient norms, "
+        f"{len(mon['scalar_keys']) // 2} scalar parameters with their "
+        "gradients and the update logged at every mini-epoch (the update "
+        "from the 2nd), ms in all (host "
+        f"clock, synchronized around each call) "
+        + json.dumps({k: round(v, 3) for k, v in monitor.ms.items()})
+        + f"; card {device_line}")
     record = {"launches": run_launches,
               "rollout_steps": 2 * CHECK_STEPS + pf * sum(
                   c["steps"] for c in calls if c["epoch"] > FUSED_WARMUP_EPOCHS),
               "loss_first": first, "loss_last": last, "run_s": run_s}
     return record, trainer, state, ds
+
+
+class TimedMonitor(ModelMonitor):
+    """A ModelMonitor that counts its calls and times them (host clock,
+    the card synchronized before and after each)."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls = {n: 0 for n in _MONITOR_METHODS}
+        self.ms = {n: 0.0 for n in _MONITOR_METHODS}
+
+    def _timed(self, name, *args):
+        sync = (torch.cuda.synchronize if torch.cuda.is_available()
+                else (lambda: None))
+        sync()
+        t0 = time.perf_counter()
+        out = getattr(super(), name)(*args)
+        sync()
+        self.calls[name] += 1
+        self.ms[name] += 1e3 * (time.perf_counter() - t0)
+        return out
+
+    def copy_gradients(self, *args):
+        return self._timed("copy_gradients", *args)
+
+    def monitor_decoder_gradients(self, *args):
+        return self._timed("monitor_decoder_gradients", *args)
+
+    def monitor_decoder_updates(self, *args):
+        return self._timed("monitor_decoder_updates", *args)
+
+    def monitor_scalar_parameters(self, *args):
+        return self._timed("monitor_scalar_parameters", *args)
+
+
+_MONITOR_METHODS = ("copy_gradients", "monitor_decoder_gradients",
+                    "monitor_decoder_updates", "monitor_scalar_parameters")
+
+
+def monitored(trainer) -> dict:
+    """What the monitor wrote into the trainer's metrics: the steps with
+    any record, with gradient norms and with the update, the keys of each
+    kind, and whether every value is finite."""
+    with open(trainer.logger.metrics_path) as f:
+        rows = [json.loads(line) for line in f]
+    keys = {k for r in rows for k in r
+            if k.split("/")[0] in ("gradients", "updates", "scalar_params")}
+    values = [r[k] for r in rows for k in keys if k in r]
+
+    def steps(pick):
+        return sorted({r["step"] for r in rows if any(pick(k) for k in r
+                                                      if k in keys)})
+    return {"steps": steps(lambda k: True),
+            "gradient_steps": steps(lambda k: k.startswith("gradients/")),
+            "update_steps": steps(lambda k: k == "updates/face_mlp"),
+            "gradient_keys": sorted(k for k in keys
+                                    if k.startswith("gradients/")),
+            "scalar_keys": sorted(k for k in keys
+                                  if k.startswith("scalar_params/")),
+            "finite": bool(values) and bool(np.isfinite(values).all())}
 
 
 def _snapshot(state):
@@ -2726,27 +2864,40 @@ def three_ways_run(dev) -> int:
     return 0 if ok else 1
 
 
+def start_child(*args: str, env: dict = None) -> subprocess.Popen:
+    """``python3 chip_smoke.py <args>`` in a process of its own (phases
+    10b, 11a, 11b), ``env`` added to this process's environment."""
+    return subprocess.Popen([sys.executable, os.path.abspath(__file__), *args],
+                            env={**os.environ, **(env or {})},
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def child_result(proc: subprocess.Popen, tag: str) -> dict:
+    """The JSON line ``<tag> result: {...}`` of a child that ran to its end
+    with exit code 0; fails otherwise."""
+    stdout, stderr = proc.communicate(timeout=600)
+    lines = [ln for ln in stdout.splitlines()
+             if ln.startswith(f"{tag} result: ")]
+    if proc.returncode != 0 or not lines:
+        fail(f"{tag}: exit {proc.returncode}; {lines[-1:]}; stderr "
+             + stderr[-3000:])
+    return json.loads(lines[-1].removeprefix(f"{tag} result: "))
+
+
 def start_three_ways() -> subprocess.Popen:
     """Phase 10b's process: ``three_ways_child``, with
     CUBLAS_WORKSPACE_CONFIG=:4096:8 set before its first product, so that
     deterministic algorithms bind no other phase. It runs beside 10a, which
     times nothing, and is waited for before 10c."""
-    return subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--phase10b"],
-        env={**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"},
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return start_child("--phase10b",
+                       env={"CUBLAS_WORKSPACE_CONFIG": ":4096:8"})
 
 
 def three_ways(proc: subprocess.Popen, t0: float, device_line: str) -> dict:
     """Phase 10b: the result of ``start_three_ways``'s process, started at
     ``t0``; fails unless it ran to its end and the three ways agreed."""
-    stdout, stderr = proc.communicate(timeout=600)
-    lines = [ln for ln in stdout.splitlines()
-             if ln.startswith("phase 10b result: ")]
-    if proc.returncode != 0 or not lines:
-        fail(f"phase 10b: exit {proc.returncode}; {lines[-1:]}; stderr "
-             + stderr[-3000:])
-    result = json.loads(lines[-1].removeprefix("phase 10b result: "))
+    result = child_result(proc, "phase 10b")
     kind = ("within the stated tolerance, ops without a deterministic "
             "implementation: " + "; ".join(result["nondeterministic_ops"])
             if result["nondeterministic_ops"] else "bit for bit")
@@ -2836,6 +2987,432 @@ def fused_phase(train_ds, valid_ds, line: str) -> dict:
              for n, v in record["ms_per_step"].items()})
         + f"; phase 10 wall time {time.perf_counter() - t10:.1f} s")
     return record
+
+
+# ---- phase 11: data-parallel training ------------------------------------------
+
+def dp_config():
+    """Phase 10's recipe (``recipe_config``) with ``settings.multi_gpu``."""
+    cfg = recipe_config()
+    cfg.settings.multi_gpu = True
+    cfg.logging.name = "FluxD-r5-dp-chip-smoke"
+    return cfg
+
+
+def _flat_state(state) -> torch.Tensor:
+    """The module's parameters and buffers, in one flat f32 vector."""
+    return torch.cat([v.reshape(-1).float()
+                      for v in state.module.state_dict().values()])
+
+
+def dp_nccl_child() -> int:
+    """Phase 11a, run as ``python3 chip_smoke.py --phase11a`` (a process of
+    its own, CUBLAS_WORKSPACE_CONFIG set by the parent, deterministic
+    algorithms with the ops that have none reported): an NCCL group of one
+    rank (file store), then ``dp_nccl_run``. Prints one JSON line; exits 1
+    when the DP steps and the single steps part."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels.build_kernels()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        data_parallel.init_process_group(
+            dev, init_method=f"file://{tmp}/store", rank=0, world_size=1)
+        try:
+            return dp_nccl_run(dev)
+        finally:
+            torch.distributed.destroy_process_group()
+
+
+def dp_nccl_run(dev) -> int:
+    """From one state, DP_STEPS ``dp_train_step``s (NCCL, one rank) and
+    DP_STEPS ``train_step``s on the recipe's first batches, across the
+    warm-up -> pushforward switch (on phase 5's meshes cut to DP_STATES
+    states): equal bit for bit (losses, parameters
+    and buffers, AdamW's moments, generator, step). Then ms per step of
+    each, DP_TIMED_STEPS pushforward steps in turns (dp, single, single,
+    dp), the flat all-reduce's bytes and, from a profile of one DP step and
+    one single step, the NCCL kernels' device time and what the DP step
+    adds to the device time and the kernels (all under 11a's deterministic
+    algorithms)."""
+    cfg = dp_config()
+    ds = fused_dataset(train_data(dev, steps=DP_STATES - 1), cfg)
+    trainer, state = build_trainer(cfg, ds)
+    t = cfg.training
+    batches = list(itertools.islice(get_sampler(cfg.dataset.sampler)(
+        ds, t.batch_size, np.random.default_rng(0)), DP_STEPS))
+    snap = _snapshot(state)
+    ways = {}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for kind, step in (("dp", trainer.dp_train_step),
+                           ("single", trainer.train_step)):
+            _restore(state, snap)
+            losses = []
+            for i, b in enumerate(batches):
+                trainer.epoch_count = FUSED_WARMUP_EPOCHS + (
+                    i >= DP_STEPS // 2)
+                losses.append(step(state, ds.get_batch(b), t.lr_max))
+            ways[kind] = ({n: torch.stack([x[n] for x in losses])
+                           for n in losses[0]}, _snapshot(state))
+        torch.cuda.synchronize()
+    nondeterministic = sorted({str(w.message).split("\n")[0] for w in caught
+                               if "deterministic" in str(w.message)})
+    (l1, (m1, o1, g1, s1)), (l2, (m2, o2, g2, s2)) = ways["dp"], ways["single"]
+    same = {"losses": all(torch.equal(l1[n], l2[n]) for n in l2),
+            "state": all(torch.equal(m1[n], m2[n]) for n in m2),
+            "optimizer": all(torch.equal(o1["state"][i][k], v)
+                             for i, st in o2["state"].items()
+                             for k, v in st.items()),
+            "generator": torch.equal(g1, g2) and s1 == s2 == snap[3] + DP_STEPS}
+
+    graph = ds.get_batch(batches[-1])
+    times = {"dp": [], "single": []}
+    for kind in ("dp", "single", "single", "dp"):
+        step = trainer.dp_train_step if kind == "dp" else trainer.train_step
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DP_TIMED_STEPS):
+            step(state, graph, t.lr_min)
+        torch.cuda.synchronize()
+        times[kind].append(1e3 * (time.perf_counter() - t0) / DP_TIMED_STEPS)
+    prof = {kind: profile_steps(lambda: step(state, graph, t.lr_min), 1,
+                                named="nccl")
+            for kind, step in (("dp", trainer.dp_train_step),
+                               ("single", trainer.train_step))}
+    n_losses = len(l1)
+    flat_floats = (sum(p.numel() for p in state.module.parameters()) + n_losses
+                   + sum(b.numel() for b in
+                         data_parallel.batch_statistics(state.module)))
+    result = {"steps": DP_STEPS, "bit_for_bit": same,
+              "nondeterministic_ops": nondeterministic,
+              "losses": [round(v, 6) for v in l1["total_log_loss"].tolist()],
+              "ms_per_step": times, "allreduce_bytes": 4 * flat_floats,
+              "allreduce_floats": {"parameters": flat_floats - n_losses - sum(
+                  b.numel() for b in data_parallel.batch_statistics(
+                      state.module)), "losses": n_losses},
+              "profile": prof}
+    say("phase 11a result: " + json.dumps(result))
+    return 0 if all(same.values()) else 1
+
+
+def dp_gloo_child(rank: int, workdir: str) -> int:
+    """Phase 11b's rank ``rank``, run as ``python3 chip_smoke.py --phase11b
+    <rank> <workdir>``: a gloo group of DP_RANKS ranks on CUDA tensors of
+    the one card (NCCL refuses two ranks on one card), its rendezvous a
+    file in ``workdir``; then ``dp_gloo_run``. Prints one JSON line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels.build_kernels()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    data_parallel.init_process_group(
+        dev, init_method=f"file://{workdir}/store", backend="gloo", rank=rank,
+        world_size=DP_RANKS)
+    try:
+        result = dp_gloo_run(dev, rank, workdir)
+    finally:
+        torch.distributed.destroy_process_group()
+    say("phase 11b result: " + json.dumps(result))
+    return 0
+
+
+def _moments(state) -> list:
+    """AdamW's first and second moments of every parameter, in the
+    optimizer's order."""
+    return [state.optimizer.state[p][k].clone()
+            for grp in state.optimizer.param_groups for p in grp["params"]
+            for k in ("exp_avg", "exp_avg_sq")]
+
+
+def _moment_gap(got: list, want: list) -> float:
+    """The largest, over the moments' tensors, of max |got - want| over
+    max |want| (0 where both are 0)."""
+    gaps = []
+    for a, b in zip(got, want):
+        err, scale = float((a - b).abs().max()), float(b.abs().max())
+        gaps.append(err / scale if scale else (0.0 if err == 0 else np.inf))
+    return max(gaps)
+
+
+def dp_f32_step(dev, ds, rank: int) -> dict:
+    """One DP step of the recipe's warm-up in f32 (no noise or flip), rank r
+    on half r of the first global batch, held on rank 0 against the single
+    process's reference from the same state: each half's gradients, their
+    mean, the clip, AdamW. Compares the mean losses and AdamW's moments
+    (DP_F32_LOSS_RTOL, DP_F32_MOMENT_RTOL), and the moments of the step on
+    rank 0's half alone, which must lie beyond the latter."""
+    cfg = dp_config()
+    cfg.model.compute_dtype = "float32"
+    model = train_cli.build_model(cfg, dev)
+    model.set_stats(train_cli.compute_stats(cfg, model, ds))
+    tf = model.transform_features
+    model.transform_features = (
+        lambda g, generator=None, mode="rollout", noise_std=0.0: tf(
+            g, None, mode, noise_std))
+    trainer = Trainer(cfg, model)
+    trainer.epoch_count = FUSED_WARMUP_EPOCHS
+    state = trainer.init_state()
+    data_parallel.replicate_(state.module)
+    t = cfg.training
+    per_dev = t.batch_size // DP_RANKS
+    # rank 0's batch: static_chunked's draws follow a set's order, which
+    # each process hashes its own way
+    batch = data_parallel.broadcast_object(next(iter(get_sampler(
+        cfg.dataset.sampler)(ds, t.batch_size, np.random.default_rng(0)))))
+    halves = [batch[r * per_dev:(r + 1) * per_dev] for r in range(DP_RANKS)]
+    snap = _snapshot(state)
+    losses = trainer.dp_train_step(state, ds.get_batch(halves[rank]), t.lr_max)
+    got = _moments(state)
+    if rank != 0:
+        return {}
+    per_half, half_losses = [], []
+    for h in halves:
+        _restore(state, snap)
+        half_losses.append(trainer._forward_backward(state, ds.get_batch(h)))
+        per_half.append([g.clone() for g in gradients(state.optimizer)])
+
+    def moments_from(grads):
+        _restore(state, snap)
+        for p, g in zip([p for grp in state.optimizer.param_groups
+                         for p in grp["params"]], grads):
+            p.grad = g.clone()
+        optimizer_step(state.optimizer, t.lr_max, t.clip_grad_norm)
+        return _moments(state)
+
+    gap = _moment_gap(got, moments_from(
+        [sum(gs) / len(gs) for gs in zip(*per_half)]))
+    alone = _moment_gap(got, moments_from(per_half[0]))
+    loss_rel = max(abs(float(losses[k]) - float(sum(h[k] for h in half_losses)
+                                                / len(half_losses)))
+                   / abs(float(losses[k])) for k in losses)
+    return {"loss_max_rel": loss_rel, "moment_gap": gap,
+            "moment_gap_rank0_half_alone": alone,
+            "moment_rtol": DP_F32_MOMENT_RTOL,
+            "ok": (loss_rel <= DP_F32_LOSS_RTOL
+                   and gap <= DP_F32_MOMENT_RTOL < alone)}
+
+
+def dp_gloo_run(dev, rank: int, workdir: str) -> dict:
+    """On each rank: ``dp_f32_step``, then ``Trainer.run`` of the recipe
+    with ``multi_gpu`` on phase 5's meshes cut to DP_STATES states, for
+    FUSED_EPOCHS epochs (the first the warm-up), each rank with a logger
+    and a checkpointer of its own under ``workdir`` and rank 0 with phase
+    5's validation set: the counters, the launches of each DP step by epoch
+    and of each validation, the replicas compared after every barrier, the
+    ms of each DP step (host clock, synchronized around it), the losses and
+    what each rank wrote."""
+    cfg = dp_config()
+    ds = fused_dataset(train_data(dev, steps=DP_STATES - 1), cfg)
+    f32 = dp_f32_step(dev, ds, rank)
+    t = cfg.training
+    spme = max(t.mini_epoch_size // t.batch_size, 1)
+    cfg.logging.valid_frequency = 1
+    cfg.logging.save_frequency = 1
+    valid_ds = valid_data(dev)[0] if rank == 0 else None
+    base = os.path.join(workdir, f"rank{rank}")
+    model = train_cli.build_model(cfg, dev)
+    stats = train_cli.compute_stats(cfg, model, ds)
+    model.set_stats(stats)
+    train_cli.set_noise_std(cfg, stats)
+    trainer = Trainer(cfg, model,
+                      logger=Logger(cfg, base_dir=os.path.join(base, "runs")),
+                      checkpointer=Checkpointer(os.path.join(base, "ckpt")),
+                      monitor=ModelMonitor())
+    state = trainer.init_state()
+    steps, validations, replicated = [], [], []
+    dp_step, validate_fn = trainer.dp_train_step, trainer.validate
+    barrier = data_parallel.barrier
+
+    def counted_step(state, graph, lr):
+        before = launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = dp_step(state, graph, lr)
+        torch.cuda.synchronize()
+        steps.append({"epoch": trainer.epoch_count,
+                      "ms": 1e3 * (time.perf_counter() - t0),
+                      "graphs": graph.num_graphs,
+                      "launches": {k: v - before[k]
+                                   for k, v in launch_counts().items()},
+                      "loss": float(out["total_log_loss"])})
+        return out
+
+    def counted_validate(*args, **kw):
+        before = launch_counts()
+        out = validate_fn(*args, **kw)
+        validations.append({k: v - before[k]
+                            for k, v in launch_counts().items()})
+        return out
+
+    def checked_barrier():
+        barrier()
+        data_parallel.assert_replicated(_flat_state(state),
+                                        "the parameters and buffers")
+        replicated.append(trainer.mini_epoch_count)
+
+    trainer.dp_train_step, trainer.validate = counted_step, counted_validate
+    data_parallel.barrier = checked_barrier
+    zero_launches()
+    t0 = time.perf_counter()
+    try:
+        trainer.run(state, ds, valid_ds, num_valid_steps=CHECK_STEPS)
+    finally:
+        data_parallel.barrier = barrier
+    run_s = time.perf_counter() - t0
+    launches = launch_counts()
+    trainer.logger.close()
+    with open(trainer.logger.metrics_path) as f:
+        metric_lines = sum(1 for _ in f)
+    mon = monitored(trainer) if metric_lines else None
+    ckpt_dir = os.path.join(base, "ckpt")
+    return {"rank": rank, "path": trainer.train_path(ds),
+            "counters": [trainer.epoch_count, trainer.step_count,
+                         trainer.mini_epoch_count, trainer.sample_count,
+                         state.step],
+            "spme": spme, "global_batch": t.batch_size,
+            "per_epoch_batches": sum(
+                len(b) == t.batch_size for b in get_sampler(
+                    cfg.dataset.sampler)(ds, t.batch_size,
+                                         np.random.default_rng(0))),
+            "steps": steps, "validations": validations,
+            "replicated_at": replicated, "launches": launches,
+            "metric_lines": metric_lines, "monitored": mon,
+            "checkpoints": sorted(n for n in os.listdir(ckpt_dir)
+                                  if n.startswith("checkpoint-")),
+            "f32_step": f32, "run_s": run_s}
+
+
+def dp_phase(line: str) -> dict:
+    """Phase 11: 11a in a process of its own, then 11b's DP_RANKS ranks,
+    each in a process of its own; their checks, and 11c's times. Returns
+    the path's record (the launches of both ranks' runs)."""
+    t11 = time.perf_counter()
+    a = child_result(start_child("--phase11a", env={
+        "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}), "phase 11a")
+    t11a = time.perf_counter() - t11
+    kind = ("bit for bit" if not a["nondeterministic_ops"] else
+            "bit for bit, though ops without a deterministic implementation "
+            "warned: " + "; ".join(a["nondeterministic_ops"]))
+    say(f"phase 11a FluxD-r5 NCCL, one rank: {a['steps']} dp_train_steps "
+        f"against {a['steps']} train_steps across the warm-up -> pushforward "
+        f"switch: ok, {kind}; " + json.dumps(a["bit_for_bit"])
+        + f"; losses {a['losses']}; its process {t11a:.1f} s; card {line}")
+    with tempfile.TemporaryDirectory() as work:
+        procs = [start_child("--phase11b", str(r), work)
+                 for r in range(DP_RANKS)]
+        try:
+            ranks = [child_result(p, "phase 11b") for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    r0 = ranks[0]
+    t = dp_config().training
+    per_dev = max(r0["global_batch"] // DP_RANKS, 1)
+    want_steps = FUSED_EPOCHS * r0["per_epoch_batches"]
+    want = [FUSED_EPOCHS, want_steps, want_steps // r0["spme"],
+            want_steps * per_dev * DP_RANKS, want_steps]
+    unroll = PATHS["FluxD"][1]
+    per_valid = {k: PATHS["FluxD-valid"][1].get(k, 0) * CHECK_STEPS
+                 for k in KERNELS}
+    for r in ranks:
+        if r["counters"] != want or r["path"] != "data_parallel":
+            fail(f"phase 11b rank {r['rank']}: path {r['path']}, counters "
+                 f"{r['counters']}, expected {want} (JAX's DP rule)")
+        for s in r["steps"]:
+            forwards = (t.pushforward_factor
+                        if s["epoch"] > FUSED_WARMUP_EPOCHS else 0)
+            expect = {k: unroll.get(k, 0) * forwards for k in KERNELS}
+            if s["launches"] != expect or s["graphs"] != per_dev:
+                fail(f"phase 11b rank {r['rank']}: a step of epoch "
+                     f"{s['epoch']} on {s['graphs']} graphs launched "
+                     f"{s['launches']}, expected {expect} on {per_dev}")
+        if r["replicated_at"] != [0] + list(range(1, want[2] + 1)):
+            fail(f"phase 11b rank {r['rank']}: replicas compared at "
+                 f"{r['replicated_at']}")
+        losses = [s["loss"] for s in r["steps"]]
+        if not np.isfinite(losses).all():
+            fail(f"phase 11b rank {r['rank']}: losses {losses}")
+    if (len(r0["validations"]) != want[2] + 1
+            or any(v != per_valid for v in r0["validations"])
+            or ranks[1]["validations"]):
+        fail(f"phase 11b: validations rank 0 {r0['validations']}, rank 1 "
+             f"{ranks[1]['validations']}; expected {want[2] + 1} of "
+             f"{per_valid} on rank 0 alone")
+    if (r0["metric_lines"] == 0 or not r0["checkpoints"]
+            or ranks[1]["metric_lines"] or ranks[1]["checkpoints"]):
+        fail(f"phase 11b: metrics lines {[r['metric_lines'] for r in ranks]}, "
+             f"checkpoints {[r['checkpoints'] for r in ranks]}: rank 0 alone "
+             "writes")
+    mon = r0["monitored"]
+    if (mon is None or mon["steps"] != list(range(1, want[2] + 1))
+            or mon["update_steps"] != mon["steps"][1:] or mon["gradient_keys"]
+            or not mon["scalar_keys"] or not mon["finite"]):
+        fail(f"phase 11b: rank 0's monitor logged {mon}; expected the update "
+             f"and the scalar parameters at mini-epochs 1..{want[2]}, no "
+             "gradients (the JAX package's DP path keeps none)")
+    if not r0["f32_step"]["ok"]:
+        fail(f"phase 11b: the f32 DP step against its reference: "
+             f"{r0['f32_step']}")
+    epoch1 = [s["loss"] for s in r0["steps"] if s["epoch"] == 1]
+    first = float(np.mean(epoch1[:DP_LOSS_WINDOW]))
+    last = float(np.mean(epoch1[-DP_LOSS_WINDOW:]))
+    if not last < first:
+        fail(f"phase 11b: epoch 1's mean loss of its last {DP_LOSS_WINDOW} "
+             f"steps {last} not below its first {first}")
+    ms = {f"epoch{e}": [round(s["ms"], 3) for s in r0["steps"]
+                        if s["epoch"] == e] for e in (1, 2)}
+    say(f"phase 11b FluxD-r5 Trainer.run on {DP_RANKS} gloo ranks sharing "
+        f"the card (global batch {r0['global_batch']}, {per_dev} a rank, "
+        f"{FUSED_EPOCHS} epochs, the first the warm-up): ok; counters "
+        f"{want} (JAX's DP rule); replicas bit-equal after every barrier "
+        f"{r0['replicated_at']}; rank 0 alone validated "
+        f"({len(r0['validations'])} x {json.dumps({k: v for k, v in per_valid.items() if v})}), "
+        f"logged ({r0['metric_lines']} lines; rank 1 "
+        f"{ranks[1]['metric_lines']}) and checkpointed "
+        f"({len(r0['checkpoints'])}; rank 1 {len(ranks[1]['checkpoints'])});"
+        f" its monitor logged the update and {len(mon['scalar_keys'])} scalar "
+        "parameters at every mini-epoch, no gradients;"
+        f" K1-K3 {unroll['K1_fused_face_block'] * t.pushforward_factor} each "
+        "a step in epoch 2's unroll on each rank, none in epoch 1; f32 step "
+        "against the mean of both halves' gradients, clip, AdamW (losses, "
+        "AdamW's moments; rank 0's half alone beside): "
+        + json.dumps(r0["f32_step"]) + f"; epoch 1 mean loss of the first "
+        f"{DP_LOSS_WINDOW} steps {first:.6f}, of the last {last:.6f}; "
+        f"rank 0 run {r0['run_s']:.1f} s; the ranks' processes "
+        f"{time.perf_counter() - t11 - t11a:.1f} s; card {line}")
+    prof = {k: ("not measured" if v is None else {
+        "nccl_ms": v["named_ms_per_step"], "device_ms": v["device_ms_per_step"],
+        "kernels": v["kernels_per_step"]}) for k, v in a["profile"].items()}
+    say(f"phase 11c card {line}; ms per train step, 11a (NCCL, one rank, "
+        f"{DP_TIMED_STEPS} pushforward steps a batch, in turns dp, single, "
+        "single, dp; deterministic algorithms): " + json.dumps(a["ms_per_step"])
+        + f"; the flat all-reduce {a['allreduce_bytes']} bytes a step "
+        + json.dumps(a["allreduce_floats"]) + "; a profile of one DP step "
+        "and one single step (NCCL kernels' ms, device ms, kernels; under "
+        "deterministic algorithms): " + json.dumps(prof)
+        + "; 11b (gloo, 2 ranks sharing one card: the all-reduce staged "
+        "through the host; not a multi-card figure), ms per DP step with a "
+        "synchronize around it, rank 0: "
+        + json.dumps({e: float(np.median(v)) for e, v in ms.items()})
+        + f"; phase 11 wall time {time.perf_counter() - t11:.1f} s")
+    return {"launches": {k: sum(r["launches"][k] for r in ranks)
+                         for k in KERNELS},
+            "rollout_steps": CHECK_STEPS * len(r0["validations"])
+            + t.pushforward_factor * sum(
+                1 for r in ranks for s in r["steps"]
+                if s["epoch"] > FUSED_WARMUP_EPOCHS),
+            "nccl": a, "gloo": ranks}
 
 
 def main() -> int:
@@ -2937,6 +3514,7 @@ def main() -> int:
     paths.update(flux_vertpot_phase(dev, ds, train_ds, line))
     paths.update(conservative_phase(dev, ds, train_ds, line))
     paths["FluxD-r5-train"] = fused_phase(train_ds, ds, line)
+    paths["FluxD-r5-dp"] = dp_phase(line)
 
     bnd = bounds(graph)
     rows = []
@@ -2967,4 +3545,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(three_ways_child() if sys.argv[1:] == ["--phase10b"] else main())
+    if sys.argv[1:] == ["--phase10b"]:
+        sys.exit(three_ways_child())
+    if sys.argv[1:] == ["--phase11a"]:
+        sys.exit(dp_nccl_child())
+    if sys.argv[1:2] == ["--phase11b"]:
+        sys.exit(dp_gloo_child(int(sys.argv[2]), sys.argv[3]))
+    sys.exit(main())

@@ -438,6 +438,15 @@ class _ConsFBlock(nn.Module):
         return cell_attr + c, edge_attr + e
 
 
+class _ConsGBlock(_ConsFBlock):
+    """F's block with the sum-combined face block (Flax ``_ConsGBlock``,
+    Conservative.py:824-898); a class of its own, as there, so that its
+    parameters take the Flax names (``weights.flax_paths``)."""
+
+    def __init__(self, cfg: ArchConfig, generator: torch.Generator = None):
+        super().__init__(cfg, generator, face_combine="sum")
+
+
 class _ConsIBlock(nn.Module):
     """F's aggregation and the sum-combined face block on the raw cell
     output; after the residual the INFLOW/WALL edge rows revert to their
@@ -526,9 +535,7 @@ class ConservativeG(ConservativeE):
 
     name = "ConservativeG"
 
-    @staticmethod
-    def block(cfg, generator=None):
-        return _ConsFBlock(cfg, face_combine="sum", generator=generator)
+    block = staticmethod(_ConsGBlock)
 
 
 class ConservativeI(ConservativeE):

@@ -4,9 +4,18 @@ resume, datasets and statistics, the model, the trainer loop.
 
     python -m gnn_fluid_dynamics_tpu_torch.training.train --config config/train_synthetic.json --device cpu
     python -m gnn_fluid_dynamics_tpu_torch.training.train --config ... --resume latest
+    torchrun --nproc_per_node N -m gnn_fluid_dynamics_tpu_torch.training.train --config ...
 
 It runs on the card unless ``--device cpu`` is given, and raises when there
-is none. Data comes from the ``synthetic`` module (Taylor-Green
+is none. Under ``torchrun`` (its ``RANK``, ``WORLD_SIZE`` and
+``LOCAL_RANK``) each rank trains on ``cuda:LOCAL_RANK`` in a process group
+(NCCL; gloo with ``--device cpu``) whose rendezvous is ``--dist-init``
+(``env://`` by default), data-parallel when ``settings.multi_gpu`` is set
+(:mod:`gnn_fluid_dynamics_tpu_torch.parallel.data_parallel`): every rank
+builds the training set and the statistics (rank 0 first, the others then
+read its cache), loads ``--resume`` and honours ``GFD_EPOCH_LIMIT``; rank 0
+alone builds the validation set, the logger, the monitor and the
+checkpoints it writes. Data comes from the ``synthetic`` module (Taylor-Green
 trajectories) or, for any other module, from the reference-layout HDF5 files
 ``<dataset.dpath>/<subset>.h5`` read into memory (the out-of-core mode is
 not ported: ``dataset.lazy`` true raises, and so does ``dataset.num_buckets``
@@ -25,6 +34,7 @@ import traceback
 from typing import List, Optional
 
 import numpy as np
+import torch
 
 from gnn_fluid_dynamics_tpu_torch import resolve_device
 
@@ -129,12 +139,12 @@ def build_datasets(config, model_cls, splits=("train", "valid"),
     return train_ds, valid_ds
 
 
-def compute_stats(config, model, dataset):
+def compute_stats(config, model, dataset, save: bool = True):
     """Normalization statistics over the dataset's samples, cached in
     ``dataset.stats_fpath`` (reference ``DataSet.read_stats``,
     DataSet.py:314-337): read from there when it holds every statistic the
     model needs, else accumulated (over every ``stats_stride``-th sample)
-    and written there."""
+    and, with ``save``, written there."""
     from gnn_fluid_dynamics_tpu_torch.models.base import feature_masks
     from gnn_fluid_dynamics_tpu_torch.models.normalizer import (
         StatsAccumulator, load_stats, save_stats)
@@ -153,10 +163,16 @@ def compute_stats(config, model, dataset):
         _, feats = model.transform_rollout(graph)
         acc.update(feats, feature_masks(graph, feats))
     stats = acc.finalize()
-    if fpath:
+    if fpath and save:
         os.makedirs(os.path.dirname(os.path.abspath(fpath)), exist_ok=True)
         save_stats(stats, fpath)
     return stats
+
+
+def _flat(stats) -> List[float]:
+    """The statistics' values in the order of their sorted names."""
+    return [v for k in sorted(stats) for v in (
+        _flat(stats[k]) if isinstance(stats[k], dict) else [float(stats[k])])]
 
 
 def set_noise_std(config, stats):
@@ -227,14 +243,34 @@ def main(argv: Optional[List[str]] = None):
     parser.add_argument("--ckpt-dir", type=str, default=None)
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (the default) or cpu")
+    parser.add_argument("--dist-init", type=str, default="env://",
+                        help="the process group's rendezvous under a "
+                             "launch of several ranks (env://, file://..., "
+                             "tcp://host:port)")
     args = parser.parse_args(argv)
     device = resolve_device(args.device)
+    launched = "WORLD_SIZE" in os.environ
+    if launched:
+        from gnn_fluid_dynamics_tpu_torch.parallel import data_parallel
+        if device.type == "cuda":
+            device = torch.device("cuda", data_parallel.launch_env()[2])
+            torch.cuda.set_device(device)
+        data_parallel.init_process_group(device, init_method=args.dist_init)
+    try:
+        return _main(args, device)
+    finally:
+        if launched:
+            torch.distributed.destroy_process_group()
 
+
+def _main(args, device):
+    from gnn_fluid_dynamics_tpu_torch.parallel import data_parallel
     from gnn_fluid_dynamics_tpu_torch.training.checkpoint import (
         Checkpointer, restore_train_state)
     from gnn_fluid_dynamics_tpu_torch.training.config import (
         load_config, merge_checkpoint_config)
     from gnn_fluid_dynamics_tpu_torch.training.logging import Logger
+    from gnn_fluid_dynamics_tpu_torch.training.monitoring import ModelMonitor
     from gnn_fluid_dynamics_tpu_torch.training.trainer import Trainer
 
     config = load_config(args.config)
@@ -253,26 +289,52 @@ def main(argv: Optional[List[str]] = None):
             print(f"Resuming from {args.resume} "
                   f"(mini_epoch {resume_meta['mini_epoch']})")
 
+    rank, world = data_parallel.rank(), data_parallel.world_size()
+    lead = rank == 0
     np.random.seed(config.settings.random_seed)
     model = build_model(config, device)
-    train_ds, valid_ds = build_datasets(config, type(model), device=device)
+    train_ds, valid_ds = build_datasets(
+        config, type(model), splits=("train", "valid") if lead else ("train",),
+        device=device)
     print(f"Train dataset: {len(train_ds)} samples over "
           f"{len(train_ds.trajectories)} meshes")
 
-    stats = (resume_meta["stats"] if (resume_meta and "stats" in resume_meta)
-             else compute_stats(config, model, train_ds))
+    if resume_meta and "stats" in resume_meta:
+        stats = resume_meta["stats"]
+    else:
+        # rank 0 writes the cache; the others read it after
+        stats = compute_stats(config, model, train_ds) if lead else None
+        if world > 1:
+            data_parallel.barrier()
+        if not lead:
+            stats = compute_stats(config, model, train_ds, save=False)
+    if world > 1:
+        data_parallel.assert_replicated(torch.tensor(
+            _flat(stats), dtype=torch.float64, device=device),
+            "the statistics")
     model.set_stats(stats)
     set_noise_std(config, stats)
 
-    logger = None if config.logging.is_debug else Logger(config)
+    # the grad/param monitor exactly where the JAX package builds one: a
+    # logger exists and logging.use_monitor is set
+    logger = None if (config.logging.is_debug or not lead) else Logger(config)
+    monitor = (ModelMonitor()
+               if logger is not None and config.logging.use_monitor else None)
 
-    trainer = Trainer(config, model, logger=logger, checkpointer=checkpointer)
+    trainer = Trainer(config, model, logger=logger,
+                      checkpointer=checkpointer if lead else None,
+                      monitor=monitor)
     state = trainer.init_state()
     print(f"Model {config.model.name}: {model.count_parameters():,} parameters")
 
     if resume_meta is not None:
         tree, _ = checkpointer.load(args.resume)
         state = restore_train_state(tree, state)
+        if trainer.rank > 0:
+            # the checkpoint holds rank 0's generator: the others start
+            # streams of their own, from the seed and the resumed step
+            state.generator.manual_seed(data_parallel.rank_seed(
+                config.settings.random_seed + state.step, trainer.rank))
         trainer.mini_epoch_count = resume_meta["mini_epoch"]
         trainer.epoch_count = resume_meta["epoch"]
         trainer.step_count = resume_meta["step"]
@@ -280,7 +342,7 @@ def main(argv: Optional[List[str]] = None):
     elif config.model.fpath:
         state = warm_start_state(state, trainer, config)
 
-    num_valid_steps = max(
+    num_valid_steps = 0 if valid_ds is None else max(
         1, (valid_ds.timestep_range[1] - valid_ds.timestep_range[0] - 1)
         // valid_ds.stride)
     state = trainer.run(state, train_ds, valid_ds,

@@ -23,8 +23,19 @@ validation, a rollout in eval mode, does (K6 and K7 on the validation
 graph's tables). The no-grad unroll of pushforward training is a rollout-mode
 forward, so it takes whatever route the model's aggregation gives a rollout.
 
-Not ported here: data parallelism (``settings.multi_gpu``, ROADMAP §1 item
-6) and the grad/param monitor (§1 item 7); the first raises.
+Data parallelism (``settings.multi_gpu`` under a launch of more than one
+rank): one process per card, :mod:`gnn_fluid_dynamics_tpu_torch.parallel.
+data_parallel`; :meth:`Trainer.dp_train_step` is the single step with the
+means over the ranks of the gradients, losses and BatchNorm statistics in it,
+before the clip. Rank 0 alone validates, logs, monitors and checkpoints; the
+other ranks wait for it at a barrier.
+
+A ``monitor`` (:class:`~gnn_fluid_dynamics_tpu_torch.training.monitoring.
+ModelMonitor`, built by ``train.main`` where the JAX package builds one)
+logs the decoder's gradient norms, its update and the scalar parameters at
+each mini-epoch boundary, from the last step's gradients before the clip; as
+in the JAX package, the data-parallel path keeps no gradients for it, so
+there it logs the update and the parameters alone.
 """
 
 from __future__ import annotations
@@ -41,6 +52,7 @@ from gnn_fluid_dynamics_tpu_torch.data.pipeline import (MeshDataset, prefetch,
                                                         prefetch_grouped,
                                                         prefetch_indexed)
 from gnn_fluid_dynamics_tpu_torch.data.samplers import get_sampler
+from gnn_fluid_dynamics_tpu_torch.parallel import data_parallel
 from gnn_fluid_dynamics_tpu_torch.rollout.engine import error_summary
 from gnn_fluid_dynamics_tpu_torch.training.config import Config
 from gnn_fluid_dynamics_tpu_torch.training.lr_schedule import get_schedule
@@ -87,24 +99,31 @@ def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
     return norm
 
 
-def optimizer_step(optimizer: torch.optim.Optimizer, lr: float,
-                   clip_norm: Optional[float]) -> torch.Tensor:
-    """The update from the parameters' ``.grad``: clipped to the global norm
-    ``clip_norm`` when given, then the optimizer's step at learning rate
-    ``lr`` (the JAX package's ``_set_lr`` + ``optimizer.update``). Returns
-    the gradients' global norm before clipping.
+def gradients(optimizer: torch.optim.Optimizer) -> list:
+    """The ``.grad`` of every parameter the optimizer updates, a zero one
+    given first to a parameter the loss does not reach.
 
     optax updates every parameter, and one the loss does not reach (as the
     last block's cell MLP of ConservativeA, D and E, whose heads read the
     edge latents only) has a zero gradient there, so AdamW's weight decay
     still shrinks it. ``torch.optim`` skips a parameter whose ``.grad`` is
-    None, so such a parameter is given a zero gradient first."""
+    None."""
     for group in optimizer.param_groups:
         for p in group["params"]:
             if p.grad is None and p.requires_grad:
                 p.grad = torch.zeros_like(p)
-    grads = [p.grad for group in optimizer.param_groups
-             for p in group["params"]]
+    return [p.grad for group in optimizer.param_groups
+            for p in group["params"]]
+
+
+def optimizer_step(optimizer: torch.optim.Optimizer, lr: float,
+                   clip_norm: Optional[float]) -> torch.Tensor:
+    """The update from the parameters' ``.grad`` (:func:`gradients`):
+    clipped to the global norm ``clip_norm`` when given, then the
+    optimizer's step at learning rate ``lr`` (the JAX package's ``_set_lr``
+    + ``optimizer.update``). Returns the gradients' global norm before
+    clipping."""
+    grads = gradients(optimizer)
     if clip_norm:
         norm = clip_by_global_norm_(grads, clip_norm)
     else:
@@ -175,16 +194,36 @@ def warmup_window(graph):
 
 
 class Trainer:
-    """Epoch / mini-epoch training loop (reference train.py:159-243)."""
+    """Epoch / mini-epoch training loop (reference train.py:159-243).
 
-    def __init__(self, config: Config, model, logger=None, checkpointer=None):
-        if config.settings.multi_gpu:
-            raise NotImplementedError(
-                "data-parallel training is not ported (ROADMAP §1 item 6)")
+    Under a process group of more than one rank, ``settings.multi_gpu``
+    must be set (N copies of one run are never what a launch of N ranks
+    means) and takes the data-parallel loop; ``settings.num_devices``, when
+    set with it, must equal the world size (the JAX package takes the
+    first ``num_devices`` devices). ``multi_gpu`` with one rank takes the
+    single path, as the JAX package's does with one device."""
+
+    def __init__(self, config: Config, model, logger=None, checkpointer=None,
+                 monitor=None):
+        settings = config.settings
+        world = data_parallel.world_size()
+        if world > 1 and not settings.multi_gpu:
+            raise ValueError(
+                f"a launch of {world} ranks without settings.multi_gpu: "
+                "set it to train data-parallel, or launch one rank")
+        if (settings.multi_gpu and settings.num_devices
+                and settings.num_devices != world):
+            raise ValueError(
+                f"settings.num_devices = {settings.num_devices}, but the "
+                f"launch has {world} ranks (one process per card)")
+        self.data_parallel = bool(settings.multi_gpu) and world > 1
+        self.rank = data_parallel.rank() if self.data_parallel else 0
+        self.world = world if self.data_parallel else 1
         self.config = config
         self.model = model
         self.logger = logger
         self.checkpointer = checkpointer
+        self.monitor = monitor
         self.mini_epoch_count = 0
         self.epoch_count = 0
         self.step_count = 0
@@ -194,8 +233,10 @@ class Trainer:
     def init_state(self) -> TrainState:
         """The state of the model's module (its weights as constructed), a
         fresh optimizer and a generator on the model's device seeded with
-        ``settings.random_seed``."""
-        seed = self.config.settings.random_seed
+        ``settings.random_seed`` (on rank r of a data-parallel run, with
+        ``data_parallel.rank_seed`` of it)."""
+        seed = data_parallel.rank_seed(self.config.settings.random_seed,
+                                       self.rank)
         module = self.model.module
         return TrainState(
             module=module,
@@ -204,13 +245,46 @@ class Trainer:
             generator=torch.Generator(device=self.model.device).manual_seed(seed))
 
     # ---- step ---------------------------------------------------------------
-    def train_step(self, state: TrainState, graph, lr: float
-                   ) -> Dict[str, torch.Tensor]:
+    def train_step(self, state: TrainState, graph, lr: float,
+                   keep_grads: bool = False) -> Dict[str, torch.Tensor]:
         """One optimizer step on ``graph`` at learning rate ``lr`` (the
         counterpart of ``_build_train_step``): transform (noise, flip) ->
         [pushforward] -> train-mode forward -> loss -> backward -> clip ->
-        update. Returns the losses, detached, on the device (no host
-        sync)."""
+        update. Returns the losses, detached, on the device (no host sync).
+        With ``keep_grads`` and a monitor, the gradients it reads are copied
+        before the clip (``_last_grads``): :meth:`run` asks so of the step
+        that closes a mini-epoch, the only one whose gradients it logs."""
+        losses = self._forward_backward(state, graph)
+        if keep_grads and self.monitor is not None:
+            self._last_grads = self.monitor.copy_gradients(state.module)
+        optimizer_step(state.optimizer, lr, self.config.training.clip_grad_norm)
+        state.step += 1
+        return losses
+
+    def dp_train_step(self, state: TrainState, graph, lr: float
+                      ) -> Dict[str, torch.Tensor]:
+        """One data-parallel step on this rank's share ``graph`` of the
+        global batch (the counterpart of ``make_dp_train_step``): the single
+        step's transform -> [pushforward] -> forward -> loss -> backward,
+        then the mean over the ranks of the gradients, the losses and the
+        BatchNorm running statistics in one ``all_reduce``, then the clip
+        of the averaged gradients and AdamW. Returns the mean losses, on
+        the device."""
+        losses = self._forward_backward(state, graph)
+        keys = list(losses)
+        means = torch.stack([losses[k].float() for k in keys])
+        data_parallel.all_reduce_mean_(
+            gradients(state.optimizer) + [means]
+            + data_parallel.batch_statistics(state.module))
+        optimizer_step(state.optimizer, lr, self.config.training.clip_grad_norm)
+        state.step += 1
+        return dict(zip(keys, means.unbind()))
+
+    def _forward_backward(self, state: TrainState, graph
+                          ) -> Dict[str, torch.Tensor]:
+        """A train step up to its gradients in ``.grad``: transform (noise,
+        flip) -> [warm slice | pushforward retarget] -> train-mode forward
+        -> loss -> backward. Returns the losses, detached."""
         model, t = self.model, self.config.training
         noise_std = float(t.noise_std or 0.0)
         pf = int(t.pushforward_factor or 0)
@@ -231,27 +305,49 @@ class Trainer:
         losses = model.loss(outputs, feats, tgraph)
         state.optimizer.zero_grad(set_to_none=True)
         losses["total_log_loss"].backward()
-        optimizer_step(state.optimizer, lr, t.clip_grad_norm)
-        state.step += 1
         return {k: v.detach() for k, v in losses.items()}
 
     def train_step_multi(self, state: TrainState, graph, field_stack,
-                         lrs) -> Dict[str, torch.Tensor]:
+                         lrs, keep_grads: bool = False
+                         ) -> Dict[str, torch.Tensor]:
         """``len(lrs)`` steps on one static batched graph, step ``i`` on the
         windows ``field_stack[key][i]`` at learning rate ``lrs[i]`` (the
-        counterpart of ``train_step_multi``). Returns ``{loss: (k,)}`` on
-        the device."""
+        counterpart of ``train_step_multi``); ``keep_grads`` applies to the
+        last step. Returns ``{loss: (k,)}`` on the device."""
         return _stack([self.train_step(
             state, graph.replace(**{k: v[i] for k, v in field_stack.items()}),
-            lr) for i, lr in enumerate(lrs)])
+            lr, keep_grads and i == len(lrs) - 1)
+            for i, lr in enumerate(lrs)])
 
     def train_step_indexed(self, state: TrainState, graph, dev_fields, ts,
-                           lrs, window: int) -> Dict[str, torch.Tensor]:
+                           lrs, window: int, keep_grads: bool = False
+                           ) -> Dict[str, torch.Tensor]:
         """``len(lrs)`` steps on the trajectory store ``dev_fields``
         (``MeshDataset.device_fields``), step ``i`` on the ``window`` states
         from the start steps ``ts[i]`` (``ts``: ``(k, B)`` int), gathered on
-        the device (the counterpart of ``train_step_indexed``). Returns
-        ``{loss: (k,)}`` on the device."""
+        the device (the counterpart of ``train_step_indexed``);
+        ``keep_grads`` applies to the last step. Returns ``{loss: (k,)}`` on
+        the device."""
+        return _stack([self.train_step(state, g, lr,
+                                       keep_grads and i == len(lrs) - 1)
+                       for i, (g, lr) in enumerate(
+                           self._windows(graph, dev_fields, ts, lrs, window))])
+
+    def dp_train_step_indexed(self, state: TrainState, graph, dev_fields,
+                              ts, lrs, window: int) -> Dict[str, torch.Tensor]:
+        """``len(lrs)`` data-parallel steps, each exactly
+        :meth:`dp_train_step`, on this rank's own combination: its static
+        batched ``graph``, its trajectory store ``dev_fields`` and its
+        ``(k, B)`` start steps ``ts`` (the counterpart of
+        ``make_dp_indexed_train_step``, whose ``shard_device_fields`` gives
+        each device its own store). Returns ``{mean loss: (k,)}``."""
+        return _stack([self.dp_train_step(state, g, lr) for g, lr in
+                       self._windows(graph, dev_fields, ts, lrs, window)])
+
+    def _windows(self, graph, dev_fields, ts, lrs, window: int):
+        """(graph with step ``i``'s windows gathered on the device, lr) for
+        each step of an indexed call; raises on start steps whose window
+        leaves the store."""
         ts = np.asarray(ts)
         T = min(v.shape[0] for v in dev_fields.values())
         if ts.size and (ts.min() < 0 or ts.max() + window > T):
@@ -263,17 +359,20 @@ class Trainer:
             # allocator keeps the buffer until the copy has completed
             ts_host = ts_host.pin_memory()
         ts_dev = ts_host.to(graph.device, non_blocking=True)
-        return _stack([self.train_step(
-            state, graph.replace(**gather_windows(dev_fields, ts_dev[i],
-                                                  window)), lr)
-            for i, lr in enumerate(lrs)])
+        for i, lr in enumerate(lrs):
+            yield graph.replace(**gather_windows(dev_fields, ts_dev[i],
+                                                 window)), lr
 
     def train_path(self, dataset: MeshDataset) -> str:
-        """``"indexed"``, ``"multi"`` or ``"single"``: how :meth:`run`
-        feeds ``dataset``. ``steps_per_call > 1`` takes the indexed path
-        when ``training.device_fields`` says so or, where it is None, when
-        the dataset's trajectories fit DEVICE_FIELD_BUDGET on the device."""
+        """``"data_parallel"``, ``"indexed"``, ``"multi"`` or ``"single"``:
+        how :meth:`run` feeds ``dataset``. The data-parallel path takes one
+        step a call, whatever ``steps_per_call`` says, as the JAX package's
+        does. Otherwise ``steps_per_call > 1`` takes the indexed path when
+        ``training.device_fields`` says so or, where it is None, when the
+        dataset's trajectories fit DEVICE_FIELD_BUDGET on the device."""
         t = self.config.training
+        if self.data_parallel:
+            return "data_parallel"
         if max(1, int(t.steps_per_call or 1)) == 1:
             return "single"
         use_dev = t.device_fields
@@ -285,12 +384,17 @@ class Trainer:
     def _batches(self, dataset: MeshDataset, rng: np.random.Generator):
         """One epoch of the sampler's batches through the feed of
         :meth:`train_path`: ``("single", graph)``, ``("multi", graph,
-        field_stack)`` or ``("indexed", graph, dev_fields, ts)``."""
+        field_stack)``, ``("indexed", graph, dev_fields, ts)`` or
+        ``("data_parallel", graph)``."""
         t = self.config.training
         spc = max(1, int(t.steps_per_call or 1))
+        path = self.train_path(dataset)
+        if path == "data_parallel":
+            return (("data_parallel", g) for g in prefetch(
+                iter(self._dp_batches(dataset, rng)), dataset,
+                size=t.prefetch_buffer))
         batches = get_sampler(self.config.dataset.sampler)(
             dataset, t.batch_size, rng)
-        path = self.train_path(dataset)
         if path == "indexed":
             return prefetch_indexed(batches, dataset, spc)
         if path == "multi":
@@ -299,6 +403,27 @@ class Trainer:
         return (("single", g) for g in prefetch(batches, dataset,
                                                 size=t.prefetch_buffer))
 
+    def _dp_batches(self, dataset: MeshDataset, rng: np.random.Generator
+                    ) -> list:
+        """This rank's share of each global batch of an epoch (the JAX
+        package's DP loop, trainer.py:463-476): the sampler, seeded alike on
+        every rank, at a batch of ``per_dev * world`` with ``per_dev =
+        max(batch_size // world, 1)``, shorter batches skipped; rank r takes
+        samples ``[r * per_dev, (r + 1) * per_dev)`` of each. The batches
+        are rank 0's, broadcast once an epoch: ``static_chunked`` draws its
+        timestep orders in the iteration order of a set of mesh ids, which
+        each process hashes its own way (PYTHONHASHSEED), so two ranks'
+        samplers need not agree. Collective, so it runs in the caller's
+        thread, ahead of the feed's worker."""
+        per_dev = max(self.config.training.batch_size // self.world, 1)
+        glob = per_dev * self.world
+        batches = data_parallel.broadcast_object(
+            [samples for samples in get_sampler(self.config.dataset.sampler)(
+                dataset, glob, rng) if len(samples) == glob]
+            if self.rank == 0 else None)
+        return [samples[self.rank * per_dev:(self.rank + 1) * per_dev]
+                for samples in batches]
+
     # ---- loop ---------------------------------------------------------------
     def run(self, state: TrainState, train_dataset: MeshDataset,
             valid_dataset: Optional[MeshDataset] = None,
@@ -306,12 +431,16 @@ class Trainer:
         """Validate, then train ``training.epochs`` epochs of the sampler's
         batches, one step a call or ``steps_per_call`` (:meth:`train_path`);
         when the step count crosses a mini-epoch boundary, log the mean
-        losses, validate every ``valid_frequency`` and checkpoint every
-        ``save_frequency`` mini-epochs. A fused call of ``n`` steps takes one
-        learning rate and advances the counters by ``n``; a boundary it
-        crosses is taken after it (the JAX package's crossing rule, one
-        mini-epoch a call). ``GFD_EPOCH_LIMIT`` bounds the epochs of this
-        call; a run it cuts saves its tail."""
+        losses (and the monitor's records), validate every
+        ``valid_frequency`` and checkpoint every ``save_frequency``
+        mini-epochs. A fused call of ``n`` steps takes one learning rate and
+        advances the counters by ``n``; a boundary it crosses is taken after
+        it (the JAX package's crossing rule, one mini-epoch a call).
+        ``GFD_EPOCH_LIMIT`` bounds the epochs of this call; a run it cuts
+        saves its tail. Data-parallel, the state is replicated from rank 0
+        first, a step counts ``per_dev * world`` samples, and the validation,
+        the logs, the monitor and the checkpoints are rank 0's, the other
+        ranks waiting for it at a barrier."""
         cfg = self.config
         t = cfg.training
         total_mini_epochs = max(
@@ -319,12 +448,17 @@ class Trainer:
         schedule = get_schedule(t.lr_class, t, total_mini_epochs)
         steps_per_mini_epoch = max(t.mini_epoch_size // t.batch_size, 1)
         np_rng = np.random.default_rng(cfg.settings.random_seed)
+        lead = self.rank == 0
+        if self.data_parallel:
+            data_parallel.replicate_(state.module)
 
         # pre-training validation (reference train.py:169-171)
-        if valid_dataset is not None:
+        if valid_dataset is not None and lead:
             self._last_valid = self.validate(state, valid_dataset,
                                              num_valid_steps)
             self._log(self._last_valid, prefix="valid")
+        if self.data_parallel:
+            data_parallel.barrier()
 
         mini_losses: Dict[str, float] = {}
         pending: list = []
@@ -346,19 +480,24 @@ class Trainer:
                 else:
                     n = 1
                 self.step_count += n
-                self.sample_count += graph.num_graphs * n
+                self.sample_count += graph.num_graphs * n * self.world
+                closes = (self.step_count // steps_per_mini_epoch
+                          > self.mini_epoch_count)
                 # the losses stay on the device until the mini-epoch ends:
                 # reading one per step would sync host and card every step
                 if item[0] == "indexed":
                     pending.append(self.train_step_indexed(
                         state, graph, item[2], item[3], [lr] * n,
-                        train_dataset.data_window))
+                        train_dataset.data_window, keep_grads=closes))
                 elif item[0] == "multi":
-                    pending.append(self.train_step_multi(state, graph, item[2],
-                                                         [lr] * n))
+                    pending.append(self.train_step_multi(
+                        state, graph, item[2], [lr] * n, keep_grads=closes))
+                elif item[0] == "data_parallel":
+                    pending.append(self.dp_train_step(state, graph, lr))
                 else:
-                    pending.append(self.train_step(state, graph, lr))
-                if self.step_count // steps_per_mini_epoch <= self.mini_epoch_count:
+                    pending.append(self.train_step(state, graph, lr,
+                                                   keep_grads=closes))
+                if not closes:
                     continue
                 self.mini_epoch_count += 1
                 keys = list(pending[0])
@@ -369,40 +508,64 @@ class Trainer:
                     mini_losses[k] = mini_losses.get(k, 0.0) + v
                 pending = []
                 me_time = time.time() - me_start
-                for k in mini_losses:
-                    mini_losses[k] /= steps_per_mini_epoch
-                self._log(mini_losses, prefix="train")
-                self._log({"train_step_time": me_time / steps_per_mini_epoch,
-                           "mini_epoch_train_time": me_time},
-                          prefix="performance")
-                print(f"\ttrain | e {self.epoch_count:>3} | me "
-                      f"{self.mini_epoch_count:>5} | s {self.step_count:>6}"
-                      f" | t {me_time:<3.2e} | loss "
-                      f"{mini_losses.get('total_log_loss', float('nan')):>3.2e}"
-                      f" | lr {lr:>3.2e}", flush=True)
-
-                if (valid_dataset is not None and cfg.logging.valid_frequency
-                        and self.mini_epoch_count % cfg.logging.valid_frequency == 0):
-                    self._last_valid = self.validate(state, valid_dataset,
-                                                     num_valid_steps)
-                    self._log(self._last_valid, prefix="valid")
-                if (self.checkpointer is not None and cfg.logging.save_frequency
-                        and self.mini_epoch_count % cfg.logging.save_frequency == 0):
-                    # the latest validation drives 'best' (logging.py:293-327)
-                    self.checkpointer.save(
-                        state, self, mini_losses,
-                        valid_losses=getattr(self, "_last_valid", None))
-                self._log({"learning_rate": lr,
-                           "sample_count": self.sample_count}, prefix="train")
+                if lead:
+                    self._boundary(state, mini_losses, me_time,
+                                   steps_per_mini_epoch, lr, valid_dataset,
+                                   num_valid_steps)
+                if self.data_parallel:
+                    data_parallel.barrier()
                 mini_losses = {}
                 me_start = time.time()
-        if self.checkpointer is not None and self.epoch_count < t.epochs:
+        if (self.checkpointer is not None and lead
+                and self.epoch_count < t.epochs):
             # an epoch-limit break between mini-epoch boundaries: persist the
             # tail so the restarted run loses nothing
             self.checkpointer.save(state, self, mini_losses,
                                    valid_losses=getattr(self, "_last_valid",
                                                         None))
         return state
+
+    def _boundary(self, state: TrainState, mini_losses: Dict[str, float],
+                  me_time: float, steps_per_mini_epoch: int, lr: float,
+                  valid_dataset, num_valid_steps: int) -> None:
+        """A mini-epoch's end (rank 0's): the monitor's records (reference
+        train.py:258-277), the mean losses and times, its printed line, the
+        validation and the checkpoint when due, the learning rate and the
+        sample count."""
+        cfg = self.config
+        if self.monitor is not None and self.logger is not None:
+            grads = getattr(self, "_last_grads", None)
+            step = self.mini_epoch_count
+            self.monitor.monitor_decoder_gradients(state.module, grads,
+                                                   self.logger, step)
+            self.monitor.monitor_decoder_updates(state.module, self.logger,
+                                                 step)
+            self.monitor.monitor_scalar_parameters(state.module, grads,
+                                                   self.logger, step)
+        for k in mini_losses:
+            mini_losses[k] /= steps_per_mini_epoch
+        self._log(mini_losses, prefix="train")
+        self._log({"train_step_time": me_time / steps_per_mini_epoch,
+                   "mini_epoch_train_time": me_time}, prefix="performance")
+        print(f"\ttrain | e {self.epoch_count:>3} | me "
+              f"{self.mini_epoch_count:>5} | s {self.step_count:>6}"
+              f" | t {me_time:<3.2e} | loss "
+              f"{mini_losses.get('total_log_loss', float('nan')):>3.2e}"
+              f" | lr {lr:>3.2e}", flush=True)
+
+        if (valid_dataset is not None and cfg.logging.valid_frequency
+                and self.mini_epoch_count % cfg.logging.valid_frequency == 0):
+            self._last_valid = self.validate(state, valid_dataset,
+                                             num_valid_steps)
+            self._log(self._last_valid, prefix="valid")
+        if (self.checkpointer is not None and cfg.logging.save_frequency
+                and self.mini_epoch_count % cfg.logging.save_frequency == 0):
+            # the latest validation drives 'best' (logging.py:293-327)
+            self.checkpointer.save(
+                state, self, mini_losses,
+                valid_losses=getattr(self, "_last_valid", None))
+        self._log({"learning_rate": lr,
+                   "sample_count": self.sample_count}, prefix="train")
 
     # ---- validation (reference train.py:286-303) ----------------------------
     def validate(self, state: TrainState, valid_dataset: MeshDataset,

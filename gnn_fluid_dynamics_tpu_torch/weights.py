@@ -191,3 +191,63 @@ def optimizer_state_from_optax(opt_state, optimizer: torch.optim.Optimizer,
         out[i] = {"step": step.clone(), "exp_avg": mu[name],
                   "exp_avg_sq": nu[name]}
     return {"state": out, "param_groups": own}
+
+
+# the inverse of _NAMES: a torch attribute -> its Flax module name, for the
+# names a Flax module takes from its class (a module Flax names explicitly,
+# such as ``decoder_face`` or ``integrator``, keeps its name)
+_FLAX_NAMES = (
+    (re.compile(r"epd$"), "EncodeProcessDecode_0"),
+    (re.compile(r"mlp$"), "MLP_0"),
+    (re.compile(r"dense(\d+)$"), r"Dense_\1"),
+    (re.compile(r"layer_norm$"), "LayerNorm_0"),
+    (re.compile(r"masked_batch_norm$"), "MaskedBatchNorm_0"),
+    (re.compile(r"batch_norm$"), "BatchNorm_0"),
+)
+
+
+def flax_paths(module: torch.nn.Module) -> Dict[str, str]:
+    """The Flax path (``"EncodeProcessDecode_0/decoder_face/Dense_2/kernel"``)
+    of each of ``module``'s parameters, by torch name: the inverse of
+    :func:`params_from_flax`'s map, whose image holds the current names only
+    (``backward_compatibility`` renames a legacy ``decoder`` before it; the
+    ``decoder`` of ConservativeH/J/K is a current name, and stays). The
+    names Flax gives from a class are read off the torch module's class:
+    ``encoder`` is ``Encoder_0`` or ``_ConsEncoder_0``, ``blocks.i`` is
+    ``GNBlock_i`` inside an ``EncodeProcessDecode`` and ``_Cons?Block_i``
+    in the Conservative family, and a ``GNBlock`` anywhere else (VertPot's)
+    has no Flax module of its own: its ``cell_block`` and ``face_block``
+    are ``CellBlock_i`` and ``FaceBlock_i``."""
+    out: Dict[str, str] = {}
+
+    def walk(m, torch_prefix, flax_prefix, block=0):
+        for name, _ in m.named_parameters(recurse=False):
+            parent = flax_prefix.rstrip("/").rsplit("/", 1)[-1]
+            leaf = name
+            if name == "weight":
+                leaf = ("scale" if parent in ("LayerNorm_0", "BatchNorm_0")
+                        else "kernel")
+            out[torch_prefix + name] = flax_prefix + leaf
+        for name, child in m.named_children():
+            if isinstance(child, torch.nn.ModuleList):
+                for i, c in enumerate(child):
+                    cls = type(c).__name__
+                    if (cls == "GNBlock"
+                            and type(m).__name__ != "EncodeProcessDecode"):
+                        walk(c, f"{torch_prefix}{name}.{i}.", flax_prefix, i)
+                    else:
+                        walk(c, f"{torch_prefix}{name}.{i}.",
+                             f"{flax_prefix}{cls}_{i}/")
+                continue
+            if name == "encoder":
+                flax = type(child).__name__ + "_0"
+            elif name in ("cell_block", "face_block"):
+                flax = ("CellBlock" if name == "cell_block"
+                        else "FaceBlock") + f"_{block}"
+            else:
+                flax = next((p.sub(repl, name) for p, repl in _FLAX_NAMES
+                             if p.match(name)), name)
+            walk(child, f"{torch_prefix}{name}.", f"{flax_prefix}{flax}/")
+
+    walk(module, "", "")
+    return out

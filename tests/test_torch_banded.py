@@ -13,6 +13,7 @@ padded to one shape, so that their band offsets differ, and a third (562
 cells) whose cell -> face band is narrower than the first's.
 """
 
+import torch_test_env  # noqa: F401  (caps torch's threads under xdist)
 import jax.numpy as jnp
 import numpy as np
 import pytest

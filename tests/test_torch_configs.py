@@ -18,6 +18,7 @@ transplant.
 * ``params_from_flax`` takes a ``FrozenDict`` as it takes a plain dict.
 """
 
+import torch_test_env  # noqa: F401  (caps torch's threads under xdist)
 import dataclasses
 import json
 import pathlib

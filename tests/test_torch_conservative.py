@@ -42,6 +42,7 @@ the twice message passing at 2H = 256 channels (ConservativeH/J/K).
   blocks; ConservativeA from ``config/e2e/conservativea.json``.
 """
 
+import torch_test_env  # noqa: F401  (caps torch's threads under xdist)
 import dataclasses
 import pathlib
 

@@ -8,6 +8,7 @@ that each file takes about half the time):
   optax's does: 1e-6 against optax over three steps).
 """
 
+import torch_test_env  # noqa: F401  (caps torch's threads under xdist)
 import json
 import os
 

@@ -37,6 +37,7 @@ package, with the Flax variables carried over by ``params_from_flax``.
   [p, phi], as the JAX package's does.
 """
 
+import torch_test_env  # noqa: F401  (caps torch's threads under xdist)
 import jax
 import jax.numpy as jnp
 import numpy as np

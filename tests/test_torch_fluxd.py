@@ -18,6 +18,7 @@ model amplifies any difference about five-fold per step, so a 5-step
 comparison would measure the random model, not the port.
 """
 
+import torch_test_env  # noqa: F401  (caps torch's threads under xdist)
 import jax
 import numpy as np
 import pytest

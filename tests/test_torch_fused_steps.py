@@ -19,6 +19,7 @@ of ``Trainer.run`` within FUSED_LOSS_RTOL, its counters and learning rates
 exactly.
 """
 
+import torch_test_env  # noqa: F401  (caps torch's threads under xdist)
 import json
 import os
 import threading
@@ -447,9 +448,9 @@ def test_run_at_four_steps_a_call_matches_jax():
     calls = []
     fused = tr.train_step_indexed
 
-    def counted(state, graph, dev, ts, lrs, window):
+    def counted(state, graph, dev, ts, lrs, window, **kw):
         calls.append(len(lrs))
-        return fused(state, graph, dev, ts, lrs, window)
+        return fused(state, graph, dev, ts, lrs, window, **kw)
 
     tr.train_step_indexed = counted
     assert tr.train_path(tds) == "indexed"
@@ -494,9 +495,9 @@ def test_fluxd_r5_recipe_trains(tmp_path, monkeypatch):
     calls = []
     fused = trainer.Trainer.train_step_indexed
 
-    def counted(self, state, graph, dev, ts, lrs, window):
+    def counted(self, state, graph, dev, ts, lrs, window, **kw):
         calls.append(len(lrs))
-        return fused(self, state, graph, dev, ts, lrs, window)
+        return fused(self, state, graph, dev, ts, lrs, window, **kw)
 
     monkeypatch.setattr(trainer.Trainer, "train_step_indexed", counted)
     tr, state = train.main(["--config", str(path), "--device", "cpu",

@@ -30,6 +30,7 @@ JAX package's, with the Flax variables carried over by ``params_from_flax``.
   FvgnK against JAX (1e-5 and 1e-4 relative, as ``test_torch_mgn.py``).
 """
 
+import torch_test_env  # noqa: F401  (caps torch's threads under xdist)
 import functools
 
 import jax

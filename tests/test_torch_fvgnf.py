@@ -22,6 +22,7 @@ where an f32 sum was taken in another order, and the encoder, the block's
 applications and the decoder compound them), as for FluxD.
 """
 
+import torch_test_env  # noqa: F401  (caps torch's threads under xdist)
 import jax
 import numpy as np
 import pytest

@@ -24,6 +24,7 @@ Inputs come from numpy seeds at a small size (a 300-point cylinder mesh,
 hidden 128).
 """
 
+import torch_test_env  # noqa: F401  (caps torch's threads under xdist)
 import jax.numpy as jnp
 import numpy as np
 import pytest

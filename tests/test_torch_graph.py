@@ -1,6 +1,7 @@
 """The port's mesh generation, reordering and MeshGraph construction give the
 same arrays, bit for bit, as the JAX package's on the same seed."""
 
+import torch_test_env  # noqa: F401  (caps torch's threads under xdist)
 import numpy as np
 import pytest
 import torch

@@ -3,6 +3,7 @@ every module of ``gnn_fluid_dynamics_tpu_torch`` (and ``chip_smoke.py``) is
 imported in a fresh interpreter, which must then hold none of them, nor
 ``h5py``, which only the HDF5 reader and writer import, when called."""
 
+import torch_test_env  # noqa: F401  (caps torch's threads under xdist)
 import pathlib
 import subprocess
 import sys

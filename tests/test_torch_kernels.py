@@ -17,6 +17,7 @@ Inputs and weights come from a numpy seed; the weights reach the port through
   nonzero per row, f32 accumulation) copies them too.
 """
 
+import torch_test_env  # noqa: F401  (caps torch's threads under xdist)
 import jax.numpy as jnp
 import numpy as np
 import pytest

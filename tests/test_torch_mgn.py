@@ -25,6 +25,7 @@
   elements, which stay within two.
 """
 
+import torch_test_env  # noqa: F401  (caps torch's threads under xdist)
 import jax
 import jax.numpy as jnp
 import numpy as np

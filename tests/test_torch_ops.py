@@ -4,6 +4,7 @@ the rollout metrics, feature assembly and the normalization statistics.
 All in f32; tolerance rtol 1e-6, atol 1e-6 (the same arithmetic, summed in
 another order at most)."""
 
+import torch_test_env  # noqa: F401  (caps torch's threads under xdist)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -13,6 +13,7 @@ other side of a boundary, from f32 sums in another order); signatures and
 rules exactly.
 """
 
+import torch_test_env  # noqa: F401  (caps torch's threads under xdist)
 import re
 
 import jax.numpy as jnp

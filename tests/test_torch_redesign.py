@@ -13,6 +13,7 @@ relative plus 2**-7 absolute: f32 sums in another order, one rounding);
 NaN positions, layouts and counts exactly.
 """
 
+import torch_test_env  # noqa: F401  (caps torch's threads under xdist)
 import dataclasses
 
 import jax.numpy as jnp

@@ -13,6 +13,7 @@ f32: with 0.999 in f64, 1 - b2 is 1e-3 where optax's is 0.99998713e-3,
 and a second moment whose new gradient term is half of it parts by ~7e-6.
 """
 
+import torch_test_env  # noqa: F401  (caps torch's threads under xdist)
 import copy
 import json
 import importlib.util

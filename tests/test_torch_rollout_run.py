@@ -36,6 +36,7 @@ relative to that output's largest magnitude:
   decoders' bf16 rounding (1.3e-2 at most), amplified by the sum.
 """
 
+import torch_test_env  # noqa: F401  (caps torch's threads under xdist)
 import dataclasses
 import importlib.util
 import json

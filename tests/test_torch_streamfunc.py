@@ -22,6 +22,7 @@ package's, with the Flax variables carried over by ``params_from_flax``.
   the kernels' order in a block, and the registry of 19 names.
 """
 
+import torch_test_env  # noqa: F401  (caps torch's threads under xdist)
 import functools
 
 import jax

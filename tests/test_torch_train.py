@@ -19,6 +19,7 @@ blocks and their backward); bf16 within bf16 steps (2**-8 relative each,
 compounded through the blocks).
 """
 
+import torch_test_env  # noqa: F401  (caps torch's threads under xdist)
 import jax
 import jax.numpy as jnp
 import numpy as np

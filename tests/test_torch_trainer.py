@@ -10,6 +10,7 @@ Python and numpy code on the same numbers); the pushforward features within
 1e-5 relative (two f32 rollout steps, as in the FvgnF rollout tests).
 """
 
+import torch_test_env  # noqa: F401  (caps torch's threads under xdist)
 import json
 import os
 

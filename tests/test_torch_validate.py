@@ -16,6 +16,7 @@ whose roundings (2**-8 relative each) can fall differently, compounded by
 the encoder, two blocks, the decoder and the steps of the rollout.
 """
 
+import torch_test_env  # noqa: F401  (caps torch's threads under xdist)
 import dataclasses
 import gc
 import weakref

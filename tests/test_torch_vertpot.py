@@ -46,6 +46,7 @@ route keeps the reference's semantics.
   blocks, in f32, within 4e-2 (``test_torch_validate.py``'s tolerance).
 """
 
+import torch_test_env  # noqa: F401  (caps torch's threads under xdist)
 import dataclasses
 import functools
 import pathlib
