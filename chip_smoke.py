@@ -4,8 +4,9 @@ the trainer's validation rollout of FluxD, FluxD's training, the rollout
 entry point, the MGN family, the rest of the FVGN family (temporal
 bundling included), the StreamFunc family, the rest of the Flux family, the
 VertPot family and the Conservative family at their shipped width through
-them, and FluxD's recipe of fused train calls, and report each kernel's
-time beside its bound.
+them, FluxD's recipe of fused train calls, data-parallel, and on data made
+by the port's own generator, with its profiling, diagnosis and sweep tools,
+and report each kernel's time beside its bound.
 
     python3 chip_smoke.py
 
@@ -216,6 +217,38 @@ Phases (each prints one flushed line; any failure exits non-zero):
       all-reduce's bytes and device time, 11b's ms per DP step (gloo's,
       staged through the host: not a multi-card figure);
 
+12. FluxD-gen: data made by the port's own generation chain feeding the
+    fluxd-r5 recipe, and the training tools on its run:
+
+    * 12a (host) ``generate.mesh.main`` (GEN_MESHES meshes, the inflow
+      regime, dt 0.01, seed 0, h GEN_H), the ``generate.simulation`` CLI
+      (the built-in solver, GEN_STEPS saved frames after GEN_SPINUP
+      discarded intervals; one process a mesh, ``--shard-index``) and ``generate.conversion.convert_case`` of each mesh in
+      memory (no h5py on the card's machine) into ``build/chip_smoke/gen/``;
+      every field finite, every saved frame's face flux with a discrete
+      divergence below GEN_DIVERGENCE_TOL per cell; the C++ graph builder
+      (``native``) built afresh, its time, and its connectivity against the
+      numpy path's on a NATIVE_POINTS-point mesh, equal;
+    * 12b (card) phase 10a's ``Trainer.run`` of the recipe (FUSED_EPOCHS
+      epochs, the first the warm-up) on meshes 0-2, validated on mesh 3 on
+      the table route, its calls and validations timed in a
+      ``profiling.StepTimer`` (card synchronized), a checkpoint at its end;
+      then one mini-epoch (GEN_MINI_EPOCH samples of pushforward steps and
+      a validation) under ``profiling.trace``: the trace file names the
+      device functions of K1, K2, K3, K6 and K7, and gives the device
+      share; ``device_memory_stats``: in use <= peak <= limit = the card's
+      memory;
+    * 12c (card) ``diagnose.main`` twice on 12b's checkpoint, with
+      ``aggregation`` "pallas" (the fused index route on mesh 3: K1-K3 15 a
+      forward, 2 forwards) and "segment" (the plain route, no launch):
+      every head's corr and rel within DIAG_TOL of each other in both
+      spaces, the scalars equal;
+    * 12d (card) ``sweep.main`` on a 2-combination grid of
+      ``training.lr_max`` over a one-mini-epoch synthetic FluxD config: a
+      dry run listing both, then shard 0 of 2 running one job as a
+      subprocess (``training.train --device cuda``), exit code 0, its run
+      ``<name>-0`` with a ``metrics.jsonl``;
+
 then the ``kernels`` line: per kernel its time per launch, launches, bound,
 plain time and library time (K3 and K5 also the pair's time and the launch
 floor).
@@ -226,32 +259,42 @@ exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import functools
+import glob
+import io
 import itertools
 import json
 import os
+import pathlib
 import shutil
 import subprocess
 import sys
 import tempfile
 import time
 import warnings
+from unittest import mock
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from gnn_fluid_dynamics_tpu_torch.data.samplers import get_sampler
-from gnn_fluid_dynamics_tpu_torch.data.pipeline import (MeshDataset, Trajectory,
+from gnn_fluid_dynamics_tpu_torch.data.pipeline import (FIELD_KEYS, MeshDataset,
+                                                        Trajectory,
                                                         compute_window,
                                                         prefetch,
                                                         prefetch_grouped,
                                                         prefetch_indexed,
                                                         rollout_batch)
+from gnn_fluid_dynamics_tpu_torch import native
 from gnn_fluid_dynamics_tpu_torch.data.synthetic import (channel_flow_trajectory,
+                                                         cylinder_channel_mesh,
                                                          make_geometry)
+from gnn_fluid_dynamics_tpu_torch.generate import conversion as gen_conversion
+from gnn_fluid_dynamics_tpu_torch.generate import mesh as gen_mesh
 from gnn_fluid_dynamics_tpu_torch.graph import (widen_band, from_geometry,
                                                 to_static_bands)
 from gnn_fluid_dynamics_tpu_torch.models.arch import MLP
@@ -261,9 +304,10 @@ from gnn_fluid_dynamics_tpu_torch.models.fvgn import FvgnF
 from gnn_fluid_dynamics_tpu_torch.models.mgn import MgnA
 from gnn_fluid_dynamics_tpu_torch.models.normalizer import StatsAccumulator
 from gnn_fluid_dynamics_tpu_torch.models.registry import get_model_class
-from gnn_fluid_dynamics_tpu_torch.ops import fvm, kernels
+from gnn_fluid_dynamics_tpu_torch.ops import connectivity, fvm, kernels
 from gnn_fluid_dynamics_tpu_torch.ops.mls import compute_mls_weights
-from gnn_fluid_dynamics_tpu_torch.ops.reorder import rcm_reorder_geometry
+from gnn_fluid_dynamics_tpu_torch.ops.reorder import (rcm_reorder_geometry,
+                                                      reorder_fields)
 from gnn_fluid_dynamics_tpu_torch.rollout import run as rollout_cli
 from gnn_fluid_dynamics_tpu_torch.rollout.engine import (SAVABLE_FIELDS,
                                                          RolloutConfig,
@@ -274,6 +318,7 @@ from gnn_fluid_dynamics_tpu_torch.training.checkpoint import Checkpointer
 from gnn_fluid_dynamics_tpu_torch.training.config import load_config
 from gnn_fluid_dynamics_tpu_torch.training.logging import Logger
 from gnn_fluid_dynamics_tpu_torch.training.monitoring import ModelMonitor
+from gnn_fluid_dynamics_tpu_torch.training import diagnose, profiling, sweep
 from gnn_fluid_dynamics_tpu_torch.training.lr_schedule import get_schedule
 from gnn_fluid_dynamics_tpu_torch.parallel import data_parallel
 from gnn_fluid_dynamics_tpu_torch.training.trainer import (Trainer, gradients,
@@ -428,6 +473,37 @@ DP_LOSS_WINDOW = 5         # 11b: epoch 1's first and last steps averaged
 # a first AdamW step moves each by about lr whatever its gradient.
 DP_F32_LOSS_RTOL = 1e-5
 DP_F32_MOMENT_RTOL = 1e-4
+# phase 12: the port's generation chain (scripts/datagen_r5.sh's: the inflow
+# regime, dt 0.01, seed 0, the built-in solver) feeding the fluxd-r5 recipe
+GEN_DIR = os.path.join(SMOKE_DIR, "gen")
+GEN_MESHES = 4             # meshes 0-2 train (batch 4: 0, 1, 2, 2), 3 validates
+GEN_H = 0.03               # the shipped mesh size: ~1,800 vertices a mesh
+GEN_STEPS = 41             # saved frames: 38 windows of 4, calls 16, 16, 6
+GEN_SPINUP = 2             # saved intervals discarded (datagen_r5.sh: 1.5
+#                            domain crossings, cut to keep the phase short)
+GEN_DIVERGENCE_TOL = 1e-6  # per cell, each saved frame's f32 face flux
+NATIVE_POINTS = 9700       # the native builder against numpy at this mesh size
+GEN_MINI_EPOCH = 16        # samples: 4 steps, the traced mini-epoch
+DIAG_TOL = 5e-2            # 12c: corr, and rel over max(1, |rel|), route to route
+# 12c: each head's raw output on live rows, kernel route against plain
+# route, as the norm of the difference over the norm of the plain head's
+# deviation from its mean (the share of the head's variation the kernel
+# route misses; a head's constant offset, such as a normalized flux's
+# -mean/std, would hide a fault from a measure relative to its largest
+# magnitude). Planted faults, the output of K1, of K2 or of K3 zeroed in
+# turn: each head must lie beyond the limit under one of them, and each
+# fault must move its most moved head DIAG_FAULT_RATIO times the route's
+# largest gap. From readings on an H100 (four trainings): route gaps up to
+# 0.167 (bf16 latents through 15 blocks, a near-constant head's small
+# variation in the denominator); every head moved by 1.03 or more under
+# K1's fault; K3's, the weakest, moved its most moved head by 0.40 to
+# 1.70, 5.5 to 10 times that training's largest route gap
+DIAG_OUT_TOL = 0.4
+DIAG_FAULT_RATIO = 2.0
+DIAG_FAULTS = ("fused_face_block", "fused_cell_block", "edges_to_vertices")
+DIAG_HEADS = ("face_velocity", "face_pressure", "face_flux",
+              "cell_velocity_change", "cell_velocity", "cell_pressure")
+SWEEP_LRS = (1e-3, 3e-4)   # 12d's grid of training.lr_max
 
 KERNELS = {
     "K1_fused_face_block": dict(
@@ -2565,16 +2641,24 @@ def crossing_rule(calls, steps_per_mini_epoch: int) -> tuple:
     return steps, mini_epochs
 
 
-def fused_training(train_ds, valid_ds, device_line: str) -> tuple:
-    """Phase 10a: ``Trainer.run`` of the fluxd-r5 recipe on the card. The
+def fused_training(train_ds, valid_ds, device_line: str, cfg=None,
+                   checkpointer=None, timer=None,
+                   tag: str = "10a FluxD-r5") -> tuple:
+    """Phase 10a (and 12b, with ``tag``): ``Trainer.run`` of the fluxd-r5
+    recipe (``cfg``, by default ``recipe_config()``) on the card. The
     automatic choice must be the indexed path, the calls of each epoch 16,
     16, 6, the counters JAX's rule, the trajectory store on the card as
     large as ``estimate_device_field_bytes``; no kernel in a warm-up call,
     and in a pushforward call only the unroll's rollout-mode forwards on
     the fused route (K1-K3 15 each a forward, PF forwards a step); each
     validation phase 5's launches; the losses finite, epoch 1's falling.
-    Returns (the path's record, the trainer, its state, the dataset)."""
-    cfg = recipe_config()
+    With ``checkpointer``, a checkpoint at the last mini-epoch; with
+    ``timer`` (a ``profiling.StepTimer``), each call and each validation
+    timed in its sections ``train_call/epoch <e>`` and ``validate``, the card
+    synchronized before the clock stops. Returns (the path's record, the
+    trainer, its state, the dataset)."""
+    name = tag.split()[1]
+    cfg = recipe_config() if cfg is None else cfg
     ds = fused_dataset(train_ds, cfg)
     t = cfg.training
     spc, pf = t.steps_per_call, t.pushforward_factor
@@ -2585,30 +2669,37 @@ def fused_training(train_ds, valid_ds, device_line: str) -> tuple:
     spme = max(t.mini_epoch_size // t.batch_size, 1)
     want_steps, want_me = crossing_rule(want_calls, spme)
     cfg.logging.valid_frequency = want_me
+    cfg.logging.save_frequency = want_me if checkpointer is not None else 0
     if not cfg.logging.use_monitor:
-        fail("FluxD-r5: the recipe no longer sets logging.use_monitor")
+        fail(f"{name}: the recipe no longer sets logging.use_monitor")
     monitor = TimedMonitor()
-    trainer, state = build_trainer(cfg, ds, monitor=monitor)
+    trainer, state = build_trainer(cfg, ds, checkpointer, monitor=monitor)
     path = trainer.train_path(ds)
     if path != "indexed":
-        fail(f"FluxD-r5: the trainer chose the {path} path, not indexed "
+        fail(f"{name}: the trainer chose the {path} path, not indexed "
              f"({ds.estimate_device_field_bytes()} bytes of trajectories)")
 
     calls, valid_launches = [], []
     fused_fn, validate_fn = trainer.train_step_indexed, trainer.validate
 
+    def section(what, sync):
+        return (contextlib.nullcontext() if timer is None
+                else timer.section(what, sync=sync))
+
     def counted_call(state, graph, dev, ts, lrs, window, **kw):
         before = launch_counts()
-        out = fused_fn(state, graph, dev, ts, lrs, window, **kw)
+        with section(f"train_call/epoch {trainer.epoch_count}", dev):
+            out = fused_fn(state, graph, dev, ts, lrs, window, **kw)
         calls.append({"epoch": trainer.epoch_count, "steps": len(lrs),
                       "launches": {k: v - before[k]
                                    for k, v in launch_counts().items()},
                       "losses": out["total_log_loss"]})
         return out
 
-    def counted_validate(*args, **kw):
+    def counted_validate(state, *args, **kw):
         before = launch_counts()
-        out = validate_fn(*args, **kw)
+        with section("validate", next(state.module.parameters())):
+            out = validate_fn(state, *args, **kw)
         valid_launches.append({k: v - before[k]
                                for k, v in launch_counts().items()})
         return out
@@ -2625,44 +2716,53 @@ def fused_training(train_ds, valid_ds, device_line: str) -> tuple:
 
     got_calls = [c["steps"] for c in calls]
     if got_calls != want_calls:
-        fail(f"FluxD-r5: calls of {got_calls} steps, expected {want_calls}")
+        fail(f"{name}: calls of {got_calls} steps, expected {want_calls}")
     counters = (trainer.epoch_count, trainer.step_count,
                 trainer.mini_epoch_count, trainer.sample_count, state.step)
     want_counters = (FUSED_EPOCHS, want_steps, want_me,
                      want_steps * t.batch_size, want_steps)
     if counters != want_counters:
-        fail(f"FluxD-r5: epoch, step, mini-epoch, sample counts and state "
+        fail(f"{name}: epoch, step, mini-epoch, sample counts and state "
              f"step {counters}, expected {want_counters}")
     unroll = PATHS["FluxD"][1]
     for c in calls:
         forwards = c["steps"] * pf if c["epoch"] > FUSED_WARMUP_EPOCHS else 0
         want = {k: unroll.get(k, 0) * forwards for k in KERNELS}
         if c["launches"] != want:
-            fail(f"FluxD-r5: launches in a call of {c['steps']} steps in "
+            fail(f"{name}: launches in a call of {c['steps']} steps in "
                  f"epoch {c['epoch']}: {c['launches']}, expected {want}")
     per_valid = {k: PATHS["FluxD-valid"][1].get(k, 0) * CHECK_STEPS
                  for k in KERNELS}
     if len(valid_launches) != 2 or any(v != per_valid for v in valid_launches):
-        fail(f"FluxD-r5: launches per validation {valid_launches}, expected "
+        fail(f"{name}: launches per validation {valid_launches}, expected "
              f"2 validations of {per_valid}")
     store = [v for combo in ds._device_fields_cache.values()
              for v in combo.values()]
     store_bytes = sum(v.numel() * v.element_size() for v in store)
-    if (store_bytes != ds.estimate_device_field_bytes()
+    # a combination holds a mesh as often as it names it (static_chunked
+    # pads a chunk with a repeated mesh); the estimate counts each mesh once
+    def mesh_bytes(tr):
+        return sum(tr.fields[k].shape[0] * tr.fields[k].shape[2] * 4
+                   * ds.pad_to["cell" if k.startswith("cell") else "face"]
+                   for k in FIELD_KEYS if k in tr.fields)
+    want_store = sum(mesh_bytes(ds.by_id[m])
+                     for combo in ds._device_fields_cache for m in combo)
+    estimate = ds.estimate_device_field_bytes()
+    if (store_bytes != want_store
             or any(v.device != ds.device for v in store)):
-        fail(f"FluxD-r5: the trajectory store holds {store_bytes} bytes on "
-             f"{sorted({str(v.device) for v in store})}, the estimate "
-             f"{ds.estimate_device_field_bytes()} on {ds.device}")
+        fail(f"{name}: the trajectory store holds {store_bytes} bytes on "
+             f"{sorted({str(v.device) for v in store})}, its combinations' "
+             f"meshes {want_store}, the estimate {estimate} on {ds.device}")
     by_epoch = {e: torch.cat([c["losses"] for c in calls if c["epoch"] == e])
                 .tolist() for e in range(1, FUSED_EPOCHS + 1)}
     mini = logged(trainer, "train/total_log_loss")
     if (not all(np.isfinite(v).all() for v in by_epoch.values())
             or len(mini) != want_me or not np.isfinite(mini).all()):
-        fail(f"FluxD-r5: losses by epoch {by_epoch}, mini-epochs {mini}")
+        fail(f"{name}: losses by epoch {by_epoch}, mini-epochs {mini}")
     first = float(np.mean(by_epoch[1][:FUSED_LOSS_WINDOW]))
     last = float(np.mean(by_epoch[1][-FUSED_LOSS_WINDOW:]))
     if not last < first:
-        fail(f"FluxD-r5: epoch 1's mean loss of its last {FUSED_LOSS_WINDOW} "
+        fail(f"{name}: epoch 1's mean loss of its last {FUSED_LOSS_WINDOW} "
              f"steps {last} not below its first {FUSED_LOSS_WINDOW} {first}")
     mon = monitored(trainer)
     if (monitor.calls["copy_gradients"] != want_me
@@ -2670,17 +2770,18 @@ def fused_training(train_ds, valid_ds, device_line: str) -> tuple:
             or mon["gradient_steps"] != mon["steps"]
             or mon["update_steps"] != mon["steps"][1:]
             or not mon["scalar_keys"] or not mon["finite"]):
-        fail(f"FluxD-r5: the monitor copied gradients "
+        fail(f"{name}: the monitor copied gradients "
              f"{monitor.calls['copy_gradients']} times for {want_me} "
              f"mini-epochs and logged {mon}")
-    say(f"phase 10a FluxD-r5 Trainer.run (config/e2e/fluxd-r5.json's "
+    say(f"phase {tag} Trainer.run (config/e2e/fluxd-r5.json's "
         f"training, h{H} mp{MP_NUM} bf16, batch {t.batch_size}, "
         f"{spc} steps a call, {cfg.dataset.sampler}, "
         f"{FUSED_EPOCHS} epochs, pushforward {pf} after {FUSED_WARMUP_EPOCHS}"
         f" warm-up epoch): ok, path {path}; calls {got_calls}; epoch, step, "
         f"mini-epoch, sample counts {list(counters[:4])} (JAX's crossing rule "
         f"at {spme} steps a mini-epoch); trajectory store {store_bytes} bytes "
-        "on the card = estimate_device_field_bytes; launches per call "
+        "on the card = its combinations' meshes (estimate_device_field_bytes, "
+        f"each mesh once: {estimate}); launches per call "
         + json.dumps([{k: v for k, v in c["launches"].items() if v}
                       for c in calls])
         + " (the pushforward unroll's rollout-mode forwards only); per "
@@ -3414,6 +3515,488 @@ def dp_phase(line: str) -> dict:
                 if s["epoch"] > FUSED_WARMUP_EPOCHS),
             "nccl": a, "gloo": ranks}
 
+# ---- phase 12: the port's own data, the training tools -------------------------
+
+def _quiet(fn, *args, **kw):
+    """``fn(*args, **kw)`` with its standard output kept: (result, output)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kw)
+    return out, buf.getvalue()
+
+
+def native_check() -> dict:
+    """12a's native builder: built afresh under GEN_DIR (its build time),
+    then its connectivity and the numpy path's on a NATIVE_POINTS-point
+    cylinder mesh, timed and held equal."""
+    native.BUILD_DIR = pathlib.Path(GEN_DIR) / "native"
+    native._lib, native._lib_failed = None, False
+    t0 = time.perf_counter()
+    if not native.native_available():
+        fail("12a: the native graph builder did not build (g++)")
+    build_s = time.perf_counter() - t0
+    pos, cells, _ = cylinder_channel_mesh(n_points=NATIVE_POINTS, seed=0)
+    t0 = time.perf_counter()
+    got = native.compute_connectivity(cells, pos)
+    native_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    want = connectivity.compute_connectivity_full(cells, pos, use_native=False)
+    numpy_ms = 1e3 * (time.perf_counter() - t0)
+    if not all(a.dtype == b.dtype and np.array_equal(a, b)
+               for a, b in zip(got, want)):
+        fail("12a: the native connectivity differs from the numpy path's")
+    return {"build_s": build_s, "native_ms": native_ms, "numpy_ms": numpy_ms,
+            "cells": int(cells.shape[0]), "faces": int(got[1].shape[1])}
+
+
+def gen_data(device_line: str) -> tuple:
+    """Phase 12a (host): the generation chain through the port's CLIs into
+    GEN_DIR, each mesh converted in memory and RCM-ordered (as
+    ``train.build_datasets`` orders a banded run's meshes); the fields
+    finite, each saved frame's flux divergence-free; the native builder's
+    check. Returns (the RCM-ordered trajectories, the record)."""
+    shutil.rmtree(GEN_DIR, ignore_errors=True)
+    nat = native_check()
+    meshes, raw = os.path.join(GEN_DIR, "meshes"), os.path.join(GEN_DIR, "raw")
+    t0 = time.perf_counter()
+    _quiet(gen_mesh.main, ["--num", str(GEN_MESHES), "--regime", "inflow",
+                           "--dt", "0.01", "--seed", "0", "--h", str(GEN_H),
+                           "--out", meshes])
+    mesh_s = time.perf_counter() - t0
+    # the solver's CLI sharded as an array job's tasks: one process a mesh
+    t0 = time.perf_counter()
+    env = {**os.environ, "OMP_NUM_THREADS": "2",
+           "PYTHONPATH": os.pathsep.join(
+               p for p in (ROOT, os.environ.get("PYTHONPATH")) if p)}
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "gnn_fluid_dynamics_tpu_torch.generate."
+         "simulation", "--meshes", meshes, "--out", raw, "--steps",
+         str(GEN_STEPS), "--backend", "builtin", "--spinup", str(GEN_SPINUP),
+         "--shard-index", str(i), "--num-shards", str(GEN_MESHES)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+        for i in range(GEN_MESHES)]
+    logs = [p.communicate()[0] for p in procs]
+    if any(p.returncode for p in procs):
+        fail("12a: generate.simulation exited "
+             f"{[p.returncode for p in procs]}: {logs}")
+    sim_s = time.perf_counter() - t0
+    trajs, per_mesh = [], []
+    for i in range(GEN_MESHES):
+        case = f"mesh_{i}"
+        t0 = time.perf_counter()
+        traj = gen_conversion.convert_case(os.path.join(raw, case),
+                                           os.path.join(meshes, case), case)
+        conv_s = time.perf_counter() - t0
+        with open(os.path.join(raw, case, "time.log")) as f:
+            case_s = float(f.read())
+        fields, geom = traj.fields, traj.geom
+        if not all(np.isfinite(v).all() for v in fields.values()):
+            fail(f"12a: {case} has a field that is not finite")
+        if fields["cell_velocity"].shape[0] != GEN_STEPS:
+            fail(f"12a: {case} holds {fields['cell_velocity'].shape[0]} "
+                 f"frames, expected {GEN_STEPS}")
+        flux = fields["face_flux"][..., 0].astype(np.float64)
+        div = float(np.abs((flux[:, geom["face_index"].T]
+                            * geom["cell_face_sign"]).sum(-1)).max())
+        if not div < GEN_DIVERGENCE_TOL:
+            fail(f"12a: {case}'s face flux has a divergence of {div} per "
+                 f"cell, above {GEN_DIVERGENCE_TOL}")
+        new_geom = rcm_reorder_geometry(geom)
+        traj.fields = reorder_fields(fields, geom, new_geom)
+        traj.geom = new_geom
+        trajs.append(traj)
+        per_mesh.append({"cells": int(geom["cell_pos"].shape[0]),
+                         "faces": int(geom["face_pos"].shape[0]),
+                         "vertices": int(geom["vertex_pos"].shape[0]),
+                         "Re": round(traj.reynolds, 3),
+                         "simulate_s": case_s, "convert_s": round(conv_s, 3),
+                         "max_divergence": div})
+    say(f"phase 12a FluxD-gen data (host): generate.mesh {GEN_MESHES} meshes "
+        f"(inflow regime, dt 0.01, seed 0, h {GEN_H}) in {mesh_s:.2f} s; "
+        f"generate.simulation (built-in solver, {GEN_STEPS} frames saved "
+        f"every 2 solver intervals after {GEN_SPINUP} discarded) in "
+        f"{sim_s:.2f} s ({GEN_MESHES} shards at once, one process a mesh); "
+        "conversion.convert_case in memory; per mesh "
+        + json.dumps(per_mesh) + f" (every field finite, each frame's flux "
+        f"divergence below {GEN_DIVERGENCE_TOL} per cell); native graph "
+        f"builder built in {nat['build_s']:.2f} s (g++), connectivity of a "
+        f"{NATIVE_POINTS}-point mesh ({nat['cells']} cells, {nat['faces']} "
+        f"faces) {nat['native_ms']:.2f} ms native against "
+        f"{nat['numpy_ms']:.2f} ms numpy, equal; card {device_line}")
+    return trajs, {"mesh_s": mesh_s, "simulate_s": sim_s, "meshes": per_mesh,
+                   "native": nat}
+
+
+def gen_config():
+    """``recipe_config()`` as phase 12b trains it: mini-epochs of
+    GEN_MINI_EPOCH samples, its own run name."""
+    cfg = recipe_config()
+    cfg.training.mini_epoch_size = GEN_MINI_EPOCH
+    cfg.logging.name = "FluxD-gen-chip-smoke"
+    return cfg
+
+
+def trace_kernels(trace_dir: str, wall_s: float) -> dict:
+    """The one trace file ``profiling.trace`` wrote under ``trace_dir``: the
+    device kernels it names, K1-K7's device functions among them, their
+    time, and the share of ``wall_s`` it covers."""
+    files = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    if len(files) != 1:
+        fail(f"12b: the trace wrote {files}, expected one file")
+    with open(files[0]) as f:
+        events = json.load(f).get("traceEvents", [])
+    kernels_ = [e for e in events if e.get("cat") == "kernel"]
+    functions = {"K1_fused_face_block": "face_block_kernel",
+                 "K2_fused_cell_block": "cell_block_kernel",
+                 "K3_edges_to_vertices": "edge_vertex_kernel",
+                 "K4_gather_face_cells": "face_gather_kernel",
+                 "K5_vertices_to_cells": "vertex_cell_kernel",
+                 "K6_table_dual": "table_dual_kernel",
+                 "K7_table_single": "table_single_kernel"}
+    named = {k: sum(1 for e in kernels_ if f"gfd::{fn}" in e.get("name", ""))
+             for k, fn in functions.items()}
+    device_us = sum(float(e.get("dur", 0.0)) for e in kernels_)
+    return {"file": os.path.relpath(files[0], ROOT),
+            "bytes": os.path.getsize(files[0]), "events": len(events),
+            "kernels": len(kernels_), "named": named,
+            "device_ms": device_us / 1e3,
+            "device_share": device_us / 1e6 / wall_s}
+
+
+def gen_training(dev, trajs, device_line: str) -> tuple:
+    """Phase 12b: 10a's ``Trainer.run`` of the recipe on meshes 0-2 (mesh 3
+    validating on the table route), timed by a StepTimer, checkpointed;
+    one more mini-epoch under ``profiling.trace``; the memory stats.
+    Returns (the record, the validation's compute_window)."""
+    cfg = gen_config()
+    t = cfg.training
+    r_stride, r_window = compute_window(cfg.model.timestep_stride, None,
+                                        cfg.model.bundle_size, mode="rollout")
+    valid_ds = MeshDataset(trajs[3:], stride=r_stride, data_window=r_window,
+                           pad_multiple=t.pad_multiple, with_banded=True,
+                           banded_dtype="bfloat16", device=dev)
+    ckpt = Checkpointer(os.path.join(GEN_DIR, "ckpt"))
+    timer = profiling.StepTimer()
+    record, trainer, state, ds = fused_training(
+        MeshDataset(trajs[:3], device=dev), valid_ds, device_line, cfg=cfg,
+        checkpointer=ckpt, timer=timer, tag="12b FluxD-gen")
+    if ckpt.resolve("latest") is None:
+        fail("12b: Trainer.run wrote no checkpoint")
+    steps = record["rollout_steps"]   # 10a's: forwards of the run
+    train_steps = trainer.step_count
+    report = timer.report()
+
+    # one mini-epoch under the trace: its pushforward steps through the
+    # indexed feed, then its validation
+    spme = max(t.mini_epoch_size // t.batch_size, 1)
+    _, graph, dev_fields, ts = next(trainer._batches(
+        ds, np.random.default_rng(cfg.settings.random_seed)))
+    ts = ts[:spme]
+    trace_dir = os.path.join(GEN_DIR, "trace")
+    before = launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profiling.trace(trace_dir):
+        with profiling.annotate("fluxd_gen_mini_epoch"):
+            with timer.section("traced_mini_epoch",
+                               sync=next(state.module.parameters())):
+                losses = trainer.train_step_indexed(
+                    state, graph, dev_fields, ts, [t.lr_min] * len(ts),
+                    ds.data_window)
+                trainer.validate(state, valid_ds, CHECK_STEPS)
+    traced_s = time.perf_counter() - t0
+    traced = {k: v - before[k] for k, v in launch_counts().items()}
+    pf = t.pushforward_factor
+    want = {k: PATHS["FluxD"][1].get(k, 0) * pf * len(ts)
+            + PATHS["FluxD-valid"][1].get(k, 0) * CHECK_STEPS for k in KERNELS}
+    if traced != want:
+        fail(f"12b: launches in the traced mini-epoch {traced}, expected "
+             f"{want}")
+    if not torch.isfinite(losses["total_log_loss"]).all():
+        fail(f"12b: the traced mini-epoch's losses {losses}")
+    tr = trace_kernels(trace_dir, traced_s)
+    missing = [k for k in ("K1_fused_face_block", "K2_fused_cell_block",
+                           "K3_edges_to_vertices", "K6_table_dual",
+                           "K7_table_single") if not tr["named"][k]]
+    if missing:
+        fail(f"12b: the trace names no device function of {missing} "
+             f"({tr['named']})")
+    mem = profiling.device_memory_stats(dev)
+    total_mb = torch.cuda.get_device_properties(dev).total_memory / 1024 ** 2
+    if not (0 < mem["bytes_in_use_mb"] <= mem["peak_bytes_in_use_mb"]
+            <= mem["bytes_limit_mb"] == total_mb):
+        fail(f"12b: device_memory_stats {mem}, the card's memory {total_mb} MB")
+    calls = [c for c in timer.counts if c.startswith("train_call/")]
+    ms_per_step = 1e3 * sum(timer.totals[c] for c in calls) / train_steps
+    # each epoch takes the same steps (the sampler's 38 a mesh combination)
+    by_epoch = {c.split("/")[1]: 1e3 * timer.totals[c]
+                / (train_steps // FUSED_EPOCHS) for c in calls}
+    say(f"phase 12b FluxD-gen StepTimer (card synchronized before each clock "
+        f"stop): {train_steps} train steps in "
+        f"{sum(timer.counts[c] for c in calls)} calls, {ms_per_step:.3f} ms "
+        f"per step over both epochs, by epoch (1 the warm-up, 2 with the "
+        f"pushforward unroll) {json.dumps({e: round(v, 3) for e, v in by_epoch.items()})}, "
+        f"{timer.counts['validate']} validations of {CHECK_STEPS} steps "
+        f"{1e3 * report['validate']:.1f} ms each; the traced mini-epoch "
+        f"({len(ts)} pushforward steps and a validation) {traced_s:.2f} s "
+        f"under the trace, launches {json.dumps({k: v for k, v in traced.items() if v})}"
+        f"; trace {tr['file']} ({tr['bytes']} bytes, {tr['events']} events, "
+        f"{tr['kernels']} kernels; device functions by kernel "
+        f"{json.dumps(tr['named'])}), device time {tr['device_ms']:.2f} ms, "
+        f"device share {100 * tr['device_share']:.1f} % of the traced wall "
+        f"time; device_memory_stats {json.dumps({k: round(v, 1) for k, v in mem.items()})}"
+        f"; card {device_line}")
+    record.update({"timer": report, "ms_per_step": ms_per_step,
+                   "ms_per_step_by_epoch": by_epoch,
+                   "train_steps": train_steps, "trace": tr,
+                   "traced_s": traced_s, "memory": mem})
+    record["launches"] = {k: v + traced[k]
+                          for k, v in record["launches"].items()}
+    record["rollout_steps"] = steps + pf * len(ts) + CHECK_STEPS
+    return record, (r_stride, r_window)
+
+
+def _route_checkpoint(aggregation: str) -> str:
+    """A copy of 12b's checkpoint directory whose latest checkpoint's
+    config takes ``aggregation``; returns its ``<dir>/latest``."""
+    src = os.path.join(GEN_DIR, "ckpt")
+    dst = os.path.join(GEN_DIR, f"ckpt-{aggregation}")
+    shutil.copytree(src, dst)
+    path = os.path.join(Checkpointer(dst).resolve("latest"), "meta.json")
+    with open(path) as f:
+        meta = json.load(f)
+    meta["config"]["model"]["aggregation"] = aggregation
+    with open(path, "w") as f:
+        json.dump(meta, f, indent=2)
+    return os.path.join(dst, "latest")
+
+
+def head_outputs(model, graph, feats) -> dict:
+    """Every supervised head's raw output in both of diagnose's spaces
+    (valid mode, normalized; rollout mode, physical) on live rows, f32,
+    under the report's head names (the face velocity's two components
+    apart)."""
+    out = {}
+    with torch.inference_mode():
+        for space, mode in (("normalized", "valid"), ("physical", "rollout")):
+            res = model.forward(graph, feats, mode=mode)
+            for key in DIAG_HEADS:
+                if key not in res:
+                    continue
+                live = (graph.cell_mask if key.startswith("cell")
+                        else graph.face_mask) > 0
+                v = res[key].float()[live]
+                heads = ({"face_velocity_x": v[:, 0], "face_velocity_y":
+                          v[:, 1]} if key == "face_velocity" else {key: v})
+                for name, h in heads.items():
+                    out[f"{name}/{space}"] = h
+    return out
+
+
+def head_gaps(got: dict, want: dict) -> dict:
+    """Per head, the norm of the difference over the norm of ``want``'s
+    deviation from its mean."""
+    return {k: float((got[k] - want[k]).norm()
+                     / (want[k] - want[k].mean()).norm()) for k in want}
+
+
+def gen_diagnose(dev, trajs, window, device_line: str) -> dict:
+    """Phase 12c: ``diagnose.main`` on 12b's checkpoint on the kernel
+    route and on the plain route, mesh 3's first sample on the index route
+    (the config's data module stood in for by that dataset: the card's
+    machine has no h5py): the launches of each, the reports within
+    DIAG_TOL, and the models diagnose restored held head by head within
+    DIAG_OUT_TOL; the planted faults (K1's, K2's or K3's output zeroed)
+    must break it for every head under one of them, and each must stand
+    DIAG_FAULT_RATIO times above the route's largest gap."""
+    ds = MeshDataset(trajs[3:], stride=window[0], data_window=window[1],
+                     device=dev)
+    reports, launches, secs, probed = {}, {}, {}, {}
+    report_of = diagnose.head_report
+    for route, agg in (("kernel", "pallas"), ("plain", "segment")):
+        ckpt = _route_checkpoint(agg)
+
+        def probe(model, graph, feats, route=route):
+            probed[route] = (model, graph, feats)
+            return report_of(model, graph, feats)
+
+        zero_launches()
+        t0 = time.perf_counter()
+        with mock.patch.object(train_cli, "build_datasets",
+                               lambda *a, **k: (None, ds)), \
+                mock.patch.object(diagnose, "head_report", probe):
+            report, out = _quiet(diagnose.main, [
+                "--config", RECIPE_CONFIG, "--ckpt", ckpt, "--json",
+                "--device", dev.type])
+        secs[route] = time.perf_counter() - t0
+        launches[route] = launch_counts()
+        if json.loads(out) != json.loads(json.dumps(report)):
+            fail(f"12c: diagnose's JSON is not its report ({route} route)")
+        reports[route] = report
+    want = {"kernel": {k: PATHS["FluxD"][1].get(k, 0) * 2 for k in KERNELS},
+            "plain": {k: 0 for k in KERNELS}}
+    if launches != want:
+        fail(f"12c: launches by route {launches}, expected {want} (two "
+             "forwards, valid and rollout mode)")
+    k, p = reports["kernel"], reports["plain"]
+    if k.keys() != p.keys() or k["_scalar_params"] != p["_scalar_params"]:
+        fail(f"12c: the reports' heads or scalars differ: {sorted(k)} "
+             f"{sorted(p)}")
+    gaps = {}
+    for head in k:
+        if head == "_scalar_params":
+            continue
+        for space in ("normalized", "physical"):
+            a, b = k[head][space], p[head][space]
+            rel = (0.0 if a["rel"] is None and b["rel"] is None else
+                   abs(a["rel"] - b["rel"]) / max(1.0, abs(b["rel"])))
+            gaps[f"{head}/{space}"] = (abs(a["corr"] - b["corr"]), rel)
+    worst = {n: g for n, g in gaps.items() if max(g) > DIAG_TOL}
+    if worst:
+        fail(f"12c: heads whose corr or rel differ beyond {DIAG_TOL} "
+             f"between the routes: {worst}")
+    # the heads themselves, on the models and sample diagnose probed
+    plain_out = head_outputs(*probed["plain"])
+    out_gaps = head_gaps(head_outputs(*probed["kernel"]), plain_out)
+    if plain_out.keys() != {f"{h}/{s}" for h in k if h != "_scalar_params"
+                            for s in ("normalized", "physical")}:
+        fail(f"12c: head outputs {sorted(plain_out)}, report {sorted(k)}")
+    planted = {}
+    for name in DIAG_FAULTS:
+        wrapper = getattr(kernels, name)
+
+        def zeroed(*a, wrapper=wrapper, **kw):
+            out = wrapper(*a, **kw)
+            return (tuple(map(torch.zeros_like, out))
+                    if isinstance(out, tuple) else torch.zeros_like(out))
+        zeroed.launches = 0   # each wrapper counts on its module's name
+        with mock.patch.object(kernels, name, zeroed):
+            planted[name] = head_gaps(head_outputs(*probed["kernel"]),
+                                      plain_out)
+    say("phase 12c head outputs, |difference| over |the plain head's "
+        "deviation from its mean|, kernel route: " + json.dumps(out_gaps)
+        + "; the kernel route with one wrapper's output zeroed (planted "
+        "faults): " + json.dumps(planted))
+    worst = {n: g for n, g in out_gaps.items() if g > DIAG_OUT_TOL}
+    if worst:
+        fail(f"12c: head outputs that differ beyond {DIAG_OUT_TOL} between "
+             f"the routes: {worst}")
+    floor = DIAG_FAULT_RATIO * max(out_gaps.values())
+    quiet = [f for f, g in planted.items() if max(g.values()) <= floor]
+    blind = [n for n in out_gaps
+             if max(g[n] for g in planted.values()) <= DIAG_OUT_TOL]
+    if quiet or blind:
+        fail(f"12c: the planted faults {quiet} move no head beyond "
+             f"{DIAG_FAULT_RATIO} times the route's largest gap ({floor}), "
+             f"or no planted fault moves the heads {blind} beyond "
+             f"{DIAG_OUT_TOL}")
+    say(f"phase 12c FluxD-gen diagnose.main --json on 12b's checkpoint, "
+        f"mesh 3's first sample ({ds.get_item(0).num_cells} cells, index "
+        f"route): the kernel route (aggregation pallas: launches "
+        f"{json.dumps({n: v for n, v in launches['kernel'].items() if v})}, "
+        f"{secs['kernel']:.2f} s) against the plain route (segment: none, "
+        f"{secs['plain']:.2f} s), every head within {DIAG_TOL} (largest corr "
+        f"gap {max(g[0] for g in gaps.values()):.2e}, rel gap "
+        f"{max(g[1] for g in gaps.values()):.2e}); every head's output "
+        f"within {DIAG_OUT_TOL} (largest {max(out_gaps.values()):.3e}), "
+        f"every head beyond it under a planted fault, each fault's most "
+        f"moved head {min(max(g.values()) for g in planted.values()):.3f} "
+        f"or more; kernel route "
+        + json.dumps({h: {s: {"corr": round(r["corr"], 4),
+                              "rel": None if r["rel"] is None
+                              else round(r["rel"], 4)}
+                          for s, r in v.items()}
+                      for h, v in k.items() if h != "_scalar_params"})
+        + " scalars " + json.dumps({n: round(v, 6) for n, v in
+                                    k["_scalar_params"].items()})
+        + f"; card {device_line}")
+    return {"launches": launches["kernel"], "rollout_steps": 2,
+            "seconds": secs, "gaps": gaps, "output_gaps": out_gaps,
+            "planted_gaps": planted}
+
+
+def gen_sweep(dev, device_line: str) -> dict:
+    """Phase 12d: ``sweep.main`` over SWEEP_LRS on a one-mini-epoch
+    synthetic FluxD config (``config/train_synthetic.json`` with FluxD): a
+    dry run, then shard 0 of 2, one job on the card in a subprocess."""
+    work = os.path.join(GEN_DIR, "sweep")
+    os.makedirs(work)
+    with open(os.path.join(ROOT, "config", "train_synthetic.json")) as f:
+        base = json.load(f)
+    base["model"]["name"] = "FluxD"
+    base["training"].update(epochs=1, mini_epoch_size=20 * 2)
+    base["logging"].update(name="fluxd-sweep", valid_frequency=1,
+                           save_frequency=1)
+    base["dataset"]["stats_fpath"] = None
+    with open(os.path.join(work, "base.json"), "w") as f:
+        json.dump(base, f, indent=2)
+    with open(os.path.join(work, "sweep.json"), "w") as f:
+        json.dump({"base_config": "base.json", "mode": "grid",
+                   "parameters": {"training.lr_max": list(SWEEP_LRS)}}, f)
+    device = dev.type
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        _, dry = _quiet(sweep.main, ["--config", "sweep.json", "--dry-run",
+                                     "--device", device])
+        lines = dry.splitlines()
+        if (lines[0] != "Sweep: 2 combinations, shard 0/1 runs 2"
+                or [l.split("]")[0] for l in lines[1:]]
+                != ["[sweep 0", "[sweep 1"]):
+            fail(f"12d: the dry run printed {lines}")
+        t0 = time.perf_counter()
+        try:
+            sweep.main(["--config", "sweep.json", "--shard-index", "0",
+                        "--num-shards", "2", "--device", device])
+        except SystemExit as exc:
+            fail(f"12d: the sweep's job failed, exit code {exc.code}")
+        job_s = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    runs = glob.glob(os.path.join(work, "runs", "synthetic", "default",
+                                  "fluxd-sweep-0(*)", "metrics.jsonl"))
+    other = glob.glob(os.path.join(work, "runs", "*", "*", "fluxd-sweep-1(*)"))
+    if len(runs) != 1 or other:
+        fail(f"12d: run directories {runs}, {other}")
+    with open(runs[0]) as f:
+        rows = [json.loads(line) for line in f]
+    losses = [r["train/total_log_loss"] for r in rows
+              if "train/total_log_loss" in r]
+    if not losses or not np.isfinite(losses).all():
+        fail(f"12d: the job logged the losses {losses}")
+    say(f"phase 12d FluxD-gen sweep.main: dry run {lines}; shard 0 of 2 ran "
+        f"training.lr_max {SWEEP_LRS[0]} as `training.train --device "
+        f"{device}` in {job_s:.2f} s (process start included), exit code 0, "
+        f"{os.path.relpath(runs[0], ROOT)} with {len(rows)} lines, train "
+        f"losses {[round(v, 4) for v in losses]}; card {device_line}")
+    return {"job_s": job_s, "losses": losses}
+
+
+def gen_phase(dev, line: str) -> dict:
+    """Phase 12: 12a-12d on the card ``dev``. Returns the path's record."""
+    if not torch.cuda.is_available():
+        fail("phase 12 runs on the card: no CUDA device")
+    t12 = time.perf_counter()
+    trajs, data = gen_data(line)
+    t12b = time.perf_counter()
+    record, window = gen_training(dev, trajs, line)
+    t12c = time.perf_counter()
+    diag = gen_diagnose(dev, trajs, window, line)
+    t12d = time.perf_counter()
+    record["sweep"] = gen_sweep(dev, line)
+    record["launches"] = {k: v + diag["launches"][k]
+                          for k, v in record["launches"].items()}
+    record["rollout_steps"] += diag["rollout_steps"]
+    record.update(data=data, diagnose=diag)
+    end = time.perf_counter()
+    say(f"phase 12 card {line}; FluxD-gen: 12a (host) {t12b - t12:.1f} s, 12b "
+        f"{t12c - t12b:.1f} s ({record['ms_per_step']:.3f} ms per train step, "
+        f"device share of the traced mini-epoch "
+        f"{100 * record['trace']['device_share']:.1f} %), 12c "
+        f"{t12d - t12c:.1f} s, 12d {end - t12d:.1f} s; phase 12 wall time "
+        f"{end - t12:.1f} s")
+    return record
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3515,6 +4098,7 @@ def main() -> int:
     paths.update(conservative_phase(dev, ds, train_ds, line))
     paths["FluxD-r5-train"] = fused_phase(train_ds, ds, line)
     paths["FluxD-r5-dp"] = dp_phase(line)
+    paths["FluxD-gen"] = gen_phase(dev, line)
 
     bnd = bounds(graph)
     rows = []

@@ -20,10 +20,14 @@ __version__ = "0.1.0"
 
 
 def resolve_device(device="cuda") -> torch.device:
-    """``device`` as a :class:`torch.device`; raises when a CUDA device is
-    asked for and no card is present (there is no CPU fallback)."""
+    """``device`` as a :class:`torch.device`, a card by its index (``"cuda"``
+    is the current card, ``cuda:<i>``, the device its tensors report);
+    raises when a CUDA device is asked for and no card is present (there is
+    no CPU fallback)."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run on the CPU")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev

@@ -16,8 +16,9 @@ read: ``es``/``er`` (edge -> vertex, send/receive), ``vc`` (vertex -> cell)
 and ``cf`` (cell -> face, owner/neighbour). The half-edge table ``hv`` and the
 face -> (cell, slot) selector ``fc3`` feed only the JAX package's XLA banded
 backend, whose place the port's f32 index gathers take; so do ``_bands``,
-``_bands_dynamic`` and ``banded_matmul``. The table fill is the ``np.add.at``
-path (the JAX package's optional native fill gives identical tables).
+``_bands_dynamic`` and ``banded_matmul``. The table fill runs through the
+C++ builder (:mod:`gnn_fluid_dynamics_tpu_torch.native`) where its library
+builds, else through ``np.add.at``: the same tables.
 """
 
 from __future__ import annotations
@@ -71,8 +72,10 @@ def _build_table(tgt: np.ndarray, src: np.ndarray, w: np.ndarray,
 
 
 def _onehot_fill(tgt, src, w, Tn, tile, B, offsets, tiles):
-    """Dense (Tn, tile, B) scatter-add of the weights. An entry outside its
-    tile's band is an error: a dropped entry would lose a mesh edge."""
+    """Dense (Tn, tile, B) scatter-add of the weights: the native fill
+    (``native.banded_fill``) where the library builds, else ``np.add.at``,
+    the same table. An entry outside its tile's band is an error on both
+    paths: a dropped entry would lose a mesh edge."""
     if len(tgt):
         col = np.asarray(src) - np.asarray(offsets)[tiles]
         bad = (col < 0) | (col >= B)
@@ -82,6 +85,11 @@ def _onehot_fill(tgt, src, w, Tn, tile, B, offsets, tiles):
                 f"{int(bad.sum())} banded entries outside band width {B} "
                 f"(first: target {int(tgt[k])}, source {int(src[k])}, "
                 f"band start {int(offsets[tiles[k]])})")
+    from gnn_fluid_dynamics_tpu_torch import native
+    out = native.banded_fill(tgt, src, w, Tn * tile, tile, B,
+                             np.asarray(offsets).astype(np.int32))
+    if out is not None:
+        return out
     onehot = np.zeros((Tn, tile, B), np.float32)
     np.add.at(onehot.reshape(-1), tgt * B + (src - offsets[tiles]), w)
     return onehot

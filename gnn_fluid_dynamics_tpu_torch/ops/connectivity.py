@@ -204,8 +204,20 @@ def classify_edges(vertex_edge_index, vertex_types, class_types) -> np.ndarray:
     return edge_types
 
 
-def compute_connectivity_full(cells: np.ndarray, vertex_pos: np.ndarray):
-    """Connectivity + derived sign/slot tables in one pass (numpy)."""
+def compute_connectivity_full(cells: np.ndarray, vertex_pos: np.ndarray,
+                              use_native: bool = True):
+    """Connectivity + derived sign/slot tables in one pass: through the C++
+    builder (:mod:`gnn_fluid_dynamics_tpu_torch.native`) where its library
+    builds, the same tables, else the numpy path. A mesh the builder
+    rejects goes to the numpy path, which gives its own answer."""
+    if use_native:
+        from gnn_fluid_dynamics_tpu_torch import native
+        try:
+            result = native.compute_connectivity(cells, vertex_pos)
+        except ValueError:
+            result = None
+        if result is not None:
+            return result
     face_index, cell_edge_index, vertex_edge_index = compute_connectivity(
         cells, vertex_pos)
     sign = compute_cell_face_sign(face_index, cell_edge_index)
@@ -214,8 +226,8 @@ def compute_connectivity_full(cells: np.ndarray, vertex_pos: np.ndarray):
 
 
 def build_geometry(vertex_pos: np.ndarray, cells: np.ndarray,
-                   vertex_types: np.ndarray, class_types
-                   ) -> Dict[str, np.ndarray]:
+                   vertex_types: np.ndarray, class_types,
+                   use_native: bool = True) -> Dict[str, np.ndarray]:
     """Full geometry pipeline — the analogue of reference
     ``DataSet.write_geometry`` (``src/datasets/DataSet.py:276-312``), plus the
     precomputed static sign/slot tables that make the flux ops pure gathers.
@@ -223,7 +235,8 @@ def build_geometry(vertex_pos: np.ndarray, cells: np.ndarray,
     vertex_pos = np.asarray(vertex_pos, dtype=np.float64)
     cells = np.asarray(cells, dtype=np.int64)
     (face_index, cell_edge_index, vertex_edge_index, cell_face_sign,
-     owner_local_slot) = compute_connectivity_full(cells, vertex_pos)
+     owner_local_slot) = compute_connectivity_full(cells, vertex_pos,
+                                                   use_native=use_native)
 
     vertex_edge_vector = (vertex_pos[vertex_edge_index[1]]
                           - vertex_pos[vertex_edge_index[0]])

@@ -1,6 +1,7 @@
 """Mesh-geometry ops (counterpart of ``ops/geometry.py``): the cell->face
-interpolation on tensors, and the host-side k-nearest-neighbour search of
-the MLS stencils in numpy."""
+interpolation and the face->centroid mean on tensors; the vertex->centroid
+interpolation of the converters and the k-nearest-neighbour search of the
+MLS stencils on the host, in numpy."""
 
 from __future__ import annotations
 
@@ -22,6 +23,29 @@ def cell_to_face(cell_values: torch.Tensor, cell_edge_index: torch.Tensor,
     total = w0 + w1
     w0, w1 = w0 / total, w1 / total
     return w0[:, None] * cell_values[c0] + w1[:, None] * cell_values[c1]
+
+
+def face_to_centroid(face_values: torch.Tensor,
+                     face_index: torch.Tensor) -> torch.Tensor:
+    """Mean of a cell's 3 face values (reference ``geometry.py:493-498``).
+    face_values: (F, 1), face_index: (3, C) -> (C, 1)."""
+    fv = face_values.reshape(-1)
+    return torch.mean(fv[face_index.T], dim=1, keepdim=True)
+
+
+def interpolate_centroid(values: np.ndarray, cells: np.ndarray,
+                         vertex_pos: np.ndarray,
+                         cell_centroids: np.ndarray) -> np.ndarray:
+    """Vertex->centroid interpolation (numpy, the converters' path;
+    reference ``geometry.py:10-51``). The weights are *proportional* to the
+    squared distance, the reference's quirk, kept for parity."""
+    cell_vertex_pos = vertex_pos[cells].astype(np.float64)
+    centroids = cell_centroids[:, None, :].astype(np.float64)
+    d2 = np.sum((cell_vertex_pos - centroids) ** 2, axis=2)
+    total = np.sum(d2, axis=1, keepdims=True) + 1e-15
+    w = d2 / total
+    vals = values[cells].astype(np.float64)
+    return np.sum(w[:, :, None] * vals, axis=1)
 
 
 # rows of the distance matrix knn holds at a time

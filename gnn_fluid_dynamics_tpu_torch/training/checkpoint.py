@@ -70,8 +70,24 @@ class Checkpointer:
         stats = getattr(trainer.model, "stats", None)
         if stats is not None:
             meta["stats"] = _floats(stats)
-        self._write(os.path.join(self.directory, tag), state, meta)
+        # the logger's wandb run, which a resume continues
+        wandb = getattr(getattr(trainer, "logger", None), "wandb", None)
+        if wandb is not None:
+            meta["wandb_id"] = wandb.id
+        path = os.path.join(self.directory, tag)
+        self._write(path, state, meta)
         self._point(os.path.join(self.directory, "latest"), tag)
+        if wandb is not None:
+            # wandb artifact upload (reference logging.py:311-318)
+            try:
+                import wandb as _wandb
+                art = _wandb.Artifact(
+                    f"model-{os.path.basename(self.directory)}", type="model",
+                    metadata={"mini_epoch": trainer.mini_epoch_count})
+                art.add_dir(path)
+                wandb.log_artifact(art)
+            except Exception as e:
+                print(f"wandb artifact upload failed ({e})")
         err = (valid_losses or {}).get("total_mean_error")
         if err is not None and err < self.best_error:
             self.best_error = float(err)

@@ -281,11 +281,12 @@ def _main(args, device):
         config.logging.name or config.model.name)
     checkpointer = Checkpointer(ckpt_dir)
 
-    resume_meta = None
+    resume_meta, resume_wandb_id = None, None
     if args.resume:
         _, resume_meta = checkpointer.load(args.resume)
         if resume_meta is not None:
             config = merge_checkpoint_config(config, resume_meta["config"])
+            resume_wandb_id = resume_meta.get("wandb_id")
             print(f"Resuming from {args.resume} "
                   f"(mini_epoch {resume_meta['mini_epoch']})")
 
@@ -317,7 +318,8 @@ def _main(args, device):
 
     # the grad/param monitor exactly where the JAX package builds one: a
     # logger exists and logging.use_monitor is set
-    logger = None if (config.logging.is_debug or not lead) else Logger(config)
+    logger = (None if (config.logging.is_debug or not lead)
+              else Logger(config, resume_wandb_id=resume_wandb_id))
     monitor = (ModelMonitor()
                if logger is not None and config.logging.use_monitor else None)
 
