@@ -4,15 +4,16 @@ the trainer's validation rollout of FluxD, FluxD's training, the rollout
 entry point, the MGN family, the rest of the FVGN family (temporal
 bundling included), the StreamFunc family, the rest of the Flux family, the
 VertPot family and the Conservative family at their shipped width through
-them, FluxD's recipe of fused train calls, data-parallel, and on data made
+them, FluxD's recipe of fused train calls, data-parallel, on data made
 by the port's own generator, with its profiling, diagnosis and sweep tools,
-and report each kernel's time beside its bound.
+and space-sharded over ranks that share the card, and report each kernel's
+time beside its bound.
 
     python3 chip_smoke.py
 
-(``python3 chip_smoke.py --phase10b``, ``--phase11a`` and ``--phase11b <rank>
-<dir>`` are the processes of phases 10b, 11a and 11b, which the script
-starts.)
+(``python3 chip_smoke.py --phase10b``, ``--phase11a``, ``--phase11b <rank>
+<dir>``, ``--phase13 <rank> <dir>`` and ``--phase13c <rank> <dir>`` are the
+processes of phases 10b, 11a, 11b, 13 and 13c, which the script starts.)
 
 Phases (each prints one flushed line; any failure exits non-zero):
 
@@ -249,9 +250,32 @@ Phases (each prints one flushed line; any failure exits non-zero):
       subprocess (``training.train --device cuda``), exit code 0, its run
       ``<name>-0`` with a ``metrics.jsonl``;
 
+13. space sharding (``parallel/spmd.py``: the partition, the hand-written
+    halo exchange, the sharded rollout and train step) on gloo ranks that
+    share the one card (NCCL refuses two ranks on one card, so the
+    exchange is staged through the host; NCCL across cards is not
+    exercised), each rank a process of its own:
+
+    * 13a SPMD_RANKS processes (``--phase13``), a 1 x 2 layout: FluxD at
+      h128, 15 fused blocks, bf16 on the bench mesh cut in two, CHECK_STEPS
+      steps of ``make_spmd_rollout`` gathered and held against the single
+      process's kernel route (bit for bit free-running, or else each step
+      on the same inputs within STEP_TOL of each field's largest
+      magnitude, as phase 3 holds two routes); then STEPS timed steps per rank with the launch counters and
+      the halo's counters set to 0 just before and read just after (ms per
+      step, exchanges and bytes per step, K1-K3 15 each a step, the other
+      kernels none) and one step profiled;
+    * 13b the same ranks and checks for FvgnF (K3, K5, K4);
+    * 13c four processes (``--phase13c``), a 2 x 2 layout: one f32
+      warm-up step of the fluxd-r5 recipe through ``make_spmd_train_step``,
+      data row d on mesh d of one global batch, against ``dp_train_step``
+      on 13a's two ranks (the mean losses within DP_F32_LOSS_RTOL, AdamW's
+      moments within DP_F32_MOMENT_RTOL, the parameters' gap reported), no
+      kernel launched; then ms per step;
+
 then the ``kernels`` line: per kernel its time per launch, launches, bound,
 plain time and library time (K3 and K5 also the pair's time and the launch
-floor).
+floor); ``launches_per_step`` of a sharded path counts per rank and step.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a card the script
 exits non-zero and prints no result.
@@ -320,7 +344,7 @@ from gnn_fluid_dynamics_tpu_torch.training.logging import Logger
 from gnn_fluid_dynamics_tpu_torch.training.monitoring import ModelMonitor
 from gnn_fluid_dynamics_tpu_torch.training import diagnose, profiling, sweep
 from gnn_fluid_dynamics_tpu_torch.training.lr_schedule import get_schedule
-from gnn_fluid_dynamics_tpu_torch.parallel import data_parallel
+from gnn_fluid_dynamics_tpu_torch.parallel import data_parallel, spmd
 from gnn_fluid_dynamics_tpu_torch.training.trainer import (Trainer, gradients,
                                                            optimizer_step)
 from gnn_fluid_dynamics_tpu_torch.training.validate import (validate,
@@ -473,6 +497,11 @@ DP_LOSS_WINDOW = 5         # 11b: epoch 1's first and last steps averaged
 # a first AdamW step moves each by about lr whatever its gradient.
 DP_F32_LOSS_RTOL = 1e-5
 DP_F32_MOMENT_RTOL = 1e-4
+# phase 13: space sharding (parallel/spmd.py) on gloo ranks sharing the card
+SPMD_RANKS = 2             # 13a/13b: a 1 x 2 layout
+SPMD_LAYOUT = (2, 2)       # 13c: data x space
+SPMD_TIMED_STEPS = 3       # 13c: steps timed after the compared one
+SPMD_PATHS = ("FluxD", "FvgnF")   # 13a, 13b
 # phase 12: the port's generation chain (scripts/datagen_r5.sh's: the inflow
 # regime, dt 0.01, seed 0, the built-in solver) feeding the fluxd-r5 recipe
 GEN_DIR = os.path.join(SMOKE_DIR, "gen")
@@ -3998,6 +4027,379 @@ def gen_phase(dev, line: str) -> dict:
     return record
 
 
+# ---- phase 13: space sharding --------------------------------------------------
+
+def spmd_group(dev, rank: int, world: int, workdir: str, name: str) -> None:
+    """A gloo group of ``world`` ranks on CUDA tensors of the one card (NCCL
+    refuses two ranks on one card), its rendezvous the file ``name`` in
+    ``workdir``."""
+    data_parallel.init_process_group(
+        dev, init_method=f"file://{workdir}/{name}", backend="gloo",
+        rank=rank, world_size=world)
+
+
+def _child_device():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels.build_kernels()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    return dev
+
+
+def spmd_child(rank: int, workdir: str) -> int:
+    """Phase 13's rank ``rank`` of SPMD_RANKS, run as ``python3
+    chip_smoke.py --phase13 <rank> <workdir>``: 13a and 13b
+    (``spmd_rollout_path``), then 13c's reference, the 2-rank DP step
+    (``spmd_dp_reference``). Prints one JSON line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    dev = _child_device()
+    spmd_group(dev, rank, SPMD_RANKS, workdir, "store13")
+    try:
+        result = spmd_rollout_run(dev, rank, workdir)
+    finally:
+        torch.distributed.destroy_process_group()
+    say("phase 13 result: " + json.dumps(result))
+    return 0
+
+
+def spmd_rollout_run(dev, rank: int, workdir: str) -> dict:
+    """Phase 13's rank ``rank`` inside its group: 13a and 13b, then 13c's
+    reference."""
+    mesh = spmd.make_mesh_spatial(SPMD_RANKS)
+    graph, _ = bench_mesh(dev)
+    result = {path: spmd_rollout_path(path, graph, mesh, rank)
+              for path in SPMD_PATHS}
+    result["dp_reference"] = spmd_dp_reference(dev, rank, workdir)
+    return result
+
+
+def spmd_rollout_path(path: str, graph, mesh, rank: int) -> dict:
+    """13a/13b on each rank: ``path``'s model on the kernel route (h128,
+    MP_NUM blocks, bf16, seeded weights, statistics from the whole mesh),
+    CHECK_STEPS steps of ``make_spmd_rollout`` on this rank's part of
+    ``graph``, gathered and held on rank 0 against the single process's
+    kernel route on the whole graph (run there first): each field's
+    largest gap, and whether it is bit for bit. Then the same steps on the
+    same inputs (``spmd_steps_on_same_inputs``), which hold where the
+    free-running fields are not bit for bit. Then STEPS timed steps with
+    the launch counters and the halo's counters set to 0 just before and
+    read just after (host clock, synchronized, both ranks at once on the
+    card), and a profile of one step."""
+    kern, _, feats = path_models(path, graph)
+    cfg = RolloutConfig(num_steps=CHECK_STEPS, compute_error=False,
+                        save_fields=True)
+    want = (rollout_scan(kern, graph, feats, config=cfg)[1] if rank == 0
+            else None)
+    t0 = time.perf_counter()
+    local = spmd.shard_graph_spatial(graph, mesh)
+    part_s = time.perf_counter() - t0
+    _, lfeats = kern.transform_rollout(local)
+    _, got = spmd.make_spmd_rollout(kern, cfg)(local, lfeats)
+    full = spmd.gather_fields(got, local, mesh)
+    h = local.halo
+    out = {"rank": rank, "owned_cells": int(local.cell_mask.sum()),
+           "local_rows": [local.num_cells, local.num_faces,
+                          local.num_vertices],
+           "ghosts": {k: int(v.numel()) for k, v in h.recv_rows.items()},
+           "partition_s": part_s}
+    if rank == 0:
+        out["vs_single"] = {key: {"max_abs": float((full[key].to(v.device)
+                                                    - v).abs().max()),
+                                  "bit_equal": bool(torch.equal(
+                                      full[key].to(v.device), v))}
+                            for key, v in want.items()}
+    out["same_inputs"] = spmd_steps_on_same_inputs(kern, graph, feats, local,
+                                                   mesh, rank)
+    timed = spmd.make_spmd_rollout(kern, RolloutConfig(
+        num_steps=STEPS, compute_error=False))
+    data_parallel.barrier()
+    zero_launches()
+    h.exchanges = h.bytes_sent = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, fields = timed(local, lfeats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out.update(launches=launch_counts(), exchanges=h.exchanges,
+               bytes_sent=h.bytes_sent, ms_per_step=1e3 * wall / STEPS,
+               finite=bool(torch.isfinite(fields["final_cell_state"]).all()))
+    one = spmd.make_spmd_rollout(kern, RolloutConfig(num_steps=1,
+                                                     compute_error=False))
+    data_parallel.barrier()
+    prof = profile_steps(lambda: one(local, lfeats), 1)
+    out["profile"] = None if prof is None else {
+        k: prof[k] for k in ("device_ms_per_step", "wall_ms_per_step",
+                             "busy_share", "kernels_per_step",
+                             "gfd_ms_per_step")}
+    return out
+
+
+def spmd_steps_on_same_inputs(kern, graph, feats, local, mesh,
+                              rank: int) -> dict:
+    """CHECK_STEPS steps of ``kern``, each from the single process's state
+    on both sides (rank 0's, broadcast), as ``check_against_plain`` holds
+    two routes (free-running, a random model amplifies any difference
+    step over step): the single process's step on ``graph`` against one
+    sharded step on ``local``, gathered. On rank 0, per field, the largest
+    gap over the field's largest magnitude (gated by STEP_TOL), and whether
+    every element lies within one bf16 step; and whether cuBLAS gives the
+    first rows of the block's cell MLP alike at the global and the local
+    row count (the unfused blocks' MLPs run there)."""
+    one = spmd.make_spmd_rollout(kern, RolloutConfig(
+        num_steps=1, compute_error=False, save_fields=True))
+    worst = {}
+    for _ in range(CHECK_STEPS):
+        with torch.inference_mode():
+            sol = derive_states(kern, kern.forward(graph, feats), feats,
+                                graph)[-1]
+        lfeats = {k: spmd.local_rows(v, local, "face" if k.startswith("face")
+                                     else "cell") for k, v in feats.items()}
+        full = spmd.gather_fields(one(local, lfeats)[1], local, mesh)
+        if rank == 0:
+            for key in SAVABLE_FIELDS:
+                if key not in sol:
+                    continue
+                a, b = full[key][0].to(sol[key].device).float(), sol[key].float()
+                rel = float((a - b).abs().max() / b.abs().max())
+                w = worst.setdefault(key, {"rel": 0.0, "within_bf16_step": True})
+                w["rel"] = max(w["rel"], rel)
+                w["within_bf16_step"] &= bool(((a - b).abs()
+                                               <= bf16_step(b)).all())
+        with torch.inference_mode():
+            feats = kern.update_features(sol, feats, graph)
+            for v in feats.values():
+                if v.is_floating_point():
+                    torch.distributed.broadcast(v, 0)
+    out = {"fields": worst}
+    if rank == 0:
+        mlp = kern.module.epd.blocks[0].cell_block.mlp
+        x = torch.randn((graph.num_cells, mlp.dense0.in_features),
+                        generator=torch.Generator(device=graph.device)
+                        .manual_seed(0), device=graph.device)
+        n = local.num_cells
+        with torch.inference_mode():
+            out["mlp_rows_alike"] = bool(torch.equal(mlp(x)[:n], mlp(x[:n])))
+    return out
+
+
+def spmd_train_setup(dev):
+    """13c's trainer: the recipe (``dp_config``) in f32 without noise or
+    flip, in its warm-up epoch (no unroll, so no kernel), on phase 5's
+    meshes cut to DP_STATES states, statistics from them."""
+    cfg = dp_config()
+    cfg.model.compute_dtype = "float32"
+    ds = fused_dataset(train_data(dev, steps=DP_STATES - 1), cfg)
+    model = train_cli.build_model(cfg, dev)
+    model.set_stats(train_cli.compute_stats(cfg, model, ds))
+    tf = model.transform_features
+    model.transform_features = (
+        lambda g, generator=None, mode="rollout", noise_std=0.0: tf(
+            g, None, mode, noise_std))
+    trainer = Trainer(cfg, model)
+    trainer.epoch_count = FUSED_WARMUP_EPOCHS
+    return cfg, ds, trainer
+
+
+def _halves(cfg, ds, n: int) -> list:
+    """The first ``n`` samples of the recipe's first batch, one per data
+    row: a row's single mesh is then cut across its space ranks (two whole
+    meshes of a row would fall one to each space rank, with no halo)."""
+    batch = next(iter(get_sampler(cfg.dataset.sampler)(
+        ds, cfg.training.batch_size, np.random.default_rng(0))))
+    return [[sample] for sample in batch[:n]]
+
+
+def _step_record(state, losses) -> dict:
+    return {"losses": {k: float(v) for k, v in losses.items()},
+            "moments": [m.cpu() for m in _moments(state)],
+            "params": [p.detach().cpu().clone() for grp in
+                       state.optimizer.param_groups for p in grp["params"]]}
+
+
+def spmd_dp_reference(dev, rank: int, workdir: str) -> dict:
+    """13c's reference on the SPMD_RANKS ranks: one ``dp_train_step``, rank
+    r on sample r of the first global batch (``_halves``: rank 0's draw,
+    broadcast, and written to ``workdir`` for 13c's ranks); rank 0 writes
+    the losses, moments and parameters after it."""
+    cfg, ds, trainer = spmd_train_setup(dev)
+    state = trainer.init_state()
+    data_parallel.replicate_(state.module)
+    halves = data_parallel.broadcast_object(_halves(cfg, ds, SPMD_RANKS))
+    losses = trainer.dp_train_step(state, ds.get_batch(halves[rank]),
+                                   cfg.training.lr_max)
+    if rank == 0:
+        with open(os.path.join(workdir, "halves.json"), "w") as f:
+            json.dump(halves, f)
+        torch.save(_step_record(state, losses),
+                   os.path.join(workdir, "dp_reference.pt"))
+    return {"rank": rank, "graphs": len(halves[rank])}
+
+
+def spmd_train_child(rank: int, workdir: str) -> int:
+    """Phase 13c's rank ``rank`` of a 2 x 2 layout, run as ``python3
+    chip_smoke.py --phase13c <rank> <workdir>`` after ``spmd_child``'s
+    ranks: one ``make_spmd_train_step`` step, data row d on sample d of
+    13's global batch, held on rank 0 against the 2-rank DP step (the mean
+    losses within DP_F32_LOSS_RTOL, AdamW's moments within
+    DP_F32_MOMENT_RTOL of each tensor's largest magnitude; the parameters'
+    gap is reported, not held: a first AdamW step moves each by about lr
+    whatever the gradient), no kernel launched; then SPMD_TIMED_STEPS steps
+    timed (host clock, synchronized). Prints one JSON line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    dev = _child_device()
+    spmd_group(dev, rank, SPMD_LAYOUT[0] * SPMD_LAYOUT[1], workdir,
+               "store13c")
+    try:
+        result = spmd_train_run(dev, rank, workdir)
+    finally:
+        torch.distributed.destroy_process_group()
+    say("phase 13c result: " + json.dumps(result))
+    return 0
+
+
+def spmd_train_run(dev, rank: int, workdir: str) -> dict:
+    """Phase 13c's rank ``rank`` inside its group (see
+    ``spmd_train_child``)."""
+    mesh = spmd.make_mesh_2d(*SPMD_LAYOUT)
+    cfg, ds, trainer = spmd_train_setup(dev)
+    state = spmd.init_state(trainer, mesh)
+    with open(os.path.join(workdir, "halves.json")) as f:
+        halves = [[tuple(s) for s in h] for h in json.load(f)]
+    local = spmd.shard_spatial_batch([ds.get_batch(h) for h in halves],
+                                     mesh)
+    step = spmd.make_spmd_train_step(trainer, mesh)
+    lr = cfg.training.lr_max
+    zero_launches()
+    losses = step(state, local, lr)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    result = {"rank": rank, "launches": launches,
+              "owned_cells": int(local.cell_mask.sum()),
+              "local_rows": [local.num_cells, local.num_faces,
+                             local.num_vertices]}
+    if rank == 0:
+        want = torch.load(os.path.join(workdir, "dp_reference.pt"))
+        got = _step_record(state, losses)
+        loss_rel = max(abs(got["losses"][k] - v) / abs(v)
+                       for k, v in want["losses"].items())
+        moment_gap = _moment_gap(got["moments"], want["moments"])
+        param_abs = max(float((a - b).abs().max())
+                        for a, b in zip(got["params"], want["params"]))
+        result.update(loss_max_rel=loss_rel, moment_gap=moment_gap,
+                      param_max_abs=param_abs,
+                      ok=(loss_rel <= DP_F32_LOSS_RTOL
+                          and moment_gap <= DP_F32_MOMENT_RTOL
+                          and not any(launches.values())))
+    ms = []
+    for _ in range(SPMD_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, local, lr)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    result.update(ms_per_step=ms, exchanges=local.halo.exchanges,
+                  bytes_sent=local.halo.bytes_sent)
+    return result
+
+
+def _children(flag: str, n: int, workdir: str, tag: str) -> list:
+    procs = [start_child(flag, str(r), workdir) for r in range(n)]
+    try:
+        return [child_result(p, tag) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def spmd_phase(line: str) -> dict:
+    """Phase 13: SPMD_RANKS rank processes (13a, 13b, 13c's reference),
+    then a 2 x 2 layout's (13c); their checks. Returns the sharded paths'
+    records (launches summed over the ranks, per rank and step)."""
+    t13 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        ranks = _children("--phase13", SPMD_RANKS, work, "phase 13")
+        t_ab = time.perf_counter() - t13
+        train = _children("--phase13c", SPMD_LAYOUT[0] * SPMD_LAYOUT[1],
+                          work, "phase 13c")
+    records = {}
+    for sub, path in zip("ab", SPMD_PATHS):
+        per = [r[path] for r in ranks]
+        gaps = per[0]["vs_single"]
+        same = per[0]["same_inputs"]
+        free_bits = all(g["bit_equal"] for g in gaps.values())
+        if not (free_bits or all(g["rel"] <= STEP_TOL
+                                 for g in same["fields"].values())):
+            fail(f"phase 13{sub} {path}: the sharded fields against the "
+                 f"single process: free-running {gaps}; on the same inputs "
+                 f"{same}")
+        want = {k: PATHS[path][1].get(k, 0) * STEPS for k in KERNELS}
+        for r in per:
+            if r["launches"] != want or not r["finite"]:
+                fail(f"phase 13{sub} {path} rank {r['rank']}: launches "
+                     f"{r['launches']} over {STEPS} steps, expected {want}; "
+                     f"finite {r['finite']}")
+        kind = ("bit for bit" if free_bits else
+                "not bit for bit free-running; on the same inputs each step "
+                f"within {STEP_TOL} of each field's largest magnitude")
+        say(f"phase 13{sub} {path} on {SPMD_RANKS} gloo ranks sharing the "
+            f"card (1 x {SPMD_RANKS}; the exchange staged through the host: "
+            f"not a multi-card figure): {CHECK_STEPS} steps against the "
+            f"single process's kernel route: ok, {kind}; free-running "
+            "largest gaps "
+            + json.dumps({k: g["max_abs"] for k, g in gaps.items()})
+            + "; on the same inputs (largest gap over the field's largest "
+            "magnitude, and whether each element is within one bf16 step) "
+            + json.dumps(same["fields"]) + "; cuBLAS gives the block's cell "
+            "MLP's first rows alike at the local row count: "
+            + str(same["mlp_rows_alike"])
+            + "; per rank: owned cells "
+            + json.dumps([r["owned_cells"] for r in per])
+            + ", local cells/faces/vertices "
+            + json.dumps([r["local_rows"] for r in per])
+            + ", ghost cells/faces " + json.dumps([r["ghosts"] for r in per])
+            + f"; {STEPS} steps: ms per step "
+            + json.dumps([round(r["ms_per_step"], 3) for r in per])
+            + ", halo exchanges per step "
+            + json.dumps([r["exchanges"] / STEPS for r in per])
+            + ", bytes sent per step "
+            + json.dumps([r["bytes_sent"] / STEPS for r in per])
+            + ", launches per step " + json.dumps(
+                {k: v / STEPS for k, v in per[0]["launches"].items() if v})
+            + " (others 0); one step profiled, rank 0: "
+            + json.dumps(per[0]["profile"]) + f"; card {line}")
+        records[f"{path}-spmd"] = {
+            "launches": {k: sum(r["launches"][k] for r in per)
+                         for k in KERNELS},
+            "rollout_steps": STEPS * SPMD_RANKS, "ranks": per}
+    r0 = train[0]
+    if not r0["ok"] or any(any(r["launches"].values()) for r in train):
+        fail(f"phase 13c: the 2 x 2 step against the 2-rank DP step: {r0}; "
+             f"launches {[r['launches'] for r in train]}")
+    say(f"phase 13c FluxD-r5 f32 warm-up step on a {SPMD_LAYOUT[0]} x "
+        f"{SPMD_LAYOUT[1]} layout (4 gloo ranks sharing the card) against "
+        f"dp_train_step on {SPMD_RANKS} ranks, data row d on mesh d of one "
+        "global batch: ok; losses within "
+        f"{r0['loss_max_rel']:.3g} (<= {DP_F32_LOSS_RTOL}), AdamW's moments "
+        f"{r0['moment_gap']:.3g} (<= {DP_F32_MOMENT_RTOL}), parameters "
+        f"{r0['param_max_abs']:.3g}; no kernel launched; per rank owned "
+        f"cells {[r['owned_cells'] for r in train]}; ms per step (rank 0, "
+        f"{SPMD_TIMED_STEPS} steps after it) "
+        + json.dumps([round(m, 3) for m in r0["ms_per_step"]])
+        + f", halo exchanges {r0['exchanges'] / (SPMD_TIMED_STEPS + 1):g} "
+        f"and bytes {r0['bytes_sent'] / (SPMD_TIMED_STEPS + 1):g} a step "
+        f"(forward and backward); 13a/13b's processes {t_ab:.1f} s; phase 13 "
+        f"wall time {time.perf_counter() - t13:.1f} s; card {line}")
+    return records
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -4099,6 +4501,7 @@ def main() -> int:
     paths["FluxD-r5-train"] = fused_phase(train_ds, ds, line)
     paths["FluxD-r5-dp"] = dp_phase(line)
     paths["FluxD-gen"] = gen_phase(dev, line)
+    paths.update(spmd_phase(line))
 
     bnd = bounds(graph)
     rows = []
@@ -4135,4 +4538,8 @@ if __name__ == "__main__":
         sys.exit(dp_nccl_child())
     if sys.argv[1:2] == ["--phase11b"]:
         sys.exit(dp_gloo_child(int(sys.argv[2]), sys.argv[3]))
+    if sys.argv[1:2] == ["--phase13"]:
+        sys.exit(spmd_child(int(sys.argv[2]), sys.argv[3]))
+    if sys.argv[1:2] == ["--phase13c"]:
+        sys.exit(spmd_train_child(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

@@ -117,6 +117,9 @@ class MeshGraph:
     cf_off: torch.Tensor = None          # (Tf,)
     # the GN blocks read the tables (K6/K7) instead of the index vectors
     table_route: bool = False
+    # one space rank's part of a sharded graph (parallel/spmd.py): its
+    # ghost rows' exchange plan (parallel/halo.py); None on a whole graph
+    halo: object = None
 
     @property
     def num_cells(self) -> int:
@@ -411,6 +414,9 @@ def batch_graphs(graphs: Sequence[MeshGraph]) -> MeshGraph:
     """
     if not graphs:
         raise ValueError("no graphs to batch")
+    if any(g.halo is not None for g in graphs):
+        raise ValueError("batch_graphs takes whole graphs: batch them, then "
+                         "shard the batch (parallel/spmd.py)")
     if len(graphs) == 1:
         return graphs[0]
     g0 = graphs[0]

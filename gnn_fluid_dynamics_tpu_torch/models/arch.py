@@ -30,6 +30,19 @@ route (the kernels have no backward), the MLPs apply dropout, the
 integrator's BatchNorm normalizes by the batch's statistics and updates its
 running ones, and with ``ArchConfig.remat`` each GN block application is
 recomputed in the backward pass instead of keeping its activations.
+
+On a space-sharded graph (``MeshGraph.halo``, :mod:`gnn_fluid_dynamics_tpu_torch.
+parallel.spmd`) the modules refresh the ghost rows of a latent
+(:func:`~gnn_fluid_dynamics_tpu_torch.parallel.halo.refresh`) where the
+next step reads it through an index table: the encoder's cell and face
+latents; in a fused cell-first block K2's raw output before K1 and K1's
+residualed output before the next block's K3 (and K1's raw output when the
+caller reads it), in a fused face-first block K1's raw output before K3 and
+K2's output before the next block's K1, in an unfused block each
+sub-block's output; the face decoder's output before the integrators'
+``gather3``. The train-mode BatchNorm sums its statistics over the space
+group, and dropout draws at the global row count. On a graph without a
+halo each of these is a no-op.
 """
 
 from __future__ import annotations
@@ -44,6 +57,8 @@ from torch import nn
 from gnn_fluid_dynamics_tpu_torch.ops import kernels
 from gnn_fluid_dynamics_tpu_torch.ops import segment as seg_ops
 from gnn_fluid_dynamics_tpu_torch.ops.fvm import calc_gradient_tensor
+from gnn_fluid_dynamics_tpu_torch.parallel import halo
+from gnn_fluid_dynamics_tpu_torch.parallel.halo import refresh
 
 AGGREGATIONS = ("segment", "pallas", "auto", "banded", "gather")
 BLOCK_ORDERS = ("cell_first", "face_first")
@@ -157,7 +172,7 @@ def dropout(x: torch.Tensor, rate: float,
     if rate >= 1.0:
         return torch.zeros_like(x)
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=rng, device=x.device) < keep
+    mask = halo.draw(torch.rand, x.shape, rng, x.device) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -398,26 +413,35 @@ class GNBlock(nn.Module):
         if route == "fused" and self.face_first:
             e_raw, e_res = self.face_block(cell_attr, edge_attr, graph,
                                            route=route, dual_out=True)
-            c_res = self.cell_block(cell_attr, e_raw, graph, route=route)
+            e_raw = refresh(e_raw, graph, "face")
+            c_res = refresh(self.cell_block(cell_attr, e_raw, graph,
+                                            route=route), graph, "cell")
             return (c_res, e_res, e_raw) if face_raw else (c_res, e_res)
         if route == "fused":
             c_raw, c_res = self.cell_block(cell_attr, edge_attr, graph,
                                            route=route, dual_out=True)
+            c_raw = refresh(c_raw, graph, "cell")
             if face_raw:
                 e_raw, e_res = self.face_block(c_raw, edge_attr, graph,
                                                route=route, dual_out=True)
-                return c_res, e_res, e_raw
-            return c_res, self.face_block(c_raw, edge_attr, graph, route=route)
+                return (c_res, refresh(e_res, graph, "face"),
+                        refresh(e_raw, graph, "face"))
+            return c_res, refresh(self.face_block(c_raw, edge_attr, graph,
+                                                  route=route), graph, "face")
         if self.face_first:
-            new_edge = self.face_block(cell_attr, edge_attr, graph, extra,
-                                       route, train=train, rng=rng)
-            new_cell = self.cell_block(cell_attr, new_edge, graph, extra,
-                                       route, train=train, rng=rng)
+            new_edge = refresh(self.face_block(cell_attr, edge_attr, graph,
+                                               extra, route, train=train,
+                                               rng=rng), graph, "face")
+            new_cell = refresh(self.cell_block(cell_attr, new_edge, graph,
+                                               extra, route, train=train,
+                                               rng=rng), graph, "cell")
         else:
-            new_cell = self.cell_block(cell_attr, edge_attr, graph, extra,
-                                       route, train=train, rng=rng)
-            new_edge = self.face_block(new_cell, edge_attr, graph, extra,
-                                       route, train=train, rng=rng)
+            new_cell = refresh(self.cell_block(cell_attr, edge_attr, graph,
+                                               extra, route, train=train,
+                                               rng=rng), graph, "cell")
+            new_edge = refresh(self.face_block(new_cell, edge_attr, graph,
+                                               extra, route, train=train,
+                                               rng=rng), graph, "face")
         out = (cell_attr + new_cell, edge_attr + new_edge)
         return out + (new_edge,) if face_raw else out
 
@@ -501,6 +525,8 @@ class EncodeProcessDecode(nn.Module):
     def forward(self, cell_x, face_x, graph, train: bool = False,
                 rng: torch.Generator = None):
         cell_attr, edge_attr = self.encoder(cell_x, face_x, train, rng)
+        cell_attr = refresh(cell_attr, graph, "cell")
+        edge_attr = refresh(edge_attr, graph, "face")
         for i in range(self.cfg.mp_num):
             block = self.blocks[0 if self.cfg.share_blocks else i]
             extra = (self.step_scalars[i:i + 1] if self.cfg.step_scalar
@@ -514,7 +540,8 @@ class EncodeProcessDecode(nn.Module):
                                              extra, route, train, rng)
         face_out = cell_out = None
         if self.decoder_face is not None:
-            face_out = self.decoder_face(edge_attr, train, rng)
+            face_out = refresh(self.decoder_face(edge_attr, train, rng),
+                               graph, "face")
         if self.decoder_cell is not None:
             cell_out = self.decoder_cell(cell_attr, train, rng)
         return cell_out, face_out
@@ -550,13 +577,16 @@ class BatchNorm(nn.Module):
     @staticmethod
     def batch_statistics(x, mask):
         """(mean, var) over the rows ``mask`` selects, in f32, var = E[x^2]
-        - mean^2 clamped at 0."""
+        - mean^2 clamped at 0; on a space-sharded graph (inside
+        ``halo.sharded``) its sums and count are summed over the space
+        group first."""
         xf = x.float()
         m = mask.reshape(-1, 1).expand_as(xf)
         xm = torch.where(m, xf, torch.zeros_like(xf))
-        n = m.sum(0)
-        mean = xm.sum(0) / n
-        return mean, torch.clamp((xm * xm).sum(0) / n - mean * mean, min=0.0)
+        s1, s2, n = halo.reduce_statistics(xm.sum(0), (xm * xm).sum(0),
+                                           m.sum(0))
+        mean = s1 / n
+        return mean, torch.clamp(s2 / n - mean * mean, min=0.0)
 
     def forward(self, x, mask=None, train: bool = False):
         if not train:

@@ -202,6 +202,10 @@ class ConservativeA(FvgnA):
     """Conservative message passing on the FVGN head
     (Conservative.py:49-262)."""
 
+    # its blocks, encoders and decoders have no refresh points: it raises on
+    # a space-sharded graph (ROADMAP §1 item 6)
+    spmd_supported = False
+
     name = "ConservativeA"
 
     def build_module(self, generator: torch.Generator) -> nn.Module:
@@ -278,6 +282,10 @@ class ConservativeA(FvgnA):
 class ConservativeB(MgnA):
     """Conservative blocks on MGN's cell-output head, no integrator, with
     MLS cell weights (Conservative.py:265-414)."""
+
+    # its blocks, encoders and decoders have no refresh points: it raises on
+    # a space-sharded graph (ROADMAP §1 item 6)
+    spmd_supported = False
 
     name = "ConservativeB"
 
@@ -512,6 +520,10 @@ class _StdEPDWithBlocks(nn.Module):
 class ConservativeE(FvgnA):
     """FvgnA with the symmetric/antisymmetric split cell aggregation
     (Conservative.py:661-733)."""
+
+    # its blocks, encoders and decoders have no refresh points: it raises on
+    # a space-sharded graph (ROADMAP §1 item 6)
+    spmd_supported = False
 
     name = "ConservativeE"
     block = staticmethod(_ConsEBlock)

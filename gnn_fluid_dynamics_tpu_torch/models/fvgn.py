@@ -687,6 +687,11 @@ class FvgnK(FvgnA):
     integration (Fvgn.py:1276-1416). Outputs are normalized in every mode
     but ``"rollout"``."""
 
+    # u_ref is the first live INFLOW face of each graph, a reduction over
+    # the whole graph that a space rank does not hold: it raises on a
+    # space-sharded graph (ROADMAP §1 item 6)
+    spmd_supported = False
+
     name = "FvgnK"
 
     def build_module(self, generator: torch.Generator) -> nn.Module:

@@ -1,13 +1,19 @@
 """Losses and rollout error metrics (counterpart of ``models/losses.py``),
 masked for padding: the training losses over valid elements, the error
 metrics pooled per graph. Padded rows are where-selected, never multiplied,
-so an inf or NaN there reaches neither a training loss nor its gradient."""
+so an inf or NaN there reaches neither a training loss nor its gradient.
+
+On a space-sharded graph (``parallel/spmd.py``) the masks mark the rows the
+rank owns, and inside ``halo.sharded`` each sum and count is summed over
+the space group before it is divided, so that every rank holds the global
+value (:func:`~gnn_fluid_dynamics_tpu_torch.parallel.halo.reduce_sums`)."""
 
 from __future__ import annotations
 
 import torch
 
 from gnn_fluid_dynamics_tpu_torch.ops.segment import segment_sum
+from gnn_fluid_dynamics_tpu_torch.parallel.halo import reduce_sums
 
 
 def _masked_diff(output, target, mask):
@@ -25,14 +31,15 @@ def mse_per_element(output: torch.Tensor, target: torch.Tensor,
     rows; every feature column of a selected row counts toward the mean."""
     se = _masked_diff(output, target, mask) ** 2
     n = torch.sum(mask.to(se.dtype)) * se.shape[-1]
-    return torch.sum(se) / torch.clamp(n, min=1.0)
+    total, n = reduce_sums(torch.sum(se), n)
+    return total / torch.clamp(n, min=1.0)
 
 
 def mse_per_batch(output: torch.Tensor, target: torch.Tensor,
                   mask: torch.Tensor) -> torch.Tensor:
     """Summed squared error over valid rows (reference
     ``MSE_per_batch_torch``, loss.py:62-67)."""
-    return torch.sum(_masked_diff(output, target, mask) ** 2)
+    return reduce_sums(torch.sum(_masked_diff(output, target, mask) ** 2))
 
 
 def combined_log_loss(components: dict, weights: dict) -> torch.Tensor:
@@ -57,8 +64,8 @@ def mse_per_graph(output: torch.Tensor, target: torch.Tensor,
     node_mse = torch.mean((output - target) ** 2, dim=-1)
     m = mask.to(node_mse.dtype)
     node_mse = torch.where(mask, node_mse, torch.zeros_like(node_mse))
-    s = segment_sum(node_mse, batch, num_graphs)
-    n = segment_sum(m, batch, num_graphs)
+    s, n = reduce_sums(segment_sum(node_mse, batch, num_graphs),
+                       segment_sum(m, batch, num_graphs))
     return s / torch.clamp(n, min=1.0)
 
 
@@ -77,6 +84,6 @@ def rel_mse_per_graph(prediction: torch.Tensor, target: torch.Tensor,
         target_sq = target.reshape(target.shape[0], -1)[:, 0] ** 2
     diff_sq = torch.where(mask, diff_sq, torch.zeros_like(diff_sq))
     target_sq = torch.where(mask, target_sq, torch.zeros_like(target_sq))
-    ssum_diff = segment_sum(diff_sq, batch, num_graphs)
-    ssum_gt = segment_sum(target_sq, batch, num_graphs)
+    ssum_diff, ssum_gt = reduce_sums(segment_sum(diff_sq, batch, num_graphs),
+                                     segment_sum(target_sq, batch, num_graphs))
     return ssum_diff / torch.clamp(ssum_gt, min=1e-12)

@@ -28,6 +28,7 @@ from torch import nn
 
 from gnn_fluid_dynamics_tpu_torch.models import normalizer as norm
 from gnn_fluid_dynamics_tpu_torch.models.base import FluidModel
+from gnn_fluid_dynamics_tpu_torch.parallel.halo import reduce_sums, refresh
 from gnn_fluid_dynamics_tpu_torch.models.losses import (combined_log_loss,
                                                         mse_per_element)
 from gnn_fluid_dynamics_tpu_torch.models.mgn import MgnB, MgnC, _MgnModule
@@ -104,7 +105,10 @@ class StreamFuncA(_StreamFuncRolloutMixin, MgnC):
         is reported but not weighted (StreamFunc.py:45-75)."""
         nfeats = outputs["_nfeats"]
         cmask = graph.cell_mask
-        div = fvm.divergence_from_uc(outputs["cell_velocity"],
+        # the stencil reads the velocity of the neighbours, whose curl reads
+        # theirs: on a space-sharded graph a ghost's comes from its owner
+        div = fvm.divergence_from_uc(refresh(outputs["cell_velocity"], graph,
+                                             "cell"),
                                      graph.cell_grad_weights,
                                      graph.cell_grad_neighbours,
                                      graph.cell_volume)
@@ -187,8 +191,9 @@ class StreamFuncD(StreamFuncB):
     name = "StreamFuncD"
 
     def _potential(self, cell_out, graph):
-        return smoothing_layer(cell_out[:, 0:1], graph.cell_grad_neighbours,
-                               k=8)[:, None]
+        return refresh(smoothing_layer(cell_out[:, 0:1],
+                                       graph.cell_grad_neighbours, k=8)[:, None],
+                       graph, "cell")
 
     def forward(self, graph, feats: Dict, mode: str = "rollout",
                 generator: torch.Generator = None) -> Dict[str, torch.Tensor]:
@@ -208,8 +213,9 @@ class StreamFuncD(StreamFuncB):
         nb = graph.cell_grad_neighbours[:, :4].long()
         lap = torch.mean(psi[nb], dim=1) - psi
         lap = torch.where(graph.cell_mask, lap, torch.zeros_like(lap))
-        n = torch.clamp(torch.sum(graph.cell_mask), min=1)
-        smooth = torch.sum(lap ** 2) / n
+        total_sq, n = reduce_sums(torch.sum(lap ** 2),
+                                  torch.sum(graph.cell_mask))
+        smooth = total_sq / torch.clamp(n, min=1)
         w = self.loss_weights
         total = (w.get("cell_velocity", 0.0) * losses["cell_velocity_loss"]
                  + w.get("cell_pressure", 0.0) * losses["cell_pressure_loss"]

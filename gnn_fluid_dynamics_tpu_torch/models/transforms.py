@@ -1,7 +1,9 @@
 """Feature transforms (counterpart of ``models/transforms.py``): the face
 features of the rollout, and training's noise and random edge flip. The
 random draws come from an explicit ``torch.Generator`` on the tensors'
-device, where the JAX package takes a PRNG key."""
+device, where the JAX package takes a PRNG key; on a space-sharded graph
+they are drawn at the global row count and cut to the rank's rows
+(:func:`~gnn_fluid_dynamics_tpu_torch.parallel.halo.draw`)."""
 
 from __future__ import annotations
 
@@ -10,20 +12,21 @@ from typing import Tuple
 import torch
 
 from gnn_fluid_dynamics_tpu_torch.data.node_types import NodeType
+from gnn_fluid_dynamics_tpu_torch.parallel import halo
 
 
 def add_noise(generator: torch.Generator, x: torch.Tensor, std) -> torch.Tensor:
     """Gaussian training noise (reference ``transforms.py:19-22``)."""
-    return x + std * torch.randn(x.shape, generator=generator, device=x.device,
-                                 dtype=x.dtype)
+    return x + std * halo.draw(torch.randn, x.shape, generator, x.device,
+                               x.dtype)
 
 
 def random_edge_flip(generator: torch.Generator, graph):
     """Random per-face orientation flip: each live face flipped with
     probability 1/2 (the JAX package's ``bernoulli(key, 0.5) & face_mask``),
     applied by :func:`flip_edges`. Returns (new_graph, safe_flip_mask)."""
-    flip = (torch.rand(graph.num_faces, generator=generator,
-                       device=graph.device) < 0.5) & graph.face_mask
+    flip = (halo.draw(torch.rand, (graph.num_faces,), generator, graph.device)
+            < 0.5) & halo.live_faces(graph)
     return flip_edges(graph, flip)
 
 
@@ -37,8 +40,9 @@ def flip_edges(graph, flip: torch.Tensor):
     (new_graph, safe_flip_mask): the flipped faces that are not boundary
     self-loops."""
     cei = graph.cell_edge_index
-    boundary = cei[0] == cei[1]
-    safe = flip & ~boundary
+    # the graph's own record, which a space-sharded graph keeps for a ghost
+    # face whose cells it does not hold
+    safe = flip & ~graph.face_boundary_mask
     cei = torch.where(flip[None, :], cei.flip(0), cei)
     sgn = torch.where(safe, -1.0, 1.0).to(graph.face_normal.dtype)
     updates = dict(

@@ -54,6 +54,7 @@ from gnn_fluid_dynamics_tpu_torch.ops import fvm
 from gnn_fluid_dynamics_tpu_torch.ops.geometry import cell_to_face
 from gnn_fluid_dynamics_tpu_torch.ops.segment import \
     aggregate_edges_to_vertices_sum
+from gnn_fluid_dynamics_tpu_torch.parallel.halo import refresh
 
 
 def calc_cell_flux_from_vertices(vertex_out: torch.Tensor,
@@ -107,17 +108,23 @@ class _VertPotModule(nn.Module):
     def forward(self, cell_x, face_x, graph, train: bool = False,
                 rng: torch.Generator = None):
         cell_attr, edge_attr = self.encoder(cell_x, face_x, train, rng)
+        cell_attr = refresh(cell_attr, graph, "cell")
+        edge_attr = refresh(edge_attr, graph, "face")
         for block in self.blocks:
             route = block_route(self.cfg, graph, cell_attr, None, train)
             cell_attr, edge_attr, e_raw = block(cell_attr, edge_attr, graph,
                                                 None, route, train, rng,
                                                 face_raw=True)
         vertex_attr = aggregate_edges_to_vertices_sum(e_raw.float(), graph)
-        face_out = self.decoder_face(edge_attr, train, rng)
+        face_out = refresh(self.decoder_face(edge_attr, train, rng), graph,
+                           "face")
         vertex_out = self.decoder_vertex(vertex_attr, train, rng)
         vertex_out = torch.where(graph.vertex_mask[:, None], vertex_out,
                                  torch.zeros_like(vertex_out))
-        cell_flux = calc_cell_flux_from_vertices(vertex_out, graph)  # (C, 3)
+        # a ghost cell's vertex may miss faces of the rank's graph, so its
+        # cell flux comes from its owner (the owner-slot face flux reads it)
+        cell_flux = refresh(calc_cell_flux_from_vertices(vertex_out, graph),
+                            graph, "cell")                        # (C, 3)
         acc, face_out, extras = getattr(self, "_" + self.integrator_kind)(
             cell_x, face_out, cell_flux, graph, train)
         acc = torch.where(graph.cell_mask[:, None], acc, torch.zeros_like(acc))
@@ -510,6 +517,10 @@ class VertPotG(VertPotA):
     mean shift with the larger-indexed write's orientation."""
 
     name = "VertPotG"
+    # the conversion pairs write k with face_index[k // C, k % C] and
+    # cell_flux[k // 3]: rows of the whole graph, which a space rank does
+    # not hold, so it raises on a space-sharded graph (ROADMAP §1 item 6)
+    spmd_supported = False
 
     def forward(self, graph, feats: Dict, mode: str = "rollout",
                 generator: torch.Generator = None) -> Dict[str, torch.Tensor]:

@@ -30,8 +30,10 @@ Each rank assembles its own share of the global batch (the trainer's
 package's ``graph.stack_graphs`` and ``shard_batch`` have no counterpart.
 For the indexed call each rank holds only its own combination's trajectory
 store (``MeshDataset.device_fields``), which is what ``shard_device_fields``
-arranges there. The data x space sharding of ``parallel/spmd.py`` is not
-ported (ROADMAP §1 item 6).
+arranges there. The data x space sharding of the JAX package's
+``parallel/spmd.py`` is :mod:`.spmd`, whose train step
+(:meth:`~gnn_fluid_dynamics_tpu_torch.training.trainer.Trainer.spmd_train_step`)
+reduces through the same :func:`all_reduce_mean_`.
 """
 
 from __future__ import annotations
@@ -119,14 +121,15 @@ def replicate_(module: torch.nn.Module) -> None:
             dist.broadcast(t, 0)
 
 
-def all_reduce_mean_(tensors: Sequence[torch.Tensor]) -> None:
+def all_reduce_mean_(tensors: Sequence[torch.Tensor],
+                     divisor: int = None) -> None:
     """Each f32 tensor replaced, in place, by its mean over the ranks: one
     ``all_reduce`` (sum) of one flat buffer holding them all, divided by the
-    world size, as ``jax.lax.pmean`` divides its sum. With one rank the
-    values come back unchanged, bit for bit."""
+    world size (or ``divisor``), as ``jax.lax.pmean`` divides its sum. With
+    one rank the values come back unchanged, bit for bit."""
     flat = torch.cat([t.detach().reshape(-1) for t in tensors])
     dist.all_reduce(flat)
-    flat /= dist.get_world_size()
+    flat /= dist.get_world_size() if divisor is None else divisor
     with torch.no_grad():
         for t, part in zip(tensors, flat.split([t.numel() for t in tensors])):
             t.copy_(part.view_as(t))

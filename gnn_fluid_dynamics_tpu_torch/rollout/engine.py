@@ -9,6 +9,12 @@ MSE of cell velocity and pressure against ground truth, and the divergence of
 the predicted cell flux, face velocity or (by the MLS stencil) cell
 velocity; for VertPot's potential flux also that of the raw telescoped cell
 flux (``divergence_raw_error``).
+
+On a space-sharded graph (``parallel/spmd.py``) the same loop runs on the
+rank's local graph: each derived state's cell velocity is refreshed from
+its owners before the metrics and the feedback read it, and the metrics,
+summed over the owned rows, are summed over the space group before they
+are divided (``halo.sharded``), so that every rank holds the global errors.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from gnn_fluid_dynamics_tpu_torch.models.losses import (mse_per_graph,
                                                         rel_mse_per_graph)
 from gnn_fluid_dynamics_tpu_torch.models.transforms import interior_face_mask
 from gnn_fluid_dynamics_tpu_torch.ops import fvm
+from gnn_fluid_dynamics_tpu_torch.parallel import halo
 
 SAVABLE_FIELDS = ("cell_velocity", "cell_pressure", "cell_flux",
                   "face_velocity", "face_pressure", "face_flux")
@@ -114,6 +121,8 @@ def rollout_scan(model, graph, feats0: Dict[str, torch.Tensor],
     """
     if graph.device != model.device:
         raise ValueError(f"graph is on {graph.device}, model on {model.device}")
+    if graph.halo is not None:
+        halo.check_supported(model)
     bundle = int(getattr(model.config, "bundle_size", None) or 1)
     n_outer = max(config.num_steps // bundle, 1)
     compute_error = config.compute_error and gt_cell_velocity is not None
@@ -147,10 +156,10 @@ def rollout_scan(model, graph, feats0: Dict[str, torch.Tensor],
                 graph.cell_batch, num_graphs))
 
     feats = feats0
-    with torch.inference_mode():
+    with torch.inference_mode(), halo.sharded(graph.halo):
         for i in range(n_outer):
-            subs = derive_states(model, model.forward(graph, feats), feats,
-                                 graph)
+            subs = [halo.refresh_state(sol, graph) for sol in derive_states(
+                model, model.forward(graph, feats), feats, graph)]
             for k, sol in enumerate(subs):
                 if compute_error:
                     measure(sol, feats, i * bundle + k, k)

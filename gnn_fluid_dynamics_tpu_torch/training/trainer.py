@@ -52,7 +52,7 @@ from gnn_fluid_dynamics_tpu_torch.data.pipeline import (MeshDataset, prefetch,
                                                         prefetch_grouped,
                                                         prefetch_indexed)
 from gnn_fluid_dynamics_tpu_torch.data.samplers import get_sampler
-from gnn_fluid_dynamics_tpu_torch.parallel import data_parallel
+from gnn_fluid_dynamics_tpu_torch.parallel import data_parallel, halo
 from gnn_fluid_dynamics_tpu_torch.rollout.engine import error_summary
 from gnn_fluid_dynamics_tpu_torch.training.config import Config
 from gnn_fluid_dynamics_tpu_torch.training.lr_schedule import get_schedule
@@ -144,7 +144,8 @@ def pushforward_retarget(model, tgraph, feats: Dict, pf: int) -> Dict:
     with torch.no_grad():
         for _ in range(pf):
             outputs = model.forward(tgraph, feats, mode="rollout")
-            sol = model.derive_state(outputs, feats, tgraph)
+            sol = halo.refresh_state(
+                model.derive_state(outputs, feats, tgraph), tgraph)
             feats = model.update_features(sol, feats, tgraph)
     feats = dict(feats)
     feats["cell_y"] = torch.cat([v_final - feats["cell_x"][:, 0:2],
@@ -276,6 +277,37 @@ class Trainer:
         data_parallel.all_reduce_mean_(
             gradients(state.optimizer) + [means]
             + data_parallel.batch_statistics(state.module))
+        optimizer_step(state.optimizer, lr, self.config.training.clip_grad_norm)
+        state.step += 1
+        return dict(zip(keys, means.unbind()))
+
+    def spmd_train_step(self, state: TrainState, graph, lr: float
+                        ) -> Dict[str, torch.Tensor]:
+        """One data x space step on this rank's local graph ``graph``: its
+        space rank's part of its data row's batch (the counterpart of
+        ``make_spmd_train_step``; :mod:`~gnn_fluid_dynamics_tpu_torch.
+        parallel.spmd`). The single step's transform -> [pushforward] ->
+        forward -> loss -> backward runs inside ``halo.sharded``: the draws
+        are the data row's (every rank of a row shares its generator), the
+        losses and BatchNorm statistics global to the row, and each rank's
+        gradient the share of its owned rows. One ``all_reduce`` of one
+        flat buffer then sums the gradients over every rank (the space
+        sum and the data sum) and divides them by the number of data rows;
+        the losses and the running statistics, equal on the ranks of a row,
+        enter it from each row's space rank 0 alone. Then the clip and
+        AdamW, as :meth:`dp_train_step`. Returns the mean losses."""
+        halo.check_supported(self.model)
+        with halo.sharded(graph.halo):
+            losses = self._forward_backward(state, graph)
+        keys = list(losses)
+        means = torch.stack([losses[k].float() for k in keys])
+        shared = [means] + data_parallel.batch_statistics(state.module)
+        if graph.halo.space_rank:
+            for t in shared:
+                t.zero_()
+        data_parallel.all_reduce_mean_(
+            gradients(state.optimizer) + shared,
+            divisor=data_parallel.world_size() // graph.halo.n_space)
         optimizer_step(state.optimizer, lr, self.config.training.clip_grad_norm)
         state.step += 1
         return dict(zip(keys, means.unbind()))
