@@ -266,12 +266,26 @@ Phases (each prints one flushed line; any failure exits non-zero):
       step, exchanges and bytes per step, K1-K3 15 each a step, the other
       kernels none) and one step profiled;
     * 13b the same ranks and checks for FvgnF (K3, K5, K4);
+    * 13d the same for FluxD on the table route (the trainer's validation
+      route): the bench mesh padded to 128 rows with int8 tables, each
+      rank on its own tables built from its local index tables (their
+      band widths printed per rank, each within TABLE_MAX_BAND); K6 30 and
+      K7 15 a step a rank, the other kernels none;
+    * 13e ConservativeH (its MLPs f32) on the index route, K3 and K5 in
+      their 256-lane form 15 each a step a rank; 13e' on 13d's table
+      route, K6's wide roll form and K7's wide form 15 each;
+    * 13g one sharded step each of FvgnK (its reference velocity taken over
+      the whole graph) and VertPotG (its face flux converted from every
+      rank's cells) on the bench mesh, gathered and held against the
+      single process's step (bit for bit, or within STEP_TOL);
     * 13c four processes (``--phase13c``), a 2 x 2 layout: one f32
       warm-up step of the fluxd-r5 recipe through ``make_spmd_train_step``,
       data row d on mesh d of one global batch, against ``dp_train_step``
       on 13a's two ranks (the mean losses within DP_F32_LOSS_RTOL, AdamW's
       moments within DP_F32_MOMENT_RTOL, the parameters' gap reported), no
       kernel launched; then ms per step;
+    * 13f the same processes and checks for the shipped conservativea-r5
+      recipe (ConservativeA at h128, 15 blocks, f32);
 
 then the ``kernels`` line: per kernel its time per launch, launches, bound,
 plain time and library time (K3 and K5 also the pair's time and the launch
@@ -501,7 +515,16 @@ DP_F32_MOMENT_RTOL = 1e-4
 SPMD_RANKS = 2             # 13a/13b: a 1 x 2 layout
 SPMD_LAYOUT = (2, 2)       # 13c: data x space
 SPMD_TIMED_STEPS = 3       # 13c: steps timed after the compared one
-SPMD_PATHS = ("FluxD", "FvgnF")   # 13a, 13b
+# the sharded rollout paths, by sub-phase: the bench mesh's graph on the
+# index route (13a, 13b, 13e), its graph with int8 tables on the table
+# route (13d, 13e')
+SPMD_PATHS = {"a": "FluxD", "b": "FvgnF", "d": "FluxD-valid",
+              "e": "ConservativeH", "e'": "ConservativeH-valid"}
+SPMD_ONE_STEP = ("FvgnK", "VertPotG")   # 13g: one gathered step each
+# 13c's and 13f's recipes: (tag, config)
+SPMD_RECIPES = (("FluxD-r5", RECIPE_CONFIG),
+                ("ConservativeA-r5", os.path.join(ROOT, "config", "e2e",
+                                                  "conservativea-r5.json")))
 # phase 12: the port's generation chain (scripts/datagen_r5.sh's: the inflow
 # regime, dt 0.01, seed 0, the built-in solver) feeding the fluxd-r5 recipe
 GEN_DIR = os.path.join(SMOKE_DIR, "gen")
@@ -2627,22 +2650,23 @@ def conservative_phase(dev, ds, train_ds, line: str) -> dict:
 
 # ---- phase 10: the fused train calls ------------------------------------------
 
-def recipe_config():
-    """``config/e2e/fluxd-r5.json`` as phase 10 trains it: its model (FluxD
-    at h128, 15 blocks, bf16) with the ``auto`` aggregation, so that its
-    validation takes the kernel route; its training section (AdamW, clip
-    10, its loss weights, noise_std_norm 0.045, pushforward 2, 16 steps a
-    call, static_chunked, batch 4) for FUSED_EPOCHS epochs, the first the
-    pushforward warm-up, mini-epochs of FUSED_MINI_EPOCH samples; no
-    checkpoint; statistics over every 4th sample, not cached."""
-    cfg = load_config(RECIPE_CONFIG)
+def recipe_config(path: str = RECIPE_CONFIG, tag: str = "FluxD-r5"):
+    """``config/e2e/fluxd-r5.json`` (or the recipe at ``path``) as phase 10
+    trains it: its model (FluxD at h128, 15 blocks, bf16) with the ``auto``
+    aggregation, so that its validation takes the kernel route; its
+    training section (AdamW, clip 10, its loss weights, noise_std_norm
+    0.045, pushforward 2, 16 steps a call, static_chunked, batch 4) for
+    FUSED_EPOCHS epochs, the first the pushforward warm-up, mini-epochs of
+    FUSED_MINI_EPOCH samples; no checkpoint; statistics over every 4th
+    sample, not cached."""
+    cfg = load_config(path)
     cfg.model.aggregation = "auto"
     t = cfg.training
     t.epochs = FUSED_EPOCHS
     t.pushforward_warmup_epochs = FUSED_WARMUP_EPOCHS
     t.mini_epoch_size = FUSED_MINI_EPOCH
     cfg.logging.save_frequency = 0
-    cfg.logging.name = "FluxD-r5-chip-smoke"
+    cfg.logging.name = f"{tag}-chip-smoke"
     cfg.dataset.stats_fpath = None
     cfg.dataset.stats_stride = 4
     return cfg
@@ -3121,11 +3145,11 @@ def fused_phase(train_ds, valid_ds, line: str) -> dict:
 
 # ---- phase 11: data-parallel training ------------------------------------------
 
-def dp_config():
+def dp_config(path: str = RECIPE_CONFIG, tag: str = "FluxD-r5"):
     """Phase 10's recipe (``recipe_config``) with ``settings.multi_gpu``."""
-    cfg = recipe_config()
+    cfg = recipe_config(path, tag)
     cfg.settings.multi_gpu = True
-    cfg.logging.name = "FluxD-r5-dp-chip-smoke"
+    cfg.logging.name = f"{tag}-dp-chip-smoke"
     return cfg
 
 
@@ -4065,29 +4089,48 @@ def spmd_child(rank: int, workdir: str) -> int:
     return 0
 
 
+def bench_table_graph(device):
+    """The bench mesh's graph (``bench_mesh``'s first two states) padded to
+    128 rows with int8 banded tables, on the table route (the trainer's
+    validation graph)."""
+    geom = bench_geometry()
+    fields = channel_flow_trajectory(geom, num_timesteps=CHECK_STEPS + 2,
+                                     dt=0.01)
+    return from_geometry(geom, {k: v[:2] for k, v in fields.items()},
+                         dt=0.01, pad_multiple=128, with_banded=True,
+                         banded_dtype="int8", device=device)
+
+
 def spmd_rollout_run(dev, rank: int, workdir: str) -> dict:
-    """Phase 13's rank ``rank`` inside its group: 13a and 13b, then 13c's
-    reference."""
+    """Phase 13's rank ``rank`` inside its group: the sharded rollout paths
+    (13a, 13b, 13d, 13e, 13e'), 13g's single steps, then the references of
+    13c and 13f."""
     mesh = spmd.make_mesh_spatial(SPMD_RANKS)
-    graph, _ = bench_mesh(dev)
-    result = {path: spmd_rollout_path(path, graph, mesh, rank)
-              for path in SPMD_PATHS}
-    result["dp_reference"] = spmd_dp_reference(dev, rank, workdir)
+    graphs = {False: bench_mesh(dev)[0], True: bench_table_graph(dev)}
+    result = {path: spmd_rollout_path(path, graphs[path.endswith("-valid")],
+                                      mesh, rank)
+              for path in SPMD_PATHS.values()}
+    result["one_step"] = {name: spmd_one_step(name, graphs[False], mesh, rank)
+                          for name in SPMD_ONE_STEP}
+    result["dp_reference"] = {tag: spmd_dp_reference(dev, rank, workdir, tag,
+                                                     path)
+                              for tag, path in SPMD_RECIPES}
     return result
 
 
 def spmd_rollout_path(path: str, graph, mesh, rank: int) -> dict:
-    """13a/13b on each rank: ``path``'s model on the kernel route (h128,
-    MP_NUM blocks, bf16, seeded weights, statistics from the whole mesh),
-    CHECK_STEPS steps of ``make_spmd_rollout`` on this rank's part of
-    ``graph``, gathered and held on rank 0 against the single process's
-    kernel route on the whole graph (run there first): each field's
-    largest gap, and whether it is bit for bit. Then the same steps on the
-    same inputs (``spmd_steps_on_same_inputs``), which hold where the
-    free-running fields are not bit for bit. Then STEPS timed steps with
-    the launch counters and the halo's counters set to 0 just before and
-    read just after (host clock, synchronized, both ranks at once on the
-    card), and a profile of one step."""
+    """13a/13b/13d/13e on each rank: ``path``'s model on the kernel route
+    (h128, MP_NUM blocks, bf16, seeded weights, statistics from the whole
+    mesh), CHECK_STEPS steps of ``make_spmd_rollout`` on this rank's part of
+    ``graph`` (on the table route, with its own tables), gathered and held
+    on rank 0 against the single process's kernel route on the whole graph
+    (run there first): each field's largest gap, and whether it is bit for
+    bit. Then the same steps on the same inputs
+    (``spmd_steps_on_same_inputs``), which hold where the free-running
+    fields are not bit for bit. Then STEPS timed steps with the launch
+    counters and the halo's counters set to 0 just before and read just
+    after (host clock, synchronized, both ranks at once on the card), and
+    a profile of one step."""
     kern, _, feats = path_models(path, graph)
     cfg = RolloutConfig(num_steps=CHECK_STEPS, compute_error=False,
                         save_fields=True)
@@ -4104,13 +4147,17 @@ def spmd_rollout_path(path: str, graph, mesh, rank: int) -> dict:
            "local_rows": [local.num_cells, local.num_faces,
                           local.num_vertices],
            "ghosts": {k: int(v.numel()) for k, v in h.recv_rows.items()},
-           "partition_s": part_s}
+           "partition_s": part_s, "table_route": local.table_route}
+    if local.table_route:
+        out["bands"] = spmd.band_widths(local)
+        out["global_bands"] = spmd.band_widths(graph)
     if rank == 0:
-        out["vs_single"] = {key: {"max_abs": float((full[key].to(v.device)
-                                                    - v).abs().max()),
-                                  "bit_equal": bool(torch.equal(
-                                      full[key].to(v.device), v))}
-                            for key, v in want.items()}
+        out["vs_single"] = {}
+        for key, v in want.items():
+            a = _live_rows(graph, key, full[key].to(v.device))
+            b = _live_rows(graph, key, v)
+            out["vs_single"][key] = {"max_abs": float((a - b).abs().max()),
+                                     "bit_equal": bool(torch.equal(a, b))}
     out["same_inputs"] = spmd_steps_on_same_inputs(kern, graph, feats, local,
                                                    mesh, rank)
     timed = spmd.make_spmd_rollout(kern, RolloutConfig(
@@ -4135,6 +4182,24 @@ def spmd_rollout_path(path: str, graph, mesh, rank: int) -> dict:
                              "busy_share", "kernels_per_step",
                              "gfd_ms_per_step")}
     return out
+
+
+def _live_rows(graph, key: str, v: torch.Tensor) -> torch.Tensor:
+    """The live rows of a saved field (T, rows, ...) or of the final state
+    (rows, ...): a gathered field holds zeros at the global graph's pad
+    rows, which no rank owns."""
+    mask = graph.face_mask if key.startswith("face") else graph.cell_mask
+    return v[mask] if key == "final_cell_state" else v[:, mask]
+
+
+def _first_cell_mlp(model):
+    """The first block's cell MLP (an FVGN-style block's, or a Conservative
+    block's), whose rows the sharded steps compute at the local row
+    count."""
+    module = model.module
+    if hasattr(module, "epd"):
+        return module.epd.blocks[0].cell_block.mlp
+    return module.blocks[0].cell_mlp
 
 
 def spmd_steps_on_same_inputs(kern, graph, feats, local, mesh,
@@ -4162,7 +4227,9 @@ def spmd_steps_on_same_inputs(kern, graph, feats, local, mesh,
             for key in SAVABLE_FIELDS:
                 if key not in sol:
                     continue
-                a, b = full[key][0].to(sol[key].device).float(), sol[key].float()
+                a = _live_rows(graph, key, full[key].to(sol[key].device))[0]
+                b = _live_rows(graph, key, sol[key][None])[0]
+                a, b = a.float(), b.float()
                 rel = float((a - b).abs().max() / b.abs().max())
                 w = worst.setdefault(key, {"rel": 0.0, "within_bf16_step": True})
                 w["rel"] = max(w["rel"], rel)
@@ -4175,7 +4242,7 @@ def spmd_steps_on_same_inputs(kern, graph, feats, local, mesh,
                     torch.distributed.broadcast(v, 0)
     out = {"fields": worst}
     if rank == 0:
-        mlp = kern.module.epd.blocks[0].cell_block.mlp
+        mlp = _first_cell_mlp(kern)
         x = torch.randn((graph.num_cells, mlp.dense0.in_features),
                         generator=torch.Generator(device=graph.device)
                         .manual_seed(0), device=graph.device)
@@ -4185,11 +4252,37 @@ def spmd_steps_on_same_inputs(kern, graph, feats, local, mesh,
     return out
 
 
-def spmd_train_setup(dev):
-    """13c's trainer: the recipe (``dp_config``) in f32 without noise or
-    flip, in its warm-up epoch (no unroll, so no kernel), on phase 5's
-    meshes cut to DP_STATES states, statistics from them."""
-    cfg = dp_config()
+def spmd_one_step(name: str, graph, mesh, rank: int) -> dict:
+    """13g: one step of ``name`` on the kernel route (as
+    ``spmd_rollout_path``'s model) through ``make_spmd_rollout`` on this
+    rank's part of ``graph``, gathered and held on rank 0 against the
+    single process's step from the same state: per field the largest gap
+    over its largest magnitude, and whether it is bit for bit."""
+    kern, _, feats = path_models(name, graph)
+    cfg = RolloutConfig(num_steps=1, compute_error=False, save_fields=True)
+    want = (rollout_scan(kern, graph, feats, config=cfg)[1] if rank == 0
+            else None)
+    local = spmd.shard_graph_spatial(graph, mesh)
+    _, lfeats = kern.transform_rollout(local)
+    _, got = spmd.make_spmd_rollout(kern, cfg)(local, lfeats)
+    full = spmd.gather_fields(got, local, mesh)
+    if rank != 0:
+        return {"rank": rank}
+    out = {}
+    for key, v in want.items():
+        a = _live_rows(graph, key, full[key].to(v.device)).float()
+        b = _live_rows(graph, key, v).float()
+        out[key] = {"rel": float((a - b).abs().max() / b.abs().max()),
+                    "bit_equal": bool(torch.equal(a, b)),
+                    "finite": bool(torch.isfinite(a).all())}
+    return {"rank": rank, "fields": out}
+
+
+def spmd_train_setup(dev, tag: str, path: str):
+    """13c's (13f's) trainer: the recipe (``dp_config``) in f32 without
+    noise or flip, in its warm-up epoch (no unroll, so no kernel), on
+    phase 5's meshes cut to DP_STATES states, statistics from them."""
+    cfg = dp_config(path, tag)
     cfg.model.compute_dtype = "float32"
     ds = fused_dataset(train_data(dev, steps=DP_STATES - 1), cfg)
     model = train_cli.build_model(cfg, dev)
@@ -4219,35 +4312,32 @@ def _step_record(state, losses) -> dict:
                        state.optimizer.param_groups for p in grp["params"]]}
 
 
-def spmd_dp_reference(dev, rank: int, workdir: str) -> dict:
-    """13c's reference on the SPMD_RANKS ranks: one ``dp_train_step``, rank
-    r on sample r of the first global batch (``_halves``: rank 0's draw,
-    broadcast, and written to ``workdir`` for 13c's ranks); rank 0 writes
-    the losses, moments and parameters after it."""
-    cfg, ds, trainer = spmd_train_setup(dev)
+def spmd_dp_reference(dev, rank: int, workdir: str, tag: str,
+                      path: str) -> dict:
+    """13c's (13f's) reference on the SPMD_RANKS ranks: one
+    ``dp_train_step`` of the recipe ``tag``, rank r on sample r of the
+    first global batch (``_halves``: rank 0's draw, broadcast, and written
+    to ``workdir`` for the 2 x 2 ranks); rank 0 writes the losses, moments
+    and parameters after it."""
+    cfg, ds, trainer = spmd_train_setup(dev, tag, path)
     state = trainer.init_state()
     data_parallel.replicate_(state.module)
     halves = data_parallel.broadcast_object(_halves(cfg, ds, SPMD_RANKS))
     losses = trainer.dp_train_step(state, ds.get_batch(halves[rank]),
                                    cfg.training.lr_max)
     if rank == 0:
-        with open(os.path.join(workdir, "halves.json"), "w") as f:
+        with open(os.path.join(workdir, f"halves-{tag}.json"), "w") as f:
             json.dump(halves, f)
         torch.save(_step_record(state, losses),
-                   os.path.join(workdir, "dp_reference.pt"))
+                   os.path.join(workdir, f"dp_reference-{tag}.pt"))
     return {"rank": rank, "graphs": len(halves[rank])}
 
 
 def spmd_train_child(rank: int, workdir: str) -> int:
-    """Phase 13c's rank ``rank`` of a 2 x 2 layout, run as ``python3
-    chip_smoke.py --phase13c <rank> <workdir>`` after ``spmd_child``'s
-    ranks: one ``make_spmd_train_step`` step, data row d on sample d of
-    13's global batch, held on rank 0 against the 2-rank DP step (the mean
-    losses within DP_F32_LOSS_RTOL, AdamW's moments within
-    DP_F32_MOMENT_RTOL of each tensor's largest magnitude; the parameters'
-    gap is reported, not held: a first AdamW step moves each by about lr
-    whatever the gradient), no kernel launched; then SPMD_TIMED_STEPS steps
-    timed (host clock, synchronized). Prints one JSON line."""
+    """Phase 13c's (and 13f's) rank ``rank`` of a 2 x 2 layout, run as
+    ``python3 chip_smoke.py --phase13c <rank> <workdir>`` after
+    ``spmd_child``'s ranks: per recipe of SPMD_RECIPES
+    (``spmd_train_run``). Prints one JSON line."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
@@ -4255,20 +4345,28 @@ def spmd_train_child(rank: int, workdir: str) -> int:
     spmd_group(dev, rank, SPMD_LAYOUT[0] * SPMD_LAYOUT[1], workdir,
                "store13c")
     try:
-        result = spmd_train_run(dev, rank, workdir)
+        result = {tag: spmd_train_run(dev, rank, workdir, tag, path)
+                  for tag, path in SPMD_RECIPES}
     finally:
         torch.distributed.destroy_process_group()
     say("phase 13c result: " + json.dumps(result))
     return 0
 
 
-def spmd_train_run(dev, rank: int, workdir: str) -> dict:
-    """Phase 13c's rank ``rank`` inside its group (see
-    ``spmd_train_child``)."""
+def spmd_train_run(dev, rank: int, workdir: str, tag: str,
+                   path: str) -> dict:
+    """One ``make_spmd_train_step`` step of the recipe ``tag`` on this rank
+    of a 2 x 2 layout, data row d on sample d of 13's global batch, held on
+    rank 0 against the 2-rank DP step (the mean losses within
+    DP_F32_LOSS_RTOL, AdamW's moments within DP_F32_MOMENT_RTOL of each
+    tensor's largest magnitude; the parameters' gap is reported, not held:
+    a first AdamW step moves each by about lr whatever the gradient), no
+    kernel launched; then SPMD_TIMED_STEPS steps timed (host clock,
+    synchronized)."""
     mesh = spmd.make_mesh_2d(*SPMD_LAYOUT)
-    cfg, ds, trainer = spmd_train_setup(dev)
+    cfg, ds, trainer = spmd_train_setup(dev, tag, path)
     state = spmd.init_state(trainer, mesh)
-    with open(os.path.join(workdir, "halves.json")) as f:
+    with open(os.path.join(workdir, f"halves-{tag}.json")) as f:
         halves = [[tuple(s) for s in h] for h in json.load(f)]
     local = spmd.shard_spatial_batch([ds.get_batch(h) for h in halves],
                                      mesh)
@@ -4283,7 +4381,7 @@ def spmd_train_run(dev, rank: int, workdir: str) -> dict:
               "local_rows": [local.num_cells, local.num_faces,
                              local.num_vertices]}
     if rank == 0:
-        want = torch.load(os.path.join(workdir, "dp_reference.pt"))
+        want = torch.load(os.path.join(workdir, f"dp_reference-{tag}.pt"))
         got = _step_record(state, losses)
         loss_rel = max(abs(got["losses"][k] - v) / abs(v)
                        for k, v in want["losses"].items())
@@ -4318,40 +4416,21 @@ def _children(flag: str, n: int, workdir: str, tag: str) -> list:
                 p.wait()
 
 
-def spmd_phase(line: str) -> dict:
-    """Phase 13: SPMD_RANKS rank processes (13a, 13b, 13c's reference),
-    then a 2 x 2 layout's (13c); their checks. Returns the sharded paths'
-    records (launches summed over the ranks, per rank and step)."""
-    t13 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as work:
-        ranks = _children("--phase13", SPMD_RANKS, work, "phase 13")
-        t_ab = time.perf_counter() - t13
-        train = _children("--phase13c", SPMD_LAYOUT[0] * SPMD_LAYOUT[1],
-                          work, "phase 13c")
-    records = {}
-    for sub, path in zip("ab", SPMD_PATHS):
-        per = [r[path] for r in ranks]
-        gaps = per[0]["vs_single"]
-        same = per[0]["same_inputs"]
-        free_bits = all(g["bit_equal"] for g in gaps.values())
-        if not (free_bits or all(g["rel"] <= STEP_TOL
-                                 for g in same["fields"].values())):
-            fail(f"phase 13{sub} {path}: the sharded fields against the "
-                 f"single process: free-running {gaps}; on the same inputs "
-                 f"{same}")
-        want = {k: PATHS[path][1].get(k, 0) * STEPS for k in KERNELS}
-        for r in per:
-            if r["launches"] != want or not r["finite"]:
-                fail(f"phase 13{sub} {path} rank {r['rank']}: launches "
-                     f"{r['launches']} over {STEPS} steps, expected {want}; "
-                     f"finite {r['finite']}")
-        kind = ("bit for bit" if free_bits else
-                "not bit for bit free-running; on the same inputs each step "
-                f"within {STEP_TOL} of each field's largest magnitude")
-        say(f"phase 13{sub} {path} on {SPMD_RANKS} gloo ranks sharing the "
+def _spmd_path_line(sub: str, path: str, per: list, line: str) -> str:
+    gaps = per[0]["vs_single"]
+    same = per[0]["same_inputs"]
+    free_bits = all(g["bit_equal"] for g in gaps.values())
+    kind = ("bit for bit" if free_bits else
+            "not bit for bit free-running; on the same inputs each step "
+            f"within {STEP_TOL} of each field's largest magnitude")
+    route = ("the table route, each rank on its own int8 tables, band "
+             "widths per rank " + json.dumps([r["bands"] for r in per])
+             + " (the whole graph's " + json.dumps(per[0]["global_bands"])
+             + ")" if per[0]["table_route"] else "the index route")
+    return (f"phase 13{sub} {path} on {SPMD_RANKS} gloo ranks sharing the "
             f"card (1 x {SPMD_RANKS}; the exchange staged through the host: "
-            f"not a multi-card figure): {CHECK_STEPS} steps against the "
-            f"single process's kernel route: ok, {kind}; free-running "
+            f"not a multi-card figure), {route}: {CHECK_STEPS} steps against "
+            f"the single process's kernel route: ok, {kind}; free-running "
             "largest gaps "
             + json.dumps({k: g["max_abs"] for k, g in gaps.items()})
             + "; on the same inputs (largest gap over the field's largest "
@@ -4374,28 +4453,77 @@ def spmd_phase(line: str) -> dict:
                 {k: v / STEPS for k, v in per[0]["launches"].items() if v})
             + " (others 0); one step profiled, rank 0: "
             + json.dumps(per[0]["profile"]) + f"; card {line}")
+
+
+def spmd_phase(line: str) -> dict:
+    """Phase 13: SPMD_RANKS rank processes (13a, 13b, 13d, 13e, 13e', 13g,
+    the references of 13c and 13f), then a 2 x 2 layout's (13c, 13f);
+    their checks. Returns the sharded paths' records (launches summed over
+    the ranks, per rank and step)."""
+    t13 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        ranks = _children("--phase13", SPMD_RANKS, work, "phase 13")
+        t_ab = time.perf_counter() - t13
+        train = _children("--phase13c", SPMD_LAYOUT[0] * SPMD_LAYOUT[1],
+                          work, "phase 13c")
+    records = {}
+    for sub, path in SPMD_PATHS.items():
+        per = [r[path] for r in ranks]
+        gaps = per[0]["vs_single"]
+        same = per[0]["same_inputs"]
+        free_bits = all(g["bit_equal"] for g in gaps.values())
+        if not (free_bits or all(g["rel"] <= STEP_TOL
+                                 for g in same["fields"].values())):
+            fail(f"phase 13{sub} {path}: the sharded fields against the "
+                 f"single process: free-running {gaps}; on the same inputs "
+                 f"{same}")
+        want = {k: PATHS[path][1].get(k, 0) * STEPS for k in KERNELS}
+        for r in per:
+            if r["launches"] != want or not r["finite"]:
+                fail(f"phase 13{sub} {path} rank {r['rank']}: launches "
+                     f"{r['launches']} over {STEPS} steps, expected {want}; "
+                     f"finite {r['finite']}")
+            if r["table_route"] and max(r["bands"].values()) > \
+                    kernels.TABLE_MAX_BAND:
+                fail(f"phase 13{sub} {path} rank {r['rank']}: bands "
+                     f"{r['bands']} past TABLE_MAX_BAND")
+        say(_spmd_path_line(sub, path, per, line))
         records[f"{path}-spmd"] = {
             "launches": {k: sum(r["launches"][k] for r in per)
                          for k in KERNELS},
             "rollout_steps": STEPS * SPMD_RANKS, "ranks": per}
-    r0 = train[0]
-    if not r0["ok"] or any(any(r["launches"].values()) for r in train):
-        fail(f"phase 13c: the 2 x 2 step against the 2-rank DP step: {r0}; "
-             f"launches {[r['launches'] for r in train]}")
-    say(f"phase 13c FluxD-r5 f32 warm-up step on a {SPMD_LAYOUT[0]} x "
-        f"{SPMD_LAYOUT[1]} layout (4 gloo ranks sharing the card) against "
-        f"dp_train_step on {SPMD_RANKS} ranks, data row d on mesh d of one "
-        "global batch: ok; losses within "
-        f"{r0['loss_max_rel']:.3g} (<= {DP_F32_LOSS_RTOL}), AdamW's moments "
-        f"{r0['moment_gap']:.3g} (<= {DP_F32_MOMENT_RTOL}), parameters "
-        f"{r0['param_max_abs']:.3g}; no kernel launched; per rank owned "
-        f"cells {[r['owned_cells'] for r in train]}; ms per step (rank 0, "
-        f"{SPMD_TIMED_STEPS} steps after it) "
-        + json.dumps([round(m, 3) for m in r0["ms_per_step"]])
-        + f", halo exchanges {r0['exchanges'] / (SPMD_TIMED_STEPS + 1):g} "
-        f"and bytes {r0['bytes_sent'] / (SPMD_TIMED_STEPS + 1):g} a step "
-        f"(forward and backward); 13a/13b's processes {t_ab:.1f} s; phase 13 "
-        f"wall time {time.perf_counter() - t13:.1f} s; card {line}")
+    for name in SPMD_ONE_STEP:
+        got = ranks[0]["one_step"][name]["fields"]
+        if not all(g["finite"] and (g["bit_equal"] or g["rel"] <= STEP_TOL)
+                   for g in got.values()):
+            fail(f"phase 13g {name}: one sharded step against the single "
+                 f"process: {got}")
+        say(f"phase 13g {name}: one step on 1 x {SPMD_RANKS} gloo ranks (the "
+            "kernel route, the bench mesh), gathered, against the single "
+            f"process's from the same state: ok (bit for bit, or within "
+            f"{STEP_TOL} of each field's largest magnitude) "
+            + json.dumps(got) + f"; card {line}")
+    for sub, (tag, _) in zip("cf", SPMD_RECIPES):
+        per = [r[tag] for r in train]
+        r0 = per[0]
+        if not r0["ok"] or any(any(r["launches"].values()) for r in per):
+            fail(f"phase 13{sub} {tag}: the 2 x 2 step against the 2-rank "
+                 f"DP step: {r0}; launches {[r['launches'] for r in per]}")
+        say(f"phase 13{sub} {tag} f32 warm-up step on a {SPMD_LAYOUT[0]} x "
+            f"{SPMD_LAYOUT[1]} layout (4 gloo ranks sharing the card) against "
+            f"dp_train_step on {SPMD_RANKS} ranks, data row d on mesh d of one "
+            "global batch: ok; losses within "
+            f"{r0['loss_max_rel']:.3g} (<= {DP_F32_LOSS_RTOL}), AdamW's moments "
+            f"{r0['moment_gap']:.3g} (<= {DP_F32_MOMENT_RTOL}), parameters "
+            f"{r0['param_max_abs']:.3g}; no kernel launched; per rank owned "
+            f"cells {[r['owned_cells'] for r in per]}; ms per step (rank 0, "
+            f"{SPMD_TIMED_STEPS} steps after it) "
+            + json.dumps([round(m, 3) for m in r0["ms_per_step"]])
+            + f", halo exchanges {r0['exchanges'] / (SPMD_TIMED_STEPS + 1):g} "
+            f"and bytes {r0['bytes_sent'] / (SPMD_TIMED_STEPS + 1):g} a step "
+            f"(forward and backward); card {line}")
+    say(f"phase 13 wall time {time.perf_counter() - t13:.1f} s (the 1 x "
+        f"{SPMD_RANKS} processes {t_ab:.1f} s); card {line}")
     return records
 
 

@@ -356,10 +356,13 @@ def _banded_fields(geom, pads, banded_dtype, band_pad, banded_tables,
     return out
 
 
-def banded_tables_for(geom: Dict[str, np.ndarray], pad_to: Dict[str, int]):
+def banded_tables_for(geom: Dict[str, np.ndarray], pad_to: Dict[str, int],
+                      cf_valid=None):
     """Banded tables for ``geom`` padded to ``pad_to`` sizes, with the padding
     convention of :func:`from_geometry` (padded entries point at the last
-    slot), so the band widths match what the padded graph needs."""
+    slot), so the band widths match what the padded graph needs.
+    ``cf_valid`` (2, padded F), where given, marks the cf entries to keep
+    (``ops.banded.build_banded_tables``)."""
     C = geom["cell_pos"].shape[0]
     F = geom["face_pos"].shape[0]
     V = geom["vertex_pos"].shape[0]
@@ -382,7 +385,27 @@ def banded_tables_for(geom: Dict[str, np.ndarray], pad_to: Dict[str, int]):
         "cell_edge_index": padi(geom["cell_edge_index"], Fp,
                                 Cp - 1 if Cp > C else 0),
     }
-    return build_banded_tables(padded_geom)
+    return build_banded_tables(padded_geom, cf_valid=cf_valid)
+
+
+def local_banded_fields(index: Dict[str, np.ndarray], pad_to: Dict[str, int],
+                        dtype, device, cf_valid=None) -> dict:
+    """The banded table fields (``*_onehot``, ``*_off``) of a graph given by
+    its padded index arrays alone (``vertex_edge_index``, ``vertex_face``,
+    ``cell_edge_index`` on its own row ids), in ``dtype``: a space rank's
+    local graph (``parallel/spmd.py``), whose tables are built from its
+    local index tables as :func:`from_geometry` builds a whole graph's,
+    through :func:`banded_tables_for` and :func:`_banded_fields`, with the
+    offsets of its own rows."""
+    geom = {k: index[k] for k in ("vertex_edge_index", "vertex_face",
+                                  "cell_edge_index")}
+    for kind in ("cell", "face", "vertex"):
+        geom[f"{kind}_pos"] = np.zeros((pad_to[kind], 2), np.float32)
+    pads = (pad_to["cell"], pad_to["face"], pad_to["vertex"])
+    out = _banded_fields(geom, pads, dtype, None,
+                         banded_tables_for(geom, pad_to, cf_valid), device)
+    del out["table_route"]
+    return out
 
 
 def to_static_bands(graph: MeshGraph, derive_idx: bool = True) -> MeshGraph:

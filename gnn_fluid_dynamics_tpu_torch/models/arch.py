@@ -40,9 +40,13 @@ residualed output before the next block's K3 (and K1's raw output when the
 caller reads it), in a fused face-first block K1's raw output before K3 and
 K2's output before the next block's K1, in an unfused block each
 sub-block's output; the face decoder's output before the integrators'
-``gather3``. The train-mode BatchNorm sums its statistics over the space
-group, and dropout draws at the global row count. On a graph without a
-halo each of these is a no-op.
+``gather3``. The unfused block reads the same rows on the table route as
+on the index route: K6 (es/er) then K7 read the edge latents at the faces
+of an owned cell's vertices as K3 then K5 do, and K6 (cf) the cell
+latents at an owned face's two cells as K4 does, each from the rank's own
+tables; so the same refreshes cover both routes. The train-mode BatchNorm
+sums its statistics over the space group, and dropout draws at the global
+row count. On a graph without a halo each of these is a no-op.
 """
 
 from __future__ import annotations

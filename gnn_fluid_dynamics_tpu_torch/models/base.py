@@ -65,9 +65,6 @@ class FluidModel:
     pushforward_use = False           # reference Model.py: FvgnD's flag
     cell_grad_weights_use = False     # the dataset adds MLS weights
     face_grad_weights_use = False     # (reference Model.py:53)
-    # runs on a space-sharded graph (parallel/spmd.py); a family whose
-    # neighbour reads have no refresh points raises there instead
-    spmd_supported = True
 
     def __init__(self, config: ModelConfig, stats: Optional[Dict] = None,
                  device="cuda", seed: int = 0,

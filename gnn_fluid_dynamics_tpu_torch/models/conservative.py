@@ -34,6 +34,17 @@ J and K (on ``[e_s | e_s]``, 2H wide): on the kernel route K3 -> K5, or K6
 (``arch.aggregate_twice_mp``). The face -> cell aggregation and the blocks'
 ``c[row]``/``c[col]`` gathers (``arch.gather_face_cells`` on its plain
 route) are f32 index gathers on every route, as the JAX package has them. The blocks take no remat, as in the JAX package.
+
+On a space-sharded graph (``parallel/spmd.py``) every module refreshes the
+ghost rows of what the next step reads through an index table or a banded
+table, at the points ``arch.GNBlock`` takes for the GN blocks: the encoders'
+cell and face latents; in each block each sub-block's new latents (the
+face MLP's output before the face -> cell sum and the residual, the cell
+MLP's output before ``gather_face_cells`` and the residual), so that the
+twice message passing (K3/K6 at the faces of an owned cell's vertices,
+K5/K7 at its vertices) and the gathers read owners' rows; the face
+decoder's output before the integrators' ``gather3``. Each refresh is a
+no-op on a graph without a halo.
 """
 
 from __future__ import annotations
@@ -62,6 +73,7 @@ from gnn_fluid_dynamics_tpu_torch.models.losses import (combined_log_loss,
                                                         mse_per_element)
 from gnn_fluid_dynamics_tpu_torch.models.mgn import MgnA
 from gnn_fluid_dynamics_tpu_torch.ops import fvm
+from gnn_fluid_dynamics_tpu_torch.parallel.halo import refresh
 
 ASYM_IN = 4          # the antisymmetric face features: [Δv | n̂] or [Δv | Δpos]
 
@@ -97,6 +109,15 @@ def conservative_face_features(graph, cell_velocity, num_types, bc_velocity):
     return face_xs, face_xa, bc_mask
 
 
+def _refresh_faces(graph, *parts):
+    """The face-row tensors ``parts`` with their ghost rows refreshed, in one
+    exchange of their concatenation (each part itself without a halo)."""
+    if graph.halo is None:
+        return parts
+    whole = refresh(torch.cat(parts, dim=1), graph, "face")
+    return whole.split([p.shape[1] for p in parts], dim=1)
+
+
 def _input_state(graph, generator, mode, noise_std):
     """The t0 cell velocity (noised in train mode with a generator and a
     noise), the Δv target, and the graph (its edges flipped in train mode
@@ -128,10 +149,12 @@ class _ConsEncoder(nn.Module):
         self.cell_mlp = MLP(2, H, H, dropout_rate=cfg.dropout_rate,
                             generator=generator)
 
-    def forward(self, cell_x, face_xs, face_xa, train=False, rng=None):
-        e_s = self.faceS_mlp(face_xs, train, rng)
-        e_a = self.faceA_mlp(face_xa)
-        return self.cell_mlp(cell_x, train, rng), e_s, e_a
+    def forward(self, cell_x, face_xs, face_xa, graph, train=False,
+                rng=None):
+        e_s, e_a = _refresh_faces(graph, self.faceS_mlp(face_xs, train, rng),
+                                  self.faceA_mlp(face_xa))
+        return (refresh(self.cell_mlp(cell_x, train, rng), graph, "cell"),
+                e_s, e_a)
 
 
 class _ConsABlock(nn.Module):
@@ -153,8 +176,10 @@ class _ConsABlock(nn.Module):
         e = self.face_mlp(torch.cat([edge_attr, own + nbr], dim=1), train, rng)
         if gate is not None:
             e = e * gate
+        e = refresh(e, graph, "face")
         agg = aggregate_faces_to_cells(e, graph, antisym=True)
-        c = self.cell_mlp(torch.cat([cell_attr, agg], dim=-1), train, rng)
+        c = refresh(self.cell_mlp(torch.cat([cell_attr, agg], dim=-1), train,
+                                  rng), graph, "cell")
         return cell_attr + c, edge_attr + e
 
 
@@ -181,7 +206,7 @@ class _ConsAModule(nn.Module):
 
     def forward(self, cell_x, face_xs, face_xa, graph, train=False, rng=None):
         cell_attr, edge_attr, gate = self.encoder(cell_x, face_xs, face_xa,
-                                                  train, rng)
+                                                  graph, train, rng)
         for i, block in enumerate(self.blocks):
             # reference quirk: the asymmetric gate survives only block 0
             cell_attr, edge_attr = block(cell_attr, edge_attr,
@@ -189,7 +214,8 @@ class _ConsAModule(nn.Module):
                                          train, rng)
         face_out = cell_out = None
         if self.decoder_face is not None:
-            face_out = self.decoder_face(edge_attr, train, rng)
+            face_out = refresh(self.decoder_face(edge_attr, train, rng), graph,
+                               "face")
         if self.decoder_cell is not None:
             cell_out = self.decoder_cell(cell_attr, train, rng)
         if self.integrator is None:
@@ -201,10 +227,6 @@ class _ConsAModule(nn.Module):
 class ConservativeA(FvgnA):
     """Conservative message passing on the FVGN head
     (Conservative.py:49-262)."""
-
-    # its blocks, encoders and decoders have no refresh points: it raises on
-    # a space-sharded graph (ROADMAP §1 item 6)
-    spmd_supported = False
 
     name = "ConservativeA"
 
@@ -283,10 +305,6 @@ class ConservativeB(MgnA):
     """Conservative blocks on MGN's cell-output head, no integrator, with
     MLS cell weights (Conservative.py:265-414)."""
 
-    # its blocks, encoders and decoders have no refresh points: it raises on
-    # a space-sharded graph (ROADMAP §1 item 6)
-    spmd_supported = False
-
     name = "ConservativeB"
 
     def build_module(self, generator: torch.Generator) -> nn.Module:
@@ -338,12 +356,15 @@ class _ConsDBlock(nn.Module):
 
     def forward(self, cell_attr, e_s, e_a, graph, train=False, rng=None):
         own, nbr = gather_face_cells(cell_attr, graph)
-        new_s = self.face_symm(torch.cat([e_s, own + nbr], dim=1), train, rng)
-        new_a = self.face_asym(torch.cat([e_a, own - nbr], dim=1))
+        new_s, new_a = _refresh_faces(
+            graph,
+            self.face_symm(torch.cat([e_s, own + nbr], dim=1), train, rng),
+            self.face_asym(torch.cat([e_a, own - nbr], dim=1)))
         symm_agg = aggregate_faces_to_cells(new_s, graph, antisym=False)
         asym_agg = aggregate_faces_to_cells(new_a, graph, antisym=True)
-        new_c = self.cell_mlp(torch.cat([cell_attr, symm_agg, asym_agg],
-                                        dim=-1), train, rng)
+        new_c = refresh(self.cell_mlp(torch.cat([cell_attr, symm_agg,
+                                                 asym_agg], dim=-1),
+                                      train, rng), graph, "cell")
         return cell_attr + new_c, e_s + new_s, e_a + new_a
 
 
@@ -365,12 +386,13 @@ class _ConsDModule(nn.Module):
         self.integrator = FvgnIntegrator()
 
     def forward(self, cell_x, face_xs, face_xa, graph, train=False, rng=None):
-        cell_attr, e_s, e_a = self.encoder(cell_x, face_xs, face_xa, train,
-                                           rng)
+        cell_attr, e_s, e_a = self.encoder(cell_x, face_xs, face_xa, graph,
+                                           train, rng)
         for block in self.blocks:
             cell_attr, e_s, e_a = block(cell_attr, e_s, e_a, graph, train, rng)
-        face_out = self.decoder_face(self.symm_mlp(e_s, train, rng)
-                                     + self.asym_mlp(e_a))
+        face_out = refresh(self.decoder_face(self.symm_mlp(e_s, train, rng)
+                                             + self.asym_mlp(e_a)),
+                           graph, "face")
         acc, extras = self.integrator(face_out, graph, train)
         return acc, face_out, extras
 
@@ -403,12 +425,13 @@ class _ConsEBlock(nn.Module):
     def forward(self, cell_attr, edge_attr, graph, train=False, rng=None,
                 use_kernels=False):
         own, nbr = gather_face_cells(cell_attr, graph)
-        e = self.face_mlp(torch.cat([edge_attr, own + nbr], dim=1), train, rng)
+        e = refresh(self.face_mlp(torch.cat([edge_attr, own + nbr], dim=1),
+                                  train, rng), graph, "face")
         h2 = e.shape[1] // 2
         sym_msg = aggregate_faces_to_cells(e[:, :h2], graph, antisym=False)
         asym_msg = aggregate_faces_to_cells(e[:, h2:], graph, antisym=True)
-        c = self.cell_mlp(torch.cat([cell_attr, sym_msg, asym_msg], dim=-1),
-                          train, rng)
+        c = refresh(self.cell_mlp(torch.cat([cell_attr, sym_msg, asym_msg],
+                                            dim=-1), train, rng), graph, "cell")
         return cell_attr + c, edge_attr + e
 
 
@@ -437,12 +460,13 @@ class _ConsFBlock(nn.Module):
                                       use_kernels)
         asym_agg = aggregate_faces_to_cells(edge_attr[:, h2:], graph,
                                             antisym=True)
-        c = self.cell_mlp(torch.cat([cell_attr, cell_agg, asym_agg], dim=-1),
-                          train, rng)
+        c = refresh(self.cell_mlp(torch.cat([cell_attr, cell_agg, asym_agg],
+                                            dim=-1), train, rng), graph, "cell")
         own, nbr = gather_face_cells(c, graph)
         parts = ([edge_attr, own, nbr] if self.face_combine == "concat"
                  else [edge_attr, own + nbr])
-        e = self.face_mlp(torch.cat(parts, dim=1), train, rng)
+        e = refresh(self.face_mlp(torch.cat(parts, dim=1), train, rng), graph,
+                    "face")
         return cell_attr + c, edge_attr + e
 
 
@@ -476,11 +500,12 @@ class _ConsIBlock(nn.Module):
                                       use_kernels)
         asym_agg = aggregate_faces_to_cells(edge_attr[:, h2:], graph,
                                             antisym=True)
-        c_new = self.cell_mlp(torch.cat([cell_attr, cell_agg, asym_agg],
-                                        dim=-1), train, rng)
+        c_new = refresh(self.cell_mlp(torch.cat([cell_attr, cell_agg,
+                                                 asym_agg], dim=-1),
+                                      train, rng), graph, "cell")
         own, nbr = gather_face_cells(c_new, graph)
-        e_new = self.face_mlp(torch.cat([edge_attr, own + nbr], dim=1), train,
-                              rng)
+        e_new = refresh(self.face_mlp(torch.cat([edge_attr, own + nbr], dim=1),
+                                      train, rng), graph, "face")
         bc = T.rollout_bc_mask(graph.face_type)
         edge_out = torch.where(bc[:, None], edge_attr, edge_attr + e_new)
         return cell_attr + c_new, edge_out
@@ -508,11 +533,14 @@ class _StdEPDWithBlocks(nn.Module):
 
     def forward(self, cell_x, face_x, graph, train=False, rng=None):
         cell_attr, edge_attr = self.encoder(cell_x, face_x, train, rng)
+        cell_attr = refresh(cell_attr, graph, "cell")
+        edge_attr = refresh(edge_attr, graph, "face")
         use_kernels = kernel_route(self.cfg, cell_attr, train)
         for block in self.blocks:
             cell_attr, edge_attr = block(cell_attr, edge_attr, graph, train,
                                          rng, use_kernels)
-        face_out = self.decoder_face(edge_attr, train, rng)
+        face_out = refresh(self.decoder_face(edge_attr, train, rng), graph,
+                           "face")
         acc, extras = self.integrator(face_out, graph, train)
         return acc, face_out, extras
 
@@ -520,10 +548,6 @@ class _StdEPDWithBlocks(nn.Module):
 class ConservativeE(FvgnA):
     """FvgnA with the symmetric/antisymmetric split cell aggregation
     (Conservative.py:661-733)."""
-
-    # its blocks, encoders and decoders have no refresh points: it raises on
-    # a space-sharded graph (ROADMAP §1 item 6)
-    spmd_supported = False
 
     name = "ConservativeE"
     block = staticmethod(_ConsEBlock)
@@ -583,11 +607,14 @@ class _ConsHBlock(nn.Module):
         cell_agg = aggregate_twice_mp(torch.cat([e_s, e_s], dim=-1), graph,
                                       use_kernels)
         asym_agg = aggregate_faces_to_cells(e_a, graph, antisym=True)
-        c_new = self.cell_mlp(torch.cat([cell_attr, cell_agg, asym_agg],
-                                        dim=-1), train, rng)
+        c_new = refresh(self.cell_mlp(torch.cat([cell_attr, cell_agg,
+                                                 asym_agg], dim=-1),
+                                      train, rng), graph, "cell")
         own, nbr = gather_face_cells(c_new, graph)
-        s_new = self.face_symm(torch.cat([e_s, own + nbr], dim=1), train, rng)
-        a_new = self.face_asym(torch.cat([e_a, own - nbr], dim=1))
+        s_new, a_new = _refresh_faces(
+            graph,
+            self.face_symm(torch.cat([e_s, own + nbr], dim=1), train, rng),
+            self.face_asym(torch.cat([e_a, own - nbr], dim=1)))
         return cell_attr + c_new, e_s + s_new, e_a + a_new
 
 
@@ -680,9 +707,9 @@ class _ConsHModule(nn.Module):
         self.integrator = None if physical else _ConsHIntegrator()
 
     def forward(self, cell_x, face_xs, face_xa, graph, train=False, rng=None):
-        e_s = self.faceS_mlp(face_xs, train, rng)
-        e_a = self.faceA_mlp(face_xa)
-        cell_attr = self.cell_mlp(cell_x, train, rng)
+        e_s, e_a = _refresh_faces(graph, self.faceS_mlp(face_xs, train, rng),
+                                  self.faceA_mlp(face_xa))
+        cell_attr = refresh(self.cell_mlp(cell_x, train, rng), graph, "cell")
         use_kernels = kernel_route(self.cfg, cell_attr, train)
         for block in self.blocks:
             cell_attr, e_s, e_a = block(cell_attr, e_s, e_a, graph, train, rng,
@@ -694,6 +721,7 @@ class _ConsHModule(nn.Module):
                 self.velocity_scale_y(face_out[:, 1:2]),
                 self.pressure_scale(face_out[:, 2:3]),
                 face_out[:, 3:5] * self.diffusion_scale], dim=-1)
+        face_out = refresh(face_out, graph, "face")
         if self.integrator is None:
             phi_a, phi_p, phi_d = _signed_flux_terms(
                 face_out, graph.face_area.reshape(-1, 1), graph)

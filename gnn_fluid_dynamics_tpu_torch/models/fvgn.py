@@ -43,6 +43,7 @@ from gnn_fluid_dynamics_tpu_torch.models.base import FluidModel
 from gnn_fluid_dynamics_tpu_torch.models.losses import (combined_log_loss,
                                                         mse_per_element)
 from gnn_fluid_dynamics_tpu_torch.ops import fvm
+from gnn_fluid_dynamics_tpu_torch.parallel import halo
 
 
 def _z(tensor, s, e):
@@ -687,11 +688,6 @@ class FvgnK(FvgnA):
     integration (Fvgn.py:1276-1416). Outputs are normalized in every mode
     but ``"rollout"``."""
 
-    # u_ref is the first live INFLOW face of each graph, a reduction over
-    # the whole graph that a space rank does not hold: it raises on a
-    # space-sharded graph (ROADMAP §1 item 6)
-    spmd_supported = False
-
     name = "FvgnK"
 
     def build_module(self, generator: torch.Generator) -> nn.Module:
@@ -701,18 +697,16 @@ class FvgnK(FvgnA):
     def _refs(self, graph, feats):
         """u_ref: each graph's first live INFLOW face's target u (1 for a
         graph without one); l_ref = Re * 1e-3 / u_ref (Fvgn.py:1291-1306).
-        Per face, (F, 1) each."""
-        F = graph.num_faces
+        Per face, (F, 1) each. On a space-sharded graph the first face is
+        taken over the whole graph (``halo.first_owned``: each rank offers
+        its owned INFLOW faces, the space group takes the least global id,
+        its owner supplies the value)."""
         inflow = ((graph.face_type.reshape(-1) == NodeType.INFLOW)
                   & graph.face_mask)
-        ids = torch.arange(F, device=graph.device)
-        prio = torch.where(inflow, ids, torch.full_like(ids, F))
-        first = torch.full((graph.num_graphs,), F, dtype=prio.dtype,
-                           device=graph.device).scatter_reduce_(
-            0, graph.face_batch.long(), prio, "amin")
-        u_face = feats["face_y"][:, 0]
-        u_ref_g = torch.where(first < F, u_face[first.clamp(0, F - 1)],
-                              torch.ones_like(u_face[:1]))
+        found, u_first = halo.first_owned(graph, "face", inflow,
+                                          feats["face_y"][:, 0],
+                                          graph.face_batch, graph.num_graphs)
+        u_ref_g = torch.where(found, u_first, torch.ones_like(u_first))
         re = graph.reynolds.reshape(-1).expand(graph.num_graphs)
         l_ref_g = re * 1e-3 / u_ref_g
         return u_ref_g[graph.face_batch][:, None], l_ref_g[graph.face_batch][:, None]

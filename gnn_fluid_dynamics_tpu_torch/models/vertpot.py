@@ -517,16 +517,12 @@ class VertPotG(VertPotA):
     mean shift with the larger-indexed write's orientation."""
 
     name = "VertPotG"
-    # the conversion pairs write k with face_index[k // C, k % C] and
-    # cell_flux[k // 3]: rows of the whole graph, which a space rank does
-    # not hold, so it raises on a space-sharded graph (ROADMAP §1 item 6)
-    spmd_supported = False
 
     def forward(self, graph, feats: Dict, mode: str = "rollout",
                 generator: torch.Generator = None) -> Dict[str, torch.Tensor]:
         outputs = super().forward(graph, feats, mode, generator)
-        outputs["face_flux"] = fvm.cell_flux_to_face_flux_lastwrite(
-            outputs["cell_flux"], graph.cell_edge_index, graph.face_index)
+        outputs["face_flux"] = fvm.cell_flux_to_face_flux_lastwrite_g(
+            outputs["cell_flux"], graph)
         return outputs
 
     def loss(self, outputs, feats, graph) -> Dict[str, torch.Tensor]:

@@ -110,8 +110,14 @@ class BandedTables:
     sources: dict = None      # table -> source count (offset clamp bound)
 
 
-def build_banded_tables(geom: Dict[str, np.ndarray],
-                        tile: int = TILE) -> BandedTables:
+def build_banded_tables(geom: Dict[str, np.ndarray], tile: int = TILE,
+                        cf_valid=None) -> BandedTables:
+    """The tables of ``geom``'s index arrays. ``cf_valid`` (2, F) bool, where
+    given, marks the owner (row 0) and neighbour (row 1) entries of the cf
+    tables to keep: a space rank's local graph leaves out a ghost face's
+    cell that it does not hold (its index points at the pad row, which
+    would stretch the tile's band to the last row; the face's row is
+    refreshed from its owner before an owned row reads it)."""
     vei = np.asarray(geom["vertex_edge_index"], np.int64)
     V = geom["vertex_pos"].shape[0]
     F = vei.shape[1]
@@ -128,13 +134,19 @@ def build_banded_tables(geom: Dict[str, np.ndarray],
 
     # cell -> face: owner (row) and neighbour (col) selectors sharing one band
     cei = np.asarray(geom["cell_edge_index"], np.int64)
+    keep = (np.ones((2, F), bool) if cf_valid is None
+            else np.asarray(cf_valid, bool))
+    both = keep.T.ravel()
     cf_off, cf_probe = _build_table(
-        np.repeat(eF, 2), cei.T.ravel(), ones2F, F, C, tile=tile)
+        np.repeat(eF, 2)[both], cei.T.ravel()[both], ones2F[both], F, C,
+        tile=tile)
     Tf, B = cf_probe.shape[0], cf_probe.shape[2]
     off32 = np.asarray(cf_off, np.int64)
+    cf_row, cf_col = (
+        _onehot_fill(eF[k], cei[side][k], np.ones(int(k.sum()), np.float32),
+                     Tf, tile, B, off32, eF[k] // tile)
+        for side, k in enumerate(keep))
     onesF = np.ones(F, np.float32)
-    cf_row = _onehot_fill(eF, cei[0], onesF, Tf, tile, B, off32, eF // tile)
-    cf_col = _onehot_fill(eF, cei[1], onesF, Tf, tile, B, off32, eF // tile)
 
     # edge-space send/recv selectors sharing one band, applied to the
     # full-width edge latents

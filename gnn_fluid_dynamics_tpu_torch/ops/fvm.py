@@ -6,6 +6,8 @@ from __future__ import annotations
 
 import torch
 
+from gnn_fluid_dynamics_tpu_torch.parallel import halo
+
 
 def divergence_from_face_flux(face_flux: torch.Tensor,
                               face_index: torch.Tensor) -> torch.Tensor:
@@ -92,6 +94,46 @@ def cell_flux_to_face_flux_lastwrite(cell_flux: torch.Tensor,
     kwin = torch.full((F,), -1, dtype=k.dtype, device=cf.device)
     kwin = kwin.scatter_reduce(0, dest, k, "amax")
     return corrected[kwin.clamp(0, 3 * C - 1)][:, None]
+
+
+def cell_flux_to_face_flux_lastwrite_g(cell_flux: torch.Tensor,
+                                       graph) -> torch.Tensor:
+    """Graph-aware :func:`cell_flux_to_face_flux_lastwrite`. On a space
+    rank's local graph (``parallel/spmd.py``) the writes are the whole
+    graph's: write ``k`` of 3C (C the global padded cell count) goes to the
+    face ``face_index[k // C, k % C]`` and carries the flux of global cell
+    ``k // 3``, which is in general no row of the rank's. The rank decides
+    each owned face's last write itself: the writes that reach a face come
+    from the cells on either side of it, k = slot * C + global cell, and
+    both are local rows of an owned face. The values come from every
+    rank's owned cells at once (``halo.all_rows``; a pad cell's from space
+    rank 0's pad row, which it computes from the same inputs, as a pad
+    cell's three vertices are the one pad vertex); the owner test compares
+    the face's owner's global id with ``k // 3``. The ghost faces are then
+    refreshed from their owners. Equal to the single process's conversion
+    on the owned rows (``tests/test_torch_spmd_families.py``)."""
+    h = graph.halo
+    if h is None:
+        return cell_flux_to_face_flux_lastwrite(cell_flux, graph.cell_edge_index,
+                                                graph.face_index)
+    cf = halo.all_rows(cell_flux.reshape(cell_flux.shape[0], 3), graph,
+                       "cell").reshape(-1)
+    C = h.global_rows["cell"]
+    F = graph.num_faces
+    cell_gid = h.gid["cell"]
+    # every (slot, local cell) pair makes its write; a write that leaves
+    # the local rows (a ghost cell's face, a pad cell's) lands on the pad
+    # face, which no rank owns
+    slot = torch.arange(3, device=cf.device)[:, None]
+    k = (slot * C + cell_gid[None, :]).reshape(-1)
+    dest = graph.face_index.long().reshape(-1)
+    kwin = torch.full((F,), -1, dtype=k.dtype, device=cf.device)
+    kwin = kwin.scatter_reduce(0, dest, k, "amax")
+    kwin = kwin.clamp(0, 3 * C - 1)
+    owner = cell_gid[graph.cell_edge_index[0].long()] == kwin // 3
+    vals = cf[kwin]
+    out = torch.where(owner, vals, -vals)[:, None]
+    return halo.refresh(out, graph, "face")
 
 
 def divergence_from_uc(cell_velocity: torch.Tensor, weights: torch.Tensor,

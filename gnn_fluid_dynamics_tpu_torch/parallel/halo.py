@@ -23,7 +23,12 @@ neighbour's row, and each is a no-op on a graph without a halo:
   train-mode BatchNorm over the space group before they are divided, so
   that every rank holds the global value, and :func:`draw` makes a random
   draw at the global row count and takes the rank's rows, so that a rank
-  draws what the single process draws at its rows.
+  draws what the single process draws at its rows;
+* two reductions over the whole graph: :func:`first_owned` (per graph,
+  the value at the candidate row of least global id, from its owner:
+  FvgnK's first INFLOW face) and :func:`all_rows` (every rank's owned rows
+  in one global-sized tensor on every rank: VertPotG's last-write face
+  flux, whose writes read cells of the whole graph).
 
 Every failed exchange raises: there is no fallback.
 """
@@ -57,7 +62,9 @@ class Halo:
     (both sides order a peer's rows by global id). ``live_faces`` marks the
     local faces the global graph's ``face_mask`` marks (owned and ghost):
     the local graph's own masks mark its owned rows only. ``exchanges`` and
-    ``bytes_sent`` count what :func:`refresh` did (backward included)."""
+    ``bytes_sent`` count what :func:`refresh` did (backward included).
+    ``unowned[kind]`` are the global rows no rank owns (the global graph's
+    pad rows), which :func:`all_rows` fills from space rank 0's pad row."""
 
     group: object                       # the space group (None: the default)
     n_space: int
@@ -71,6 +78,7 @@ class Halo:
     live_faces: torch.Tensor
     exchanges: int = 0
     bytes_sent: int = 0
+    unowned: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
 
     def kind_of(self, rows: int) -> str:
         """The row kind whose local count is ``rows``."""
@@ -234,12 +242,61 @@ def draw(fn, shape, generator: torch.Generator, device,
     return full.index_select(0, halo.gid[kind])
 
 
-def check_supported(model) -> None:
-    """Raise ``NotImplementedError`` for a model whose class is not ported
-    for space sharding (``spmd_supported = False``)."""
-    if not getattr(model, "spmd_supported", True):
-        raise NotImplementedError(f"{model.name} is not ported for space "
-                                  "sharding (ROADMAP §1 item 6)")
+def first_owned(graph, kind: str, candidate: torch.Tensor,
+                values: torch.Tensor, batch: torch.Tensor, num_graphs: int):
+    """Per graph of a batch, the ``values`` row of its ``candidate`` row
+    (``kind`` rows, masked by ``candidate``, graph ``batch``) with the least
+    global id: ``(found (num_graphs,) bool, value (num_graphs, ...))``, the
+    value 0 where a graph has no candidate. On a space-sharded graph each
+    rank offers its owned candidates (pass ``candidate`` masked by the
+    owned rows), the space group takes the least global id, and the rank
+    that owns that row supplies its value to every rank, exactly (a sum
+    with zeros). No gradient flows through it."""
+    halo = graph.halo
+    rows = candidate.shape[0]
+    gid = (torch.arange(rows, device=candidate.device) if halo is None
+           else halo.gid[kind].to(candidate.device))
+    n = rows if halo is None else halo.global_rows[kind]
+    prio = torch.where(candidate, gid, torch.full_like(gid, n))
+    first = torch.full((num_graphs,), n, dtype=gid.dtype,
+                       device=gid.device).scatter_reduce_(
+        0, batch.long(), prio, "amin")
+    spread = halo is not None and halo.n_space > 1
+    if spread:
+        dist.all_reduce(first, op=dist.ReduceOp.MIN, group=halo.group)
+    mine = candidate & (gid == first[batch.long()])
+    v = values.detach()
+    picked = torch.where(mine.reshape((-1,) + (1,) * (v.ndim - 1)), v,
+                         torch.zeros_like(v))
+    value = torch.zeros((num_graphs,) + v.shape[1:], dtype=v.dtype,
+                        device=v.device).index_add_(0, batch.long(), picked)
+    if spread:
+        dist.all_reduce(value, group=halo.group)
+    return first < n, value
+
+
+def all_rows(x: torch.Tensor, graph, kind: str) -> torch.Tensor:
+    """The global graph's ``kind`` rows of ``x`` on every rank of the space
+    group, each from the rank that owns it, and a row no rank owns (a pad
+    row of the global graph) from space rank 0's pad row, which its rank
+    computes from the same inputs: one all-reduce of a global-sized
+    tensor. Its backward sums the gradients of every rank's use over the
+    group and hands each row its sum. ``x`` itself on a graph without a
+    halo."""
+    halo = graph.halo
+    if halo is None:
+        return x
+    own = graph.cell_mask if kind == "cell" else graph.face_mask
+    full = x.new_zeros((halo.global_rows[kind],) + x.shape[1:]).index_copy(
+        0, halo.gid[kind][own], x[own])
+    pads = halo.unowned.get(kind)
+    if halo.space_rank == 0 and pads is not None and len(pads):
+        full = full.index_copy(0, pads, x[-1:].expand(
+            (len(pads),) + x.shape[1:]))
+    if halo.n_space == 1:
+        return full
+    (out,) = _SumPartitioned.apply(halo.group, full)
+    return out
 
 
 def live_faces(graph) -> torch.Tensor:

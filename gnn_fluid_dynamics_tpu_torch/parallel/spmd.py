@@ -12,8 +12,8 @@ insert it:
 * :func:`make_mesh_2d` is the rank layout: rank r is (d = r // n_space,
   s = r % n_space), with one ``torch.distributed`` group for each data
   row's space ranks;
-* :func:`partition` (``graph_pspec``'s counterpart) cuts one whole graph on
-  the index route into ``n_space`` parts. Each space rank owns a contiguous
+* :func:`partition` (``graph_pspec``'s counterpart) cuts one whole graph
+  into ``n_space`` parts. Each space rank owns a contiguous
   range of the live cells in their order (RCM order: few of a range's
   neighbours lie outside it), split evenly; a face belongs to the rank of
   its owner cell (``cell_edge_index[0]``); vertices belong to no rank, each
@@ -26,7 +26,12 @@ insert it:
   points at the last (pad) row, which holds zeros. The vertex CSR is built
   afresh on the local ids, so at every vertex of an owned cell it lists the
   global graph's half-rows in the global order, and its sums match the
-  single process's bit for bit;
+  single process's bit for bit. A graph with banded tables (the table
+  route's K6/K7) gets each rank's own tables, es/er, cf and vc, built from
+  its local index tables with the offsets of its own rows: its rows keep
+  increasing global id, so its bands stay as narrow as the whole graph's.
+  A band wider than the kernels' TABLE_MAX_BAND raises; the graph keeps
+  its route;
 * :func:`shard_graph_spatial` / :func:`shard_spatial_batch` give this
   rank's local graph (``MeshGraph.halo`` carries its exchange plan,
   :class:`~gnn_fluid_dynamics_tpu_torch.parallel.halo.Halo`), whose
@@ -41,12 +46,10 @@ insert it:
   first space rank); :func:`make_spmd_train_step` is
   ``Trainer.spmd_train_step``.
 
-A graph on the table route raises ``NotImplementedError``: local banded
-tables are not built (ROADMAP §1 item 6), and so does a model whose class
-sets ``spmd_supported = False`` (the Conservative family, whose blocks have
-no refresh points; FvgnK, whose reference velocity is a reduction over
-the whole graph; VertPotG, whose face flux conversion pairs rows of the
-whole graph).
+Every registered model runs on a local graph, on both routes: FvgnK takes
+its reference velocity over the whole graph (``halo.first_owned``) and
+VertPotG its face flux conversion from every rank's cells
+(``fvm.cell_flux_to_face_flux_lastwrite_g``).
 """
 
 from __future__ import annotations
@@ -60,7 +63,9 @@ import torch.distributed as dist
 
 from gnn_fluid_dynamics_tpu_torch import resolve_device
 from gnn_fluid_dynamics_tpu_torch.graph import (FIELD_KEYS, MeshGraph,
+                                                local_banded_fields,
                                                 vertex_incidence_csr)
+from gnn_fluid_dynamics_tpu_torch.ops import kernels
 from gnn_fluid_dynamics_tpu_torch.parallel import data_parallel
 from gnn_fluid_dynamics_tpu_torch.parallel.halo import KINDS, Halo
 
@@ -124,10 +129,6 @@ def _round_up(n: int, m: int) -> int:
 
 def partition(graph: MeshGraph, n_space: int) -> Partition:
     """The space partition of ``graph`` (see the module's docstring)."""
-    if graph.table_route:
-        raise NotImplementedError(
-            "a graph on the table route has no local banded tables: "
-            "space sharding takes the index route (ROADMAP §1 item 6)")
     if graph.halo is not None:
         raise ValueError("the graph is already one rank's part")
     cm, fm, vm = _np(graph.cell_mask), _np(graph.face_mask), _np(graph.vertex_mask)
@@ -208,7 +209,7 @@ def local_graph(graph: MeshGraph, part: Partition, s: int, group=None,
         out[:len(x)] = x
         return torch.from_numpy(out).to(dev)
 
-    def index(t, src, dst, axis):
+    def index_np(t, src, dst, axis):
         """The index table ``t`` (rows of ``src`` along ``axis``) on the
         local ids of ``dst``; pad rows point at ``dst``'s pad row."""
         x = _np(t).astype(np.int64)
@@ -216,16 +217,24 @@ def local_graph(graph: MeshGraph, part: Partition, s: int, group=None,
         x = gmap[dst][x]
         width = [(0, 0)] * x.ndim
         width[axis] = (0, pads[src] - len(ids[src]))
-        return torch.from_numpy(np.pad(x, width, constant_values=pads[dst] - 1)
-                                .astype(np.int32)).to(dev)
+        return np.pad(x, width, constant_values=pads[dst] - 1).astype(np.int32)
+
+    def index(t, src, dst, axis):
+        return torch.from_numpy(index_np(t, src, dst, axis)).to(dev)
 
     def owned(kind):
         m = np.zeros(pads[kind], bool)
         m[:len(ids[kind])] = part.owner[kind][ids[kind]] == s
         return torch.from_numpy(m).to(dev)
 
-    vei = index(graph.vertex_edge_index, "face", "vertex", 1)
-    inc_ptr, inc_row = vertex_incidence_csr(vei.cpu().numpy(), pads["vertex"])
+    local_index = {
+        "vertex_edge_index": index_np(graph.vertex_edge_index, "face",
+                                      "vertex", 1),
+        "vertex_face": index_np(graph.vertex_face, "cell", "vertex", 1),
+        "cell_edge_index": index_np(graph.cell_edge_index, "face", "cell", 1)}
+    vei = torch.from_numpy(local_index["vertex_edge_index"]).to(dev)
+    inc_ptr, inc_row = vertex_incidence_csr(local_index["vertex_edge_index"],
+                                            pads["vertex"])
     vmask = np.zeros(pads["vertex"], bool)
     vmask[:len(ids["vertex"])] = True
     last_batch = (int(graph.cell_batch[-1]), int(graph.face_batch[-1]))
@@ -240,7 +249,8 @@ def local_graph(graph: MeshGraph, part: Partition, s: int, group=None,
         cell_pos=take(graph.cell_pos, "cell"),
         cell_volume=take(graph.cell_volume, "cell"),
         cell_normal=take(graph.cell_normal, "cell"),
-        cell_edge_index=index(graph.cell_edge_index, "face", "cell", 1),
+        cell_edge_index=torch.from_numpy(
+            local_index["cell_edge_index"]).to(dev),
         cell_face_sign=take(graph.cell_face_sign, "cell"),
         face_pos=take(graph.face_pos, "face"),
         face_area=take(graph.face_area, "face"),
@@ -250,7 +260,7 @@ def local_graph(graph: MeshGraph, part: Partition, s: int, group=None,
         owner_local_slot=take(graph.owner_local_slot, "face"),
         vertex_pos=take(graph.vertex_pos, "vertex"),
         vertex_edge_index=vei,
-        vertex_face=index(graph.vertex_face, "cell", "vertex", 1),
+        vertex_face=torch.from_numpy(local_index["vertex_face"]).to(dev),
         cell_mask=owned("cell"),
         face_mask=owned("face"),
         vertex_mask=torch.from_numpy(vmask).to(dev),
@@ -264,8 +274,43 @@ def local_graph(graph: MeshGraph, part: Partition, s: int, group=None,
         reynolds=graph.reynolds.to(dev),
         **{k: take(getattr(graph, k), k.split("_")[0]) for k in FIELD_KEYS},
         **grad,
+        **(_local_tables(graph, local_index, ids, pads, dev)
+           if graph.es_onehot is not None else {}),
+        table_route=graph.table_route,
     )
+    if local.es_onehot is not None:
+        for name, width in band_widths(local).items():
+            if width > kernels.TABLE_MAX_BAND:
+                raise ValueError(
+                    f"space rank {s}'s {name} band is {width} rows wide, "
+                    f"past the {kernels.TABLE_MAX_BAND} rows "
+                    "(TABLE_MAX_BAND) that K6/K7 take: shard this graph "
+                    "over more space ranks, or reorder it (RCM) so that "
+                    "its bands narrow")
     return local.replace(halo=_halo(part, s, group, dev, gmap))
+
+
+def _local_tables(graph: MeshGraph, local_index, ids, pads, dev) -> dict:
+    """A rank's banded tables, in ``graph``'s table dtype, built from its
+    local index tables (``graph.local_banded_fields``). A live ghost face
+    whose cell the rank does not hold keeps no cf entry for it (its local
+    index points at the pad row, which would stretch its tile's band to
+    the last row): it reads zeros there, and its row is refreshed from its
+    owner before an owned row reads it. ``local_graph`` then holds every
+    band to the kernels' TABLE_MAX_BAND rows, raising past it: the graph
+    never falls back to the index route."""
+    cei = local_index["cell_edge_index"]
+    cf_valid = np.ones(cei.shape, bool)
+    n = len(ids["face"])
+    cf_valid[:, :n] = cei[:, :n] != pads["cell"] - 1
+    return local_banded_fields(local_index, pads, graph.es_onehot.dtype, dev,
+                               cf_valid)
+
+
+def band_widths(graph: MeshGraph) -> Dict[str, int]:
+    """The band width of each table group of ``graph`` (es/er, cf, vc)."""
+    return {name: int(getattr(graph, key).shape[2]) for name, key in
+            (("es", "es_onehot"), ("cf", "cf_row_onehot"), ("vc", "vc_onehot"))}
 
 
 def _halo(part: Partition, s: int, group, dev, gmap) -> Halo:
@@ -299,7 +344,9 @@ def _halo(part: Partition, s: int, group, dev, gmap) -> Halo:
     live[:len(part.rows[s]["face"])] = True
     return Halo(group=group, n_space=part.n_space, space_rank=s, gid=gid,
                 global_rows=dict(part.global_rows),
-                live_faces=torch.from_numpy(live).to(dev), **plan)
+                live_faces=torch.from_numpy(live).to(dev),
+                unowned={k: t(np.flatnonzero(v < 0))
+                         for k, v in part.owner.items()}, **plan)
 
 
 def shard_graph_spatial(graph: MeshGraph, mesh: Mesh2D,
@@ -343,8 +390,7 @@ def make_spmd_rollout(model, rollout_cfg) -> Callable:
     (:func:`local_rows`). ``errors`` are global (every rank holds them);
     ``fields`` hold each saved field's owned rows, (T, n_owned, ...), and
     ``final_cell_state``'s, with ``cell_ids``/``face_ids`` their global
-    rows. A model not ported for sharding raises there
-    (``halo.check_supported``), as the train step does."""
+    rows."""
     from gnn_fluid_dynamics_tpu_torch.rollout.engine import rollout_scan
 
     def run(graph, feats, gt_v=None, gt_p=None):

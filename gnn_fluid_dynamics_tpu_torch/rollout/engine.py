@@ -121,8 +121,6 @@ def rollout_scan(model, graph, feats0: Dict[str, torch.Tensor],
     """
     if graph.device != model.device:
         raise ValueError(f"graph is on {graph.device}, model on {model.device}")
-    if graph.halo is not None:
-        halo.check_supported(model)
     bundle = int(getattr(model.config, "bundle_size", None) or 1)
     n_outer = max(config.num_steps // bundle, 1)
     compute_error = config.compute_error and gt_cell_velocity is not None

@@ -296,7 +296,6 @@ class Trainer:
         the losses and the running statistics, equal on the ranks of a row,
         enter it from each row's space rank 0 alone. Then the clip and
         AdamW, as :meth:`dp_train_step`. Returns the mean losses."""
-        halo.check_supported(self.model)
         with halo.sharded(graph.halo):
             losses = self._forward_backward(state, graph)
         keys = list(losses)

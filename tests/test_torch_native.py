@@ -42,6 +42,37 @@ MESHES = {
 }
 
 
+@pytest.fixture(scope="module", autouse=True)
+def jax_library(tmp_path_factory):
+    """The JAX package's library for this module, built by its own loader
+    (``get_lib``: its compiler call, its source, its bindings) into a
+    directory of this module's and loaded from there; the loader's state
+    is put back afterwards.
+
+    The loader compiles straight onto its one path inside the JAX package,
+    with no lock, and latches a failed load for the rest of the process.
+    Under pytest-xdist every worker collects ``tests/test_native.py``, whose
+    module-level ``native_available()`` makes each of them build and load
+    that one file at once: a worker can then load a file that another's
+    linker is still writing, or latch the failure. A path written by this
+    process alone cannot be raced, and the build is asserted: a case that
+    compares with the JAX package never finds its library missing."""
+    patch = pytest.MonkeyPatch()
+    where = tmp_path_factory.mktemp("jax_native")
+    patch.setattr(jax_native, "_LIB_PATH", str(where / "libgraph_builder.so"))
+    patch.setattr(jax_native, "_HASH_PATH",
+                  str(where / "libgraph_builder.so.srchash"))
+    patch.setattr(jax_native, "_lib", None)
+    patch.setattr(jax_native, "_lib_failed", False)
+    try:
+        lib = jax_native.get_lib()
+        assert lib is not None, "the JAX package's library did not build"
+        assert jax_native._binary_is_current()
+        yield lib
+    finally:
+        patch.undo()
+
+
 @pytest.fixture(autouse=True)
 def _fresh_library_state(monkeypatch):
     """Each test sees the module's state as at import, and leaves it so."""

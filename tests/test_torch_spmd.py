@@ -50,9 +50,7 @@ Tolerances:
   (AdamW's first moment) within F32_TOL of the model's largest gradient
   (a tensor whose gradient vanishes in exact arithmetic, as the bias of
   VertPot's vertex decoder whose potential enters only by differences,
-  holds rounding noise of another order of summation), or the
-  ``NotImplementedError`` naming ROADMAP §1 item 6 (the Conservative
-  family, FvgnK, VertPotG).
+  holds rounding noise of another order of summation).
 """
 
 import torch_test_env  # noqa: F401  (caps torch's threads under xdist)
@@ -119,10 +117,6 @@ ROLLOUTS = {"FluxD-kernel": ("FluxD", "pallas"),
 # exchanges per step on a 2-block model: the encoder's 2, 2 a block, the
 # face decoder's output, the new cell state (MgnA has no face decoder)
 EXCHANGES_PER_STEP = {"FluxD": 8, "FvgnF": 8, "MgnA": 7, "FvgnA": 8}
-UNSUPPORTED = {"ConservativeA", "ConservativeB", "ConservativeD",
-               "ConservativeE", "ConservativeF", "ConservativeG",
-               "ConservativeH", "ConservativeI", "ConservativeJ",
-               "ConservativeK", "FvgnK", "VertPotG"}
 
 
 # ---- the mesh and the models both packages use ----------------------------------
@@ -404,15 +398,6 @@ def test_cut_faces_keep_their_type(parts, n):
         nc = int((cgid != g.num_cells - 1).sum())
         np.testing.assert_array_equal(_np(lg.cell_face_sign)[:nc],
                                       _np(g.cell_face_sign)[cgid[:nc]])
-
-
-def test_table_route_raises(data):
-    """A graph on the table route (banded tables, K6/K7) raises, naming the
-    ROADMAP item: local banded tables are not built."""
-    g = _port_graph(data, with_banded=True)
-    assert g.table_route
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 6"):
-        spmd.partition(g, 2)
 
 
 def test_mismatched_stack_length_raises(data):
@@ -743,20 +728,15 @@ def registry_single(ranks):
 
 
 @pytest.mark.parametrize("name", sorted(MODEL_REGISTRY))
-def test_every_name_matches_or_raises(ranks, registry_single, name):
-    """On 1 x 2: the rollout on the kernel and the plain route, bit for bit
-    on the live rows, and a train step with noise, flip and dropout (losses
-    and gradients within F32_TOL), each against the single process; or,
-    for the names not ported for sharding, ``NotImplementedError`` naming
-    ROADMAP §1 item 6 from both entry points."""
+def test_every_name_matches_the_single_process(ranks, registry_single,
+                                               name):
+    """On 1 x 2, every registered name: the rollout on the kernel and the
+    plain route, bit for bit on the live rows, and a train step with
+    noise, flip and dropout (losses and gradients within F32_TOL), each
+    against the single process."""
     load, _ = ranks
     got = load("registry", 2)[name]
     assert "error" not in got, got.get("error")
-    if name in UNSUPPORTED:
-        for entry in ("rollout_raised", "train_raised"):
-            assert "ROADMAP §1 item 6" in got[entry], (entry, got)
-        return
-    assert not {"rollout_raised", "train_raised"} & set(got), got
     g, singles = registry_single
     want = singles[name]
     for aggregation in ("pallas", "segment"):
