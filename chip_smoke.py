@@ -6,8 +6,8 @@ bundling included), the StreamFunc family, the rest of the Flux family, the
 VertPot family and the Conservative family at their shipped width through
 them, FluxD's recipe of fused train calls, data-parallel, on data made
 by the port's own generator, with its profiling, diagnosis and sweep tools,
-and space-sharded over ranks that share the card, and report each kernel's
-time beside its bound.
+space-sharded over ranks that share the card, and over meshes of two
+sizes in size buckets, and report each kernel's time beside its bound.
 
     python3 chip_smoke.py
 
@@ -287,6 +287,35 @@ Phases (each prints one flushed line; any failure exits non-zero):
     * 13f the same processes and checks for the shipped conservativea-r5
       recipe (ConservativeA at h128, 15 blocks, f32);
 
+14. FluxD-buckets: the size buckets (``MeshDataset(num_buckets=...)``) and
+    the bounded caches (``max_cached_graphs``) on four TRAIN_POINTS-point
+    and four VALID_POINTS-point meshes of BUCKET_STATES channel-flow
+    states, made in memory (four and two would split three and three by
+    the JAX package's rule, one small mesh with the large ones):
+
+    * 14a phase 10a's ``Trainer.run`` of the fluxd-r5 recipe and its
+      checks on the meshes in BUCKETS buckets, validated on FluxD-valid's
+      batch: each bucket's members and pads, every sampler batch and every
+      indexed call within one bucket at its pad, K1-K3 30 each a
+      pushforward step in both buckets and nothing else; then ms per
+      pushforward step of calls in turns on bucket 0's batch, bucket 1's,
+      and bucket 0's padded to the largest mesh (a one-bucket dataset),
+      reported, not gated;
+    * 14b each bucket's validation batch at its pad on the table route
+      (int8 tables) held against the plain route (and its index route)
+      within STEP_TOL, K6 30 and K7 15 a step over a CHECK_STEPS-step
+      rollout, its band widths and each mesh's within TABLE_MAX_BAND; then
+      every mesh at ``pad_to``: a small mesh's tables there are wider than
+      K6 and K7 take, which refuse them (no fallback, nothing launched),
+      and that batch is held against the plain route on the index route
+      (fused K1-K3 15 each a step);
+    * 14c the dataset again with ``max_cached_graphs`` BUCKET_CACHE: every
+      mesh's graph visited (at most BUCKET_CACHE static graphs and tables
+      held), the peak memory of the visits and the cache's bytes beside
+      the unbounded dataset's, and each bucket's batch rebuilt after the
+      evictions giving 14b's kernel-route fields bit for bit (the HDF5
+      store itself runs on the CPU only: the card's machine has no h5py);
+
 then the ``kernels`` line: per kernel its time per launch, launches, bound,
 plain time and library time (K3 and K5 also the pair's time and the launch
 floor); ``launches_per_step`` of a sharded path counts per rank and step.
@@ -333,8 +362,9 @@ from gnn_fluid_dynamics_tpu_torch.data.synthetic import (channel_flow_trajectory
                                                          make_geometry)
 from gnn_fluid_dynamics_tpu_torch.generate import conversion as gen_conversion
 from gnn_fluid_dynamics_tpu_torch.generate import mesh as gen_mesh
-from gnn_fluid_dynamics_tpu_torch.graph import (widen_band, from_geometry,
-                                                to_static_bands)
+from gnn_fluid_dynamics_tpu_torch.graph import (banded_tables_for,
+                                                from_geometry, to_static_bands,
+                                                widen_band)
 from gnn_fluid_dynamics_tpu_torch.models.arch import MLP
 from gnn_fluid_dynamics_tpu_torch.models.base import ModelConfig, feature_masks
 from gnn_fluid_dynamics_tpu_torch.models.flux import FluxD
@@ -525,6 +555,16 @@ SPMD_ONE_STEP = ("FvgnK", "VertPotG")   # 13g: one gathered step each
 SPMD_RECIPES = (("FluxD-r5", RECIPE_CONFIG),
                 ("ConservativeA-r5", os.path.join(ROOT, "config", "e2e",
                                                   "conservativea-r5.json")))
+# phase 14: the size buckets (data/pipeline.py's num_buckets) and the bounded
+# caches (max_cached_graphs). Four meshes of each size: split by cell count
+# into two buckets, as the JAX package splits them, four and two would put
+# one small mesh with the large ones
+BUCKET_SEEDS = (0, 1, 2, 3)    # one mesh a seed at TRAIN_POINTS and VALID_POINTS
+BUCKETS = 2
+BUCKET_STATES = 19         # 16 windows of 4 a mesh: calls 16, 16 an epoch
+BUCKET_TIMED_STEPS = 4     # pushforward steps a timed call
+BUCKET_TIMED_ROUNDS = 3    # timed calls of each, in turns
+BUCKET_CACHE = 2           # 14c's max_cached_graphs
 # phase 12: the port's generation chain (scripts/datagen_r5.sh's: the inflow
 # regime, dt 0.01, seed 0, the built-in solver) feeding the fluxd-r5 recipe
 GEN_DIR = os.path.join(SMOKE_DIR, "gen")
@@ -2672,14 +2712,16 @@ def recipe_config(path: str = RECIPE_CONFIG, tag: str = "FluxD-r5"):
     return cfg
 
 
-def fused_dataset(train_ds, cfg) -> MeshDataset:
-    """Phase 5's trajectories in windows of the recipe's pushforward
-    (pushforward_factor + 2 states)."""
+def fused_dataset(train_ds, cfg, num_buckets: int = 1) -> MeshDataset:
+    """Phase 5's trajectories (or ``train_ds``'s) in windows of the
+    recipe's pushforward (pushforward_factor + 2 states), padded in
+    ``num_buckets`` size buckets."""
     stride, window = compute_window(cfg.model.timestep_stride,
                                     cfg.training.pushforward_factor,
                                     cfg.model.bundle_size)
     return MeshDataset(train_ds.trajectories, stride=stride,
-                       data_window=window, device=train_ds.device)
+                       data_window=window, num_buckets=num_buckets,
+                       device=train_ds.device)
 
 
 def crossing_rule(calls, steps_per_mini_epoch: int) -> tuple:
@@ -2696,7 +2738,7 @@ def crossing_rule(calls, steps_per_mini_epoch: int) -> tuple:
 
 def fused_training(train_ds, valid_ds, device_line: str, cfg=None,
                    checkpointer=None, timer=None,
-                   tag: str = "10a FluxD-r5") -> tuple:
+                   tag: str = "10a FluxD-r5", num_buckets: int = 1) -> tuple:
     """Phase 10a (and 12b, with ``tag``): ``Trainer.run`` of the fluxd-r5
     recipe (``cfg``, by default ``recipe_config()``) on the card. The
     automatic choice must be the indexed path, the calls of each epoch 16,
@@ -2708,11 +2750,13 @@ def fused_training(train_ds, valid_ds, device_line: str, cfg=None,
     With ``checkpointer``, a checkpoint at the last mini-epoch; with
     ``timer`` (a ``profiling.StepTimer``), each call and each validation
     timed in its sections ``train_call/epoch <e>`` and ``validate``, the card
-    synchronized before the clock stops. Returns (the path's record, the
-    trainer, its state, the dataset)."""
+    synchronized before the clock stops. The dataset is padded in
+    ``num_buckets`` size buckets (phase 14a), each combination's store at
+    its own pad. Returns (the path's record, with each call's steps,
+    epoch, cells and launches; the trainer, its state, the dataset)."""
     name = tag.split()[1]
     cfg = recipe_config() if cfg is None else cfg
-    ds = fused_dataset(train_ds, cfg)
+    ds = fused_dataset(train_ds, cfg, num_buckets)
     t = cfg.training
     spc, pf = t.steps_per_call, t.pushforward_factor
     per_epoch = len(list(get_sampler(cfg.dataset.sampler)(
@@ -2744,6 +2788,9 @@ def fused_training(train_ds, valid_ds, device_line: str, cfg=None,
         with section(f"train_call/epoch {trainer.epoch_count}", dev):
             out = fused_fn(state, graph, dev, ts, lrs, window, **kw)
         calls.append({"epoch": trainer.epoch_count, "steps": len(lrs),
+                      "cells": graph.num_cells,
+                      "combo": next(c for c, v in ds._device_fields_cache.items()
+                                    if v is dev),
                       "launches": {k: v - before[k]
                                    for k, v in launch_counts().items()},
                       "losses": out["total_log_loss"]})
@@ -2793,12 +2840,13 @@ def fused_training(train_ds, valid_ds, device_line: str, cfg=None,
              for v in combo.values()]
     store_bytes = sum(v.numel() * v.element_size() for v in store)
     # a combination holds a mesh as often as it names it (static_chunked
-    # pads a chunk with a repeated mesh); the estimate counts each mesh once
-    def mesh_bytes(tr):
+    # pads a chunk with a repeated mesh), at the combination's pad; the
+    # estimate counts each mesh once, at its bucket's pad
+    def mesh_bytes(tr, pad):
         return sum(tr.fields[k].shape[0] * tr.fields[k].shape[2] * 4
-                   * ds.pad_to["cell" if k.startswith("cell") else "face"]
+                   * pad["cell" if k.startswith("cell") else "face"]
                    for k in FIELD_KEYS if k in tr.fields)
-    want_store = sum(mesh_bytes(ds.by_id[m])
+    want_store = sum(mesh_bytes(ds.by_id[m], ds._pad_for(combo))
                      for combo in ds._device_fields_cache for m in combo)
     estimate = ds.estimate_device_field_bytes()
     if (store_bytes != want_store
@@ -2854,7 +2902,8 @@ def fused_training(train_ds, valid_ds, device_line: str, cfg=None,
     record = {"launches": run_launches,
               "rollout_steps": 2 * CHECK_STEPS + pf * sum(
                   c["steps"] for c in calls if c["epoch"] > FUSED_WARMUP_EPOCHS),
-              "loss_first": first, "loss_last": last, "run_s": run_s}
+              "loss_first": first, "loss_last": last, "run_s": run_s,
+              "calls": calls}
     return record, trainer, state, ds
 
 
@@ -4528,6 +4577,367 @@ def spmd_phase(line: str) -> dict:
 
 
 
+# ---- phase 14: the size buckets and the bounded caches ---------------------------
+
+def bucket_data() -> list:
+    """Phase 14's trajectories, made in memory (the card's machine has no
+    h5py): one RCM-ordered TRAIN_POINTS-point and one VALID_POINTS-point
+    cylinder mesh per seed of BUCKET_SEEDS (``s<seed>``, ``v<seed>``), each
+    with a channel flow of BUCKET_STATES states."""
+    trajs = []
+    for prefix, points in (("s", TRAIN_POINTS), ("v", VALID_POINTS)):
+        for seed in BUCKET_SEEDS:
+            geom = rcm_reorder_geometry(make_geometry(
+                "cylinder", n_points=points, seed=seed))
+            fields = channel_flow_trajectory(geom, num_timesteps=BUCKET_STATES,
+                                             dt=0.01)
+            trajs.append(Trajectory(mesh_id=f"{prefix}{seed}", geom=geom,
+                                    fields=fields))
+    return trajs
+
+
+def bucket_members(ds) -> list:
+    """Each bucket's meshes, in the dataset's order."""
+    return [[m for m in ds.sim_ids() if ds.bucket_of[m] == b]
+            for b in range(len(ds.bucket_pad))]
+
+
+def bucket_training(trajs, valid_ds, device_line: str) -> tuple:
+    """Phase 14a: phase 10a's ``Trainer.run`` of the fluxd-r5 recipe (with
+    its checks: the calls, the counters, K1-K3 only in the pushforward
+    unroll, 30 each a step, the store's bytes, finite losses, epoch 1's
+    falling, the monitor) on the meshes in BUCKETS size buckets, validated
+    on FluxD-valid's batch. Every sampler batch and every call lies in one
+    bucket, and epoch 2 trains both. Returns (the record, the trainer, its
+    state, the dataset, the config)."""
+    cfg = recipe_config(tag="FluxD-buckets")
+    holder = MeshDataset(trajs, device=valid_ds.device)
+    record, trainer, state, ds = fused_training(
+        holder, valid_ds, device_line, cfg=cfg, tag="14a FluxD-buckets",
+        num_buckets=BUCKETS)
+    members = bucket_members(ds)
+    if members != [[t.mesh_id for t in trajs if t.mesh_id[0] == p]
+                   for p in "sv"]:
+        fail(f"14a: buckets {members}, expected the {TRAIN_POINTS}-point "
+             f"meshes and the {VALID_POINTS}-point ones apart")
+    t = cfg.training
+    epoch = list(get_sampler(cfg.dataset.sampler)(
+        ds, t.batch_size, np.random.default_rng(0)))
+    spans = [b for b in epoch if len({ds.bucket_of[m] for m, _ in b}) > 1]
+    calls = record["calls"]
+    by_bucket = {}
+    for c in calls:
+        buckets = {ds.bucket_of[m] for m in c["combo"]}
+        if len(buckets) > 1 or c["cells"] != len(c["combo"]) * ds._pad_for(
+                c["combo"])["cell"]:
+            fail(f"14a: a call on {c['combo']} of {c['cells']} cells spans "
+                 f"buckets {buckets} or not its bucket's pad")
+        if c["epoch"] > FUSED_WARMUP_EPOCHS:
+            agg = by_bucket.setdefault(buckets.pop(), {"steps": 0,
+                                                       "launches": {}})
+            agg["steps"] += c["steps"]
+            for k, v in c["launches"].items():
+                agg["launches"][k] = agg["launches"].get(k, 0) + v
+    if spans or sorted(by_bucket) != list(range(BUCKETS)):
+        fail(f"14a: sampler batches across buckets {spans[:2]}; pushforward "
+             f"calls by bucket {sorted(by_bucket)}")
+    say(f"phase 14a FluxD-buckets {BUCKETS} size buckets: members "
+        + json.dumps(members) + ", pads " + json.dumps(ds.bucket_pad)
+        + f", pad_to {json.dumps(ds.pad_to)}; every batch of an epoch "
+        f"({len(epoch)} of {t.batch_size}, {cfg.dataset.sampler}) and every "
+        "call within one bucket, the calls' cells "
+        + json.dumps(sorted({c["cells"] for c in calls}))
+        + "; pushforward launches per step by bucket "
+        + json.dumps({b: {k: v / a["steps"] for k, v in a["launches"].items()
+                          if v} for b, a in sorted(by_bucket.items())})
+        + " (K4-K7 none); trajectory store bytes at the bucket pads "
+        f"{ds.estimate_device_field_bytes()}, at one pad "
+        f"{fused_dataset(holder, cfg).estimate_device_field_bytes()}; card "
+        f"{device_line}")
+    return record, trainer, state, ds, cfg
+
+
+def bucket_times(trainer, state, ds, cfg, device_line: str) -> dict:
+    """Phase 14a's times: ms per pushforward train step (host clock ending
+    in a synchronize) of indexed calls of BUCKET_TIMED_STEPS steps, in turns
+    BUCKET_TIMED_ROUNDS times: bucket 0's batch at its pad, bucket 1's at
+    its pad, and bucket 0's batch in a one-bucket dataset (padded to the
+    largest mesh). Reported, not gated; the launches over them are
+    checked (K1-K3 30 each a step)."""
+    t = cfg.training
+    k = BUCKET_TIMED_STEPS
+    one = fused_dataset(ds, cfg, 1)
+    combos = [tuple(sorted(m))[:t.batch_size] for m in bucket_members(ds)]
+    runs = {"bucket 0": (ds, combos[0]), "bucket 1": (ds, combos[1]),
+            "bucket 0, one bucket": (one, combos[0])}
+    ts = np.repeat(np.arange(k, dtype=np.int32)[:, None], t.batch_size, 1)
+    lr = t.lr_min
+
+    def call(d, combo):
+        trainer.train_step_indexed(state, d._batched_static(combo),
+                                   d.device_fields(combo), ts, [lr] * k,
+                                   d.data_window)
+
+    for d, combo in runs.values():                     # builds, warm-up
+        call(d, combo)
+    times = {name: [] for name in runs}
+    zero_launches()
+    for _ in range(BUCKET_TIMED_ROUNDS):
+        for name, (d, combo) in runs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call(d, combo)
+            torch.cuda.synchronize()
+            times[name].append(1e3 * (time.perf_counter() - t0) / k)
+    launches = launch_counts()
+    steps = k * BUCKET_TIMED_ROUNDS * len(runs)
+    want = {n: PATHS["FluxD"][1].get(n, 0) * t.pushforward_factor * steps
+            for n in KERNELS}
+    if launches != want:
+        fail(f"14a timed calls: launches {launches}, expected {want}")
+    cells = {name: d._batched_static(combo).num_cells
+             for name, (d, combo) in runs.items()}
+    med = {n: float(np.median(v)) for n, v in times.items()}
+    profiles = {name: profile_steps(functools.partial(call, d, combo), k)
+                for name, (d, combo) in runs.items()}
+    say(f"phase 14a FluxD-buckets ms per pushforward train step ({k} steps "
+        f"a call, {BUCKET_TIMED_ROUNDS} calls of each in turns, host clock "
+        "ending in a synchronize): " + json.dumps(
+            {n: [round(v, 3) for v in ts_] for n, ts_ in times.items()})
+        + ", median " + json.dumps({n: round(v, 3) for n, v in med.items()})
+        + "; batch cells " + json.dumps(cells) + f"; bucket 0's batch at its "
+        "pad takes " + f"{med['bucket 0'] / med['bucket 0, one bucket']:.3f}"
+        + " of its time padded to the largest mesh; launches over them "
+        + json.dumps({n: v for n, v in launches.items() if v})
+        + "; device profile of one call of each (per step): " + json.dumps(
+            {n: ("not measured" if p is None else
+                 {k_: p[k_] for k_ in ("device_ms_per_step", "busy_share",
+                                       "kernels_per_step",
+                                       "top_ms_per_step")})
+             for n, p in profiles.items()})
+        + f"; card {device_line}")
+    return {"ms_per_step": times, "cells": cells, "launches": launches,
+            "rollout_steps": t.pushforward_factor * steps,
+            "profiles": profiles}
+
+
+def band_widths(graph) -> dict:
+    return {"es": graph.es_onehot.shape[2], "vc": graph.vc_onehot.shape[2],
+            "cf": graph.cf_row_onehot.shape[2]}
+
+
+def counted_rollout(kern, graph, feats) -> tuple:
+    """(fields of a CHECK_STEPS-step rollout of ``kern``, its launches, read
+    around it)."""
+    zero_launches()
+    _, fields = rollout_scan(kern, graph, feats, config=RolloutConfig(
+        num_steps=CHECK_STEPS, compute_error=False, save_fields=True))
+    torch.cuda.synchronize()
+    return fields, launch_counts()
+
+
+def bucket_validation(trajs, device, device_line: str) -> tuple:
+    """Phase 14b: the validation batch of each bucket (its meshes at t0, at
+    its pad, int8 tables, the table route) held against the plain route
+    for CHECK_STEPS steps on the same inputs (and against the index route
+    of the same batch), within STEP_TOL as phase 3 holds FluxD-valid; a
+    CHECK_STEPS-step rollout with the counters read around it: K6 30 and
+    K7 15 a step, no other kernel; each batch's and each mesh's band
+    widths within TABLE_MAX_BAND. Then every mesh at ``pad_to``: a small
+    mesh's tables at that pad have bands past TABLE_MAX_BAND, and K6 and
+    K7 refuse them (ValueError, nothing launched: no fallback), so that
+    batch is held against the plain route on the index route (fused K1-K3,
+    15 each a step). Returns (the records, {bucket: (model, fields)})."""
+    ds = MeshDataset(trajs, with_banded=True, banded_dtype="int8",
+                     num_buckets=BUCKETS, device=device)
+    out, refs, lines = {}, {}, []
+    valid_launches = dict.fromkeys(KERNELS, 0)
+    for b, ids in enumerate(bucket_members(ds)):
+        pad = ds.bucket_pad[b]
+        graph = to_static_bands(ds.get_batch([(m, 0) for m in ids]),
+                                derive_idx=False)
+        kern, plain, feats = path_models("FluxD-valid", graph)
+        worst = check_against_plain(kern, plain, graph, feats,
+                                    to_static_bands(graph, derive_idx=True))
+        fields, launches = counted_rollout(kern, graph, feats)
+        want = {n: PATHS["FluxD-valid"][1].get(n, 0) * CHECK_STEPS
+                for n in KERNELS}
+        bands = band_widths(graph)
+        own = {m: band_widths(ds._static_graph(m, pad)) for m in ids}
+        if launches != want or max(bands.values()) > kernels.TABLE_MAX_BAND:
+            fail(f"14b bucket {b}: launches {launches}, expected {want}; "
+                 f"bands {bands}")
+        for n in KERNELS:
+            valid_launches[n] += launches[n]
+        refs[b] = (kern, fields)
+        lines.append(f"bucket {b} {ids} at its pad {json.dumps(pad)}: "
+                     f"{graph.num_cells} cells, band widths {json.dumps(bands)}"
+                     f" (each mesh's own {json.dumps(own)}), largest gaps "
+                     + json.dumps({n: {k: round(v, 6) for k, v in f.items()}
+                                   for n, f in worst.items()}))
+    out["FluxD-buckets-valid"] = {"launches": valid_launches,
+                                  "rollout_steps": BUCKETS * CHECK_STEPS}
+
+    # every mesh at pad_to: the tables the table route would need
+    small = min(trajs, key=lambda t: t.geom["cell_pos"].shape[0])
+    wide = banded_tables_for(small.geom, ds.pad_to)
+    wide_bands = {"es": wide.es_onehot.shape[2], "vc": wide.vc_onehot.shape[2],
+                  "cf": wide.cf_row_onehot.shape[2]}
+    if max(wide_bands.values()) <= kernels.TABLE_MAX_BAND:
+        fail(f"14b: {small.mesh_id} at pad_to has bands {wide_bands}, within "
+             "TABLE_MAX_BAND: the all-mesh batch would take the table route")
+    refused = {}
+    zero_launches()
+
+    def on_card(x, dtype=torch.int8):
+        return torch.as_tensor(np.asarray(x)).to(dtype).to(device)
+
+    vc, es, er = (on_card(x) for x in (wide.vc_onehot, wide.es_onehot,
+                                       wide.er_onehot))
+    vc_off, es_off = (on_card(x, torch.int32)
+                      for x in (wide.vc_offsets, wide.es_offsets))
+    del wide
+    attempts = {
+        "K7_table_single": lambda: kernels.table_single(
+            vc, vc_off, torch.zeros(ds.pad_to["vertex"], H // 2,
+                                    dtype=torch.bfloat16, device=device)),
+        "K6_table_dual": lambda: kernels.table_dual(
+            es, er, es_off, torch.zeros(ds.pad_to["face"], H,
+                                        dtype=torch.bfloat16, device=device),
+            combine_roll=True)}
+    # each kernel whose table is wider than it takes
+    attempts = {name: attempt for name, attempt in attempts.items()
+                if wide_bands["vc" if name.startswith("K7") else "es"]
+                > kernels.TABLE_MAX_BAND}
+    for name, attempt in attempts.items():
+        try:
+            attempt()
+        except ValueError as exc:
+            refused[name] = str(exc)
+    del vc, es, er
+    if (not attempts or sorted(refused) != sorted(attempts)
+            or not all("take at most" in v for v in refused.values())
+            or any(launch_counts().values())):
+        fail(f"14b: the wide tables were not refused for their band: "
+             f"{refused} of {sorted(attempts)}, launches {launch_counts()}")
+    plain_ds = MeshDataset(trajs, num_buckets=BUCKETS, device=device)
+    samples = [(m, 0) for m in plain_ds.sim_ids()]
+    graph = plain_ds.get_batch(samples)
+    if graph.num_cells != len(samples) * plain_ds.pad_to["cell"]:
+        fail(f"14b: the all-mesh batch has {graph.num_cells} cells, not "
+             f"{len(samples)} x pad_to")
+    kern, plain, feats = path_models("FluxD", graph)
+    worst = check_against_plain(kern, plain, graph, feats)
+    _, launches = counted_rollout(kern, graph, feats)
+    want = {n: PATHS["FluxD"][1].get(n, 0) * CHECK_STEPS for n in KERNELS}
+    if launches != want:
+        fail(f"14b all meshes: launches {launches}, expected {want}")
+    out["FluxD-buckets-all"] = {"launches": launches,
+                                "rollout_steps": CHECK_STEPS}
+    say(f"phase 14b FluxD-buckets validation per bucket on the table route "
+        f"(int8 tables), {CHECK_STEPS} steps against the plain route on the "
+        f"same inputs within {STEP_TOL}: ok; " + "; ".join(lines)
+        + f"; TABLE_MAX_BAND {kernels.TABLE_MAX_BAND}; launches per step "
+        + json.dumps({n: v / (BUCKETS * CHECK_STEPS)
+                      for n, v in valid_launches.items() if v})
+        + f". All {len(samples)} meshes at pad_to {json.dumps(ds.pad_to)} "
+        f"({graph.num_cells} cells): {small.mesh_id}'s tables at that pad "
+        f"have bands {json.dumps(wide_bands)}, and the kernels refuse the "
+        "tables wider than they take (nothing launched): "
+        + json.dumps(refused) + "; so on the index "
+        f"route (fused K1-K3) against the plain route: ok, largest gaps "
+        + json.dumps({n: {k: round(v, 6) for k, v in f.items()}
+                      for n, f in worst.items()})
+        + ", launches per step " + json.dumps(
+            {n: v / CHECK_STEPS for n, v in launches.items() if v})
+        + f"; card {device_line}")
+    return out, refs
+
+
+def graph_bytes(graphs) -> int:
+    """Bytes of the tensors the graphs hold, each tensor once."""
+    seen = {}
+    for g in graphs:
+        for v in vars(g).values():
+            if isinstance(v, torch.Tensor):
+                seen[v.data_ptr()] = v.numel() * v.element_size()
+    return sum(seen.values())
+
+
+def bucket_caches(trajs, refs, device, device_line: str) -> dict:
+    """Phase 14c: 14b's dataset built twice, unbounded and with
+    ``max_cached_graphs`` BUCKET_CACHE: every mesh's static graph visited
+    at its bucket's pad (the caches bounded at BUCKET_CACHE entries in the
+    second), the peak memory of the visits and the bytes the static-graph
+    cache holds after them; then each bucket's validation batch rebuilt
+    after the evictions and rolled out by 14b's model: its fields equal
+    14b's kernel-route fields bit for bit. The HDF5 store's reads are not
+    exercised here: the card's machine has no h5py, and
+    ``tests/test_torch_lazy_store.py`` covers them on the CPU."""
+    mem, ds = {}, None
+    for bound in (None, BUCKET_CACHE):
+        del ds                                  # the other dataset's graphs
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ds = MeshDataset(trajs, with_banded=True, banded_dtype="int8",
+                         num_buckets=BUCKETS, max_cached_graphs=bound,
+                         device=device)
+        most = 0
+        for m in ds.sim_ids():
+            ds._static_graph(m, ds.bucket_pad[ds.bucket_of[m]])
+            most = max(most, len(ds._static_graphs), len(ds._tables_cache))
+        mem[str(bound)] = {
+            "peak_bytes": torch.cuda.max_memory_allocated() - base,
+            "held_bytes": graph_bytes(ds._static_graphs.values()),
+            "static_graphs": len(ds._static_graphs),
+            "tables": len(ds._tables_cache), "most_entries": most}
+        if bound is not None and most > bound:
+            fail(f"14c: the caches held {most} entries, bound {bound}")
+    gaps = {}
+    for b, ids in enumerate(bucket_members(ds)):
+        kern, want = refs[b]
+        graph = to_static_bands(ds.get_batch([(m, 0) for m in ids]),
+                                derive_idx=False)
+        _, feats = kern.transform_rollout(graph)
+        got, _ = counted_rollout(kern, graph, feats)
+        same = {k: bool(torch.equal(got[k], want[k])) for k in want}
+        gaps[b] = same
+        if not all(same.values()):
+            fail(f"14c bucket {b}: the fields after eviction differ from "
+                 f"14b's: {same}")
+    say(f"phase 14c FluxD-buckets bounded caches (max_cached_graphs "
+        f"{BUCKET_CACHE}): every mesh visited, at most "
+        f"{mem[str(BUCKET_CACHE)]['most_entries']} static graphs and tables "
+        "held; each bucket's validation batch rebuilt after the evictions "
+        f"gives 14b's kernel-route fields bit for bit {json.dumps(gaps)}; "
+        "torch.cuda.max_memory_allocated over the visits, and the bytes the "
+        "static-graph cache holds after them, unbounded and bounded: "
+        + json.dumps(mem) + f"; card {device_line}")
+    return mem
+
+
+def bucket_phase(device, valid_ds, line: str) -> dict:
+    """Phase 14: 14a, its times, 14b and 14c. Returns the paths' records
+    (launches, rollout steps)."""
+    t14 = time.perf_counter()
+    trajs = bucket_data()
+    t_data = time.perf_counter() - t14
+    record, trainer, state, ds, cfg = bucket_training(trajs, valid_ds, line)
+    times = bucket_times(trainer, state, ds, cfg, line)
+    del trainer, state, ds
+    records = {"FluxD-buckets-train": {
+        "launches": {k: record["launches"][k] + times["launches"][k]
+                     for k in KERNELS},
+        "rollout_steps": record["rollout_steps"] + times["rollout_steps"]}}
+    valid, refs = bucket_validation(trajs, device, line)
+    records.update(valid)
+    bucket_caches(trajs, refs, device, line)
+    say(f"phase 14 card {line}; FluxD-buckets wall time "
+        f"{time.perf_counter() - t14:.1f} s (data {t_data:.1f} s)")
+    return records
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -4630,6 +5040,7 @@ def main() -> int:
     paths["FluxD-r5-dp"] = dp_phase(line)
     paths["FluxD-gen"] = gen_phase(dev, line)
     paths.update(spmd_phase(line))
+    paths.update(bucket_phase(dev, ds, line))
 
     bnd = bounds(graph)
     rows = []

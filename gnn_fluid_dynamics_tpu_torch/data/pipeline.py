@@ -1,12 +1,17 @@
 """Host-side data pipeline: trajectory store, sample map, padded batching.
 
-Counterpart of the in-memory part of ``gnn_fluid_dynamics_tpu/data/pipeline.py``:
-each trajectory is kept in host memory (numpy, time-major); every mesh is
-padded to one shape, that of the largest; the static batched geometry graph
-is built once per mesh combination and each batch swaps only its
-time-window fields in. With ``with_banded`` each mesh carries its own banded
-tables, and :func:`~gnn_fluid_dynamics_tpu_torch.graph.batch_graphs` brings a
-batch's tables to one band width.
+Counterpart of ``gnn_fluid_dynamics_tpu/data/pipeline.py``: each trajectory
+is held in host memory (numpy, time-major), or streamed from its HDF5 file
+(:func:`~gnn_fluid_dynamics_tpu_torch.data.hdf5.load_dataset_lazy`); the
+meshes are grouped by cell count into ``num_buckets`` size buckets, each
+padded to its largest mesh, and a batch within one bucket is padded to the
+bucket's shape, one that spans buckets to the largest mesh of all
+(``pad_to``). The static batched geometry graph is built once per mesh
+combination and each batch swaps only its time-window fields in. With
+``with_banded`` each mesh carries its own banded tables at its pad, and
+:func:`~gnn_fluid_dynamics_tpu_torch.graph.batch_graphs` brings a batch's
+tables to one band width. ``max_cached_graphs`` bounds the per-(mesh, pad)
+caches of static graphs and tables, for the streamed mode's bounded memory.
 
 Training reads it through the samplers of
 :mod:`gnn_fluid_dynamics_tpu_torch.data.samplers` and one of three feeds,
@@ -19,11 +24,13 @@ combination's whole trajectories held on the device once,
 Unlike the JAX package's workers, whose exception ends the epoch early
 without a word, a worker's exception is raised in the consuming thread.
 
-Not ported: the size buckets (``num_buckets``) and the per-pad canonical
-band offsets, which the JAX package keeps so that its compiled programs see
-few shapes; the out-of-core mode (``max_cached_graphs``) and the incidence
-tables of the ``"gather"`` backend (the port's graphs always carry their
-index vectors).
+Left out: the JAX package's canonical band offsets per pad
+(``_ensure_canon``, ``_canon_tables``), which give every mesh of a pad the
+same per-tile offsets so that its compiled programs see few shapes. The
+port's kernels read each tile's offset from the graph, and a canonical band
+can be wider than every mesh's own (ROADMAP §1, "Left out on purpose").
+Also left out: the incidence tables of the ``"gather"`` backend (the port's
+graphs always carry their index vectors).
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ import torch
 
 from gnn_fluid_dynamics_tpu_torch import resolve_device
 from gnn_fluid_dynamics_tpu_torch.graph import (FIELD_KEYS, MeshGraph,
+                                                banded_tables_for,
                                                 batch_graphs, from_geometry)
 from gnn_fluid_dynamics_tpu_torch.ops.mls import compute_mls_weights
 
@@ -80,8 +88,18 @@ def compute_window(timestep_stride: Optional[int],
 
 
 class MeshDataset:
-    """In-memory dataset over a set of trajectories, padded to one shape.
-    Graphs are built on ``device`` (the card unless ``device="cpu"``)."""
+    """A dataset over a set of trajectories, in memory or streamed, padded
+    by size bucket. Graphs are built on ``device`` (the card unless
+    ``device="cpu"``).
+
+    ``num_buckets`` (at most the number of meshes) groups the meshes by cell
+    count: a stable sort, cut into that many near-equal runs, each padded to
+    its largest mesh (``bucket_pad``, ``bucket_of``); ``pad_to`` is the pad
+    of all the meshes. ``max_cached_graphs``, where given, bounds the
+    per-(mesh, pad) caches of static graphs and banded tables as LRUs: pair
+    it with :func:`~gnn_fluid_dynamics_tpu_torch.data.hdf5.load_dataset_lazy`
+    so that a large dataset runs in bounded memory (reference
+    DataSet.py:127-172)."""
 
     def __init__(self, trajectories: Sequence[Trajectory],
                  stride: int = 1, data_window: int = 2,
@@ -89,10 +107,16 @@ class MeshDataset:
                  pad_multiple: int = 128,
                  with_banded: bool = False,
                  banded_dtype="float32",
+                 num_buckets: int = 1,
+                 max_cached_graphs: Optional[int] = None,
                  device="cuda"):
         if not trajectories:
             raise ValueError("a dataset needs at least one trajectory")
+        if max_cached_graphs is not None and max_cached_graphs < 1:
+            raise ValueError(f"max_cached_graphs {max_cached_graphs}: the "
+                             "caches need room for one graph")
         self.device = resolve_device(device)
+        self.max_cached_graphs = max_cached_graphs
         self.trajectories = list(trajectories)
         self.by_id = {t.mesh_id: t for t in self.trajectories}
         self.stride = stride
@@ -107,10 +131,26 @@ class MeshDataset:
             m = max(pad_multiple, 1)
             return ((n + m - 1) // m) * m
 
-        self.pad_to = {
-            key: rup(max(t.geom[f"{key}_pos"].shape[0]
-                         for t in self.trajectories))
-            for key in ("cell", "face", "vertex")}
+        def pad_of(members):
+            return {key: rup(max(t.geom[f"{key}_pos"].shape[0]
+                                 for t in members))
+                    for key in ("cell", "face", "vertex")}
+
+        # size buckets: meshes grouped by cell count, each bucket padded to
+        # its largest mesh (the JAX package's assignment, ties included)
+        num_buckets = min(num_buckets, len(self.trajectories))
+        sizes = np.array([t.geom["cell_pos"].shape[0]
+                          for t in self.trajectories])
+        order = np.argsort(sizes, kind="stable")
+        self.bucket_of: Dict[str, int] = {}
+        self.bucket_pad: List[Dict[str, int]] = []
+        for b, idxs in enumerate(np.array_split(order, max(num_buckets, 1))):
+            members = [self.trajectories[i] for i in idxs]
+            self.bucket_pad.append(pad_of(members))
+            for t in members:
+                self.bucket_of[t.mesh_id] = b
+        # the pad of a batch that spans buckets (the rollout's all-mesh one)
+        self.pad_to = pad_of(self.trajectories)
 
         num_ts = min(t.num_timesteps for t in self.trajectories)
         if timestep_range:
@@ -130,7 +170,10 @@ class MeshDataset:
         ]
         self.timestep_range = (start, end)
 
-        self._static_graphs: Dict[str, MeshGraph] = {}
+        # keyed (mesh_id,) + _pad_key(pad); LRUs bounded by max_cached_graphs
+        self._static_graphs: "OrderedDict[Tuple, MeshGraph]" = OrderedDict()
+        self._tables_cache: "OrderedDict[Tuple, object]" = OrderedDict()
+        # by mesh combination, whose pad _pad_for fixes
         self._batched_cache: Dict[Tuple[str, ...], MeshGraph] = {}
         self._batched_cache_size = 8
         # the indexed train path's trajectory stores, by mesh combination
@@ -145,33 +188,74 @@ class MeshDataset:
         return [t.mesh_id for t in self.trajectories]
 
     # ---- static geometry ---------------------------------------------------
-    def _static_graph(self, mesh_id: str) -> MeshGraph:
-        if mesh_id not in self._static_graphs:
-            t = self.by_id[mesh_id]
-            self._static_graphs[mesh_id] = from_geometry(
-                t.geom, fields=t.grad_weights, dt=t.dt * self.stride,
-                reynolds=t.reynolds,
-                pad_to=self.pad_to, with_banded=self.with_banded,
-                banded_dtype=self.banded_dtype, device=self.device)
-        return self._static_graphs[mesh_id]
+    @staticmethod
+    def _pad_key(pad: Dict[str, int]) -> Tuple[int, int, int]:
+        return (pad["cell"], pad["face"], pad["vertex"])
+
+    def _pad_for(self, mesh_ids) -> Dict[str, int]:
+        """The pad of a batch of ``mesh_ids``: their bucket's, or ``pad_to``
+        for a batch that spans buckets."""
+        buckets = {self.bucket_of[m] for m in mesh_ids}
+        if len(buckets) == 1:
+            return self.bucket_pad[buckets.pop()]
+        return self.pad_to
+
+    def _lru_put(self, cache: OrderedDict, key, value):
+        cache[key] = value
+        cache.move_to_end(key)
+        if self.max_cached_graphs is not None:
+            while len(cache) > self.max_cached_graphs:
+                cache.popitem(last=False)
+        return value
+
+    def _build_tables(self, mesh_id: str, pad: Dict[str, int]):
+        return banded_tables_for(self.by_id[mesh_id].geom, pad)
+
+    def _tables_put(self, key, value):
+        return self._lru_put(self._tables_cache, key, value)
+
+    def _tables_for(self, mesh_id: str, pad: Dict[str, int]):
+        """The mesh's own banded tables at ``pad`` (not rebased onto
+        offsets shared with other meshes: see the module's docstring)."""
+        key = (mesh_id,) + self._pad_key(pad)
+        if key in self._tables_cache:
+            self._tables_cache.move_to_end(key)
+            return self._tables_cache[key]
+        return self._tables_put(key, self._build_tables(mesh_id, pad))
+
+    def _static_graph(self, mesh_id: str, pad: Dict[str, int]) -> MeshGraph:
+        key = (mesh_id,) + self._pad_key(pad)
+        if key in self._static_graphs:
+            self._static_graphs.move_to_end(key)
+            return self._static_graphs[key]
+        t = self.by_id[mesh_id]
+        return self._lru_put(self._static_graphs, key, from_geometry(
+            t.geom, fields=t.grad_weights, dt=t.dt * self.stride,
+            reynolds=t.reynolds, pad_to=pad, with_banded=self.with_banded,
+            banded_dtype=self.banded_dtype,
+            banded_tables=(self._tables_for(mesh_id, pad)
+                           if self.with_banded else None),
+            device=self.device))
 
     def _batched_static(self, mesh_ids: Tuple[str, ...]) -> MeshGraph:
         if mesh_ids not in self._batched_cache:
+            pad = self._pad_for(mesh_ids)
             while len(self._batched_cache) >= self._batched_cache_size:
                 self._batched_cache.pop(next(iter(self._batched_cache)))
             self._batched_cache[mesh_ids] = batch_graphs(
-                [self._static_graph(m) for m in mesh_ids])
+                [self._static_graph(m, pad) for m in mesh_ids])
         return self._batched_cache[mesh_ids]
 
     # ---- field windows -----------------------------------------------------
-    def _window(self, mesh_id: str, ts: int) -> Dict[str, np.ndarray]:
+    def _window(self, mesh_id: str, ts: int,
+                pad: Dict[str, int]) -> Dict[str, np.ndarray]:
         t = self.by_id[mesh_id]
         out = {}
         for key in FIELD_KEYS:
             if key not in t.fields:
                 continue
             arr = t.fields[key][ts:ts + self.data_window]       # (W, N, D)
-            npad = self.pad_to["cell" if key.startswith("cell") else "face"]
+            npad = pad["cell" if key.startswith("cell") else "face"]
             x = np.transpose(arr, (1, 0, 2))                    # (N, W, D)
             if x.shape[0] < npad:
                 x = np.pad(x, ((0, npad - x.shape[0]), (0, 0), (0, 0)))
@@ -179,10 +263,12 @@ class MeshDataset:
         return out
 
     def get_batch(self, samples: Sequence[Tuple[str, int]]) -> MeshGraph:
-        """One batched MeshGraph for [(mesh_id, ts), ...]."""
+        """One batched MeshGraph for [(mesh_id, ts), ...], at the batch's
+        pad (:meth:`_pad_for`)."""
         mesh_ids = tuple(m for m, _ in samples)
         g = self._batched_static(mesh_ids)
-        winds = [self._window(m, ts) for m, ts in samples]
+        pad = self._pad_for(mesh_ids)
+        winds = [self._window(m, ts, pad) for m, ts in samples]
         updates = {}
         for key in FIELD_KEYS:
             if key in winds[0]:
@@ -209,9 +295,10 @@ class MeshDataset:
             raise ValueError("the batches of a stack must share one mesh "
                              "combination")
         g = self._batched_static(mesh_ids)
+        pad = self._pad_for(mesh_ids)
         per_key: Dict[str, list] = {}
         for sb in sample_batches:
-            winds = [self._window(m, ts) for m, ts in sb]
+            winds = [self._window(m, ts, pad) for m, ts in sb]
             for key in FIELD_KEYS:
                 if key in winds[0]:
                     per_key.setdefault(key, []).append(
@@ -222,13 +309,15 @@ class MeshDataset:
     # ---- device-resident trajectory fields ----------------------------------
     def estimate_device_field_bytes(self) -> int:
         """Bytes the whole dataset's trajectory fields take on the device,
-        padded, in f32: the budget check of the indexed train path."""
+        each mesh padded to its bucket's pad, in f32: the budget check of
+        the indexed train path."""
         total = 0
         for t in self.trajectories:
+            pad = self.bucket_pad[self.bucket_of[t.mesh_id]]
             for key, arr in t.fields.items():
                 if key not in FIELD_KEYS:
                     continue
-                npad = self.pad_to["cell" if key.startswith("cell") else "face"]
+                npad = pad["cell" if key.startswith("cell") else "face"]
                 total += arr.shape[0] * npad * arr.shape[2] * 4
         return total
 
@@ -236,20 +325,22 @@ class MeshDataset:
                       ) -> Dict[str, torch.Tensor]:
         """The whole trajectories of one mesh combination (a mesh may appear
         more than once) on the dataset's device, ``{key: (T, B*Npad, D)}``
-        f32 in batch layout, zero-padded, ``T`` the combination's shortest
-        trajectory; kept in an LRU of 16 combinations. With a fixed-chunk
+        f32 in batch layout, zero-padded to the combination's pad, ``T``
+        the combination's shortest trajectory; kept in an LRU of 16
+        combinations. With a fixed-chunk
         sampler each combination is copied once for the whole run, and the
         indexed train step gathers its windows there."""
         cache = self._device_fields_cache
         if mesh_ids in cache:
             cache.move_to_end(mesh_ids)
             return cache[mesh_ids]
+        pad = self._pad_for(mesh_ids)
         T = min(self.by_id[m].num_timesteps for m in mesh_ids)
         out = {}
         for key in FIELD_KEYS:
             if not all(key in self.by_id[m].fields for m in mesh_ids):
                 continue
-            npad = self.pad_to["cell" if key.startswith("cell") else "face"]
+            npad = pad["cell" if key.startswith("cell") else "face"]
             rows = []
             for m in mesh_ids:
                 x = np.asarray(self.by_id[m].fields[key][:T])
@@ -266,15 +357,16 @@ class MeshDataset:
                           keys: Sequence[str] = FIELD_KEYS
                           ) -> Dict[str, np.ndarray]:
         """Padded/batched ground-truth stacks (T, sum_N, D) of every requested
-        field present in all the trajectories; row i is the state at
-        t0 + (i+1)*stride."""
+        field present in all the trajectories, at the batch's pad
+        (:meth:`_pad_for`); row i is the state at t0 + (i+1)*stride."""
+        pad = self._pad_for(mesh_ids)
         keys = [k for k in keys
                 if all(k in self.by_id[m].fields for m in mesh_ids)]
         out: Dict[str, List[np.ndarray]] = {k: [] for k in keys}
         for i in range(num_steps):
             ts = t0 + (i + 1) * self.stride
             for k in keys:
-                npad = self.pad_to["cell" if k.startswith("cell") else "face"]
+                npad = pad["cell" if k.startswith("cell") else "face"]
                 rows = []
                 for m in mesh_ids:
                     x = self.by_id[m].fields[k][ts]
@@ -286,20 +378,20 @@ class MeshDataset:
                            num_steps: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """(T, sum_C, 2) cell velocity + (T, sum_C, 1) pressure ground truth
         on the dataset's device, padded/batched to match a ``get_batch``
-        graph; row i is the state at t0 + (i+1)*stride."""
+        graph (at its pad); row i is the state at t0 + (i+1)*stride."""
         f = self.trajectory_fields(mesh_ids, t0, num_steps,
                                    keys=("cell_velocity", "cell_pressure"))
         return tuple(torch.from_numpy(np.ascontiguousarray(
             f[k], np.float32)).to(self.device)
             for k in ("cell_velocity", "cell_pressure"))
 
-
     # ---- MLS weights -------------------------------------------------------
     def add_grad_weights(self, loc: str, poly_order: int):
         """MLS gradient weights of order ``poly_order`` for each mesh's
         ``loc`` ("cell" or "face") centers, where a mesh has none yet
         (reference ``MovingLeastSquaresWeights.add_weights_to_dataset``,
-        maths.py:34-107); the graphs built so far are dropped."""
+        maths.py:34-107); the graphs built so far are dropped (the tables
+        do not depend on the weights and stay)."""
         for t in self.trajectories:
             wkey = f"{loc}_grad_weights"
             if wkey in t.grad_weights:
@@ -313,12 +405,19 @@ class MeshDataset:
 
 def train_batches(dataset: MeshDataset, batch_size: int,
                   rng: np.random.Generator):
-    """Shuffled training batches of (mesh_id, ts) samples, the last partial
-    one dropped, in batch order shuffled (the JAX package's
-    ``train_batches``; without size buckets every sample is in one)."""
-    order = rng.permutation(len(dataset.sample_map))
-    batches = [[dataset.sample_map[j] for j in order[i:i + batch_size]]
-               for i in range(0, len(order) - batch_size + 1, batch_size)]
+    """Shuffled training batches of (mesh_id, ts) samples, each within one
+    size bucket: the samples grouped by bucket in the order the buckets are
+    first met, each bucket's permuted and cut into whole batches (its last
+    partial one dropped), then all the batches permuted. The JAX package's
+    ``train_batches``, drawing from ``rng`` in its order."""
+    by_bucket: Dict[int, list] = {}
+    for sample in dataset.sample_map:
+        by_bucket.setdefault(dataset.bucket_of[sample[0]], []).append(sample)
+    batches = []
+    for samples in by_bucket.values():
+        order = rng.permutation(len(samples))
+        for i in range(0, len(order) - batch_size + 1, batch_size):
+            batches.append([samples[j] for j in order[i:i + batch_size]])
     for i in rng.permutation(len(batches)):
         yield batches[i]
 

@@ -1,7 +1,8 @@
 """Batch sampling strategies (reference ``src/utils/sampler.py``): a copy of
 ``gnn_fluid_dynamics_tpu/data/samplers.py`` (numpy only; the port imports
-nothing of the JAX package). The port's ``MeshDataset`` has no size buckets,
-so ``bucket_of`` is absent and every mesh falls in bucket 0.
+nothing of the JAX package). The chunked samplers keep each chunk within
+one of ``MeshDataset.bucket_of``'s size buckets (a dataset without it counts
+as one bucket), so that every batch has one pad.
 
 The pipeline's batches are lists of (mesh_id, timestep) samples fed to
 ``MeshDataset.get_batch``; these functions generate the orders:

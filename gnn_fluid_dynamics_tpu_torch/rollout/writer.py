@@ -40,7 +40,8 @@ def _host(arr) -> np.ndarray:
 class SimulationWriter:
     """Write rollout results and their ground truth in the reference's
     layout, for the meshes ``sim_ids`` of ``dataset`` batched in that order
-    (each padded to the dataset's one pad)."""
+    (each padded to the batch's pad, ``dataset._pad_for(sim_ids)``: a set
+    of meshes within one size bucket is padded to the bucket's)."""
 
     def __init__(self, path: str, dataset, sim_ids: Sequence[str]):
         import h5py
@@ -63,7 +64,8 @@ class SimulationWriter:
         every ``save_frequency``-th step is kept, and the predictions and
         ``_gt`` datasets are written under ``cell/``/``face/``
         (simulation_data.py:96-211), in f32."""
-        pad = self.dataset.pad_to
+        # the pad get_batch gave this batch of meshes
+        pad = self.dataset._pad_for(self.sim_ids)
         keep = list(range(0, len(timesteps), save_frequency))
         items = [(key, _host(arr), "") for key, arr in fields.items()]
         if ground_truth is not None:

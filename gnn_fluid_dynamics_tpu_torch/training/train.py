@@ -17,9 +17,10 @@ read its cache), loads ``--resume`` and honours ``GFD_EPOCH_LIMIT``; rank 0
 alone builds the validation set, the logger, the monitor and the
 checkpoints it writes. Data comes from the ``synthetic`` module (Taylor-Green
 trajectories) or, for any other module, from the reference-layout HDF5 files
-``<dataset.dpath>/<subset>.h5`` read into memory (the out-of-core mode is
-not ported: ``dataset.lazy`` true raises, and so does ``dataset.num_buckets``
-above 1, the size buckets not being ported either). ``--resume`` and a
+``<dataset.dpath>/<subset>.h5``, read into memory or, with ``dataset.lazy``
+(by default once a subset holds more than ``dataset.cache_meshes`` meshes),
+streamed through the out-of-core store; the meshes are padded in
+``dataset.num_buckets`` size buckets. ``--resume`` and a
 warm start from ``model.fpath`` read this package's checkpoints, those
 converted from the JAX package's included
 (``scripts/torch_convert_flax_checkpoint.py``).
@@ -47,26 +48,24 @@ def build_datasets(config, model_cls, splits=("train", "valid"),
     ``dataset.module`` "synthetic" makes Taylor-Green trajectories; any
     other reads ``<dataset.dpath>/<subset>.h5`` (the OpenFOAM modules' face
     flux divided by 0.001, as the reference loads it), the validation split
-    the meshes ``rollout.data_sim_index`` where given. With a banded
-    aggregation the meshes are RCM-ordered, as in the JAX package, and the
-    validation split carries the banded tables its rollout reads (K6/K7 on
-    the card); the training split carries none, since the train step takes
-    the plain route. A model that asks for MLS weights gets them, of the
-    configured order or 1."""
+    the meshes ``rollout.data_sim_index`` where given. The file is streamed
+    through the out-of-core store (``data/hdf5.py::load_dataset_lazy``, an
+    LRU of ``dataset.cache_meshes`` geometry arrays, and the datasets' graph
+    caches bounded at as many) where ``dataset.lazy`` is true, or, with it
+    unset, where the subset (its ``sim_limit`` meshes, or all of the file's)
+    holds more than ``dataset.cache_meshes`` meshes, as the JAX package
+    decides. With a banded aggregation the meshes are RCM-ordered, as in
+    the JAX package (a streamed mesh's fields permuted on read and its
+    reordered geometry one entry of the store's LRU), and the validation
+    split carries the banded tables its rollout reads (K6/K7 on the card);
+    the training split carries none, since the train step takes the plain
+    route. Both are padded in ``dataset.num_buckets`` size buckets. A model
+    that asks for MLS weights gets them, of the configured order or 1."""
     from gnn_fluid_dynamics_tpu_torch.data.pipeline import (MeshDataset,
                                                             Trajectory,
                                                             compute_window)
     from gnn_fluid_dynamics_tpu_torch.ops.reorder import (rcm_reorder_geometry,
                                                           reorder_fields)
-    if config.dataset.lazy:
-        raise NotImplementedError(
-            "dataset.lazy: the out-of-core HDF5 store is not ported yet "
-            "(ROADMAP §1 item 4); the port reads the files into memory")
-    if (config.dataset.num_buckets or 1) > 1:
-        raise NotImplementedError(
-            f"dataset.num_buckets = {config.dataset.num_buckets}: the size "
-            "buckets are not ported yet (ROADMAP §1 item 4); the port pads "
-            "every mesh to the largest")
 
     stride, window = compute_window(config.model.timestep_stride,
                                     config.training.pushforward_factor,
@@ -90,26 +89,55 @@ def build_datasets(config, model_cls, splits=("train", "valid"),
         return trajs
 
     def hdf5(subset, sim_limit, sim_index):
-        from gnn_fluid_dynamics_tpu_torch.data.hdf5 import load_dataset
+        """(trajectories, whether they stream)."""
+        from gnn_fluid_dynamics_tpu_torch.data import hdf5 as store
         flux_scale = (1.0 / 0.001 if "openfoam" in config.dataset.module.lower()
                       else 1.0)
-        return load_dataset(os.path.join(config.dataset.dpath, subset + ".h5"),
-                            sim_limit=sim_limit, sim_index=sim_index,
-                            flux_scale=flux_scale,
-                            shuffle=config.dataset.shuffle)
+        path = os.path.join(config.dataset.dpath, subset + ".h5")
+        lazy = config.dataset.lazy
+        if lazy is None:
+            # auto: stream a subset larger than the caches' bound
+            with store.require_h5py().File(path, "r") as f:
+                n_avail = sum(1 for k in f if k.startswith("mesh"))
+            lazy = (sim_limit or n_avail) > config.dataset.cache_meshes
+        kw = ({"cache_entries": config.dataset.cache_meshes} if lazy else {})
+        loader = store.load_dataset_lazy if lazy else store.load_dataset
+        return loader(path, sim_limit=sim_limit, sim_index=sim_index,
+                      flux_scale=flux_scale, shuffle=config.dataset.shuffle,
+                      **kw), bool(lazy)
+
+    def rcm(t):
+        """``t`` relabeled by RCM, in place; a streamed trajectory lazily:
+        its permutations computed once, its fields permuted on read, its
+        reordered geometry made on demand into the store's LRU."""
+        from gnn_fluid_dynamics_tpu_torch.data.hdf5 import (
+            LazyGeom, PermutedLazyArray, TransformedLazyGeom)
+        from gnn_fluid_dynamics_tpu_torch.ops.reorder import perms_from_pos
+        if isinstance(t.geom, LazyGeom):
+            new_geom = rcm_reorder_geometry(
+                {k: t.geom[k] for k in t.geom.keys()})
+            cperm, fperm = perms_from_pos(t.geom, new_geom)
+            t.fields = {k: PermutedLazyArray(
+                v, cperm if k.startswith("cell") else fperm)
+                for k, v in t.fields.items()}
+            t.geom = TransformedLazyGeom(t.geom, rcm_reorder_geometry,
+                                         "__rcm__")
+        else:
+            new_geom = rcm_reorder_geometry(t.geom)
+            t.fields = reorder_fields(t.fields, t.geom, new_geom)
+            t.geom = new_geom
 
     def load(subset, sim_limit, timestep_range, stride, window, with_banded,
              sim_index=None):
+        lazy = False
         if config.dataset.module == "synthetic":
             trajs = synthetic(sim_limit, timestep_range, window)
         else:
-            trajs = hdf5(subset, sim_limit, sim_index)
+            trajs, lazy = hdf5(subset, sim_limit, sim_index)
         if banded:
             # RCM relabeling narrows the aggregation bands
             for t in trajs:
-                new_geom = rcm_reorder_geometry(t.geom)
-                t.fields = reorder_fields(t.fields, t.geom, new_geom)
-                t.geom = new_geom
+                rcm(t)
         return MeshDataset(trajs, stride=stride, data_window=window,
                            timestep_range=timestep_range,
                            pad_multiple=config.training.pad_multiple,
@@ -117,6 +145,9 @@ def build_datasets(config, model_cls, splits=("train", "valid"),
                            banded_dtype=("bfloat16"
                                          if config.model.compute_dtype
                                          == "bfloat16" else "float32"),
+                           num_buckets=config.dataset.num_buckets,
+                           max_cached_graphs=(config.dataset.cache_meshes
+                                              if lazy else None),
                            device=device)
 
     train_ds = load(config.training.data_subset,
@@ -298,7 +329,9 @@ def _main(args, device):
         config, type(model), splits=("train", "valid") if lead else ("train",),
         device=device)
     print(f"Train dataset: {len(train_ds)} samples over "
-          f"{len(train_ds.trajectories)} meshes")
+          f"{len(train_ds.trajectories)} meshes (bucket {train_ds.pad_to}"
+          + (f", bucket pads {train_ds.bucket_pad}"
+             if len(train_ds.bucket_pad) > 1 else "") + ")")
 
     if resume_meta and "stats" in resume_meta:
         stats = resume_meta["stats"]

@@ -605,12 +605,6 @@ def test_build_datasets_reads_hdf5_as_jax(tmp_path):
     assert dt.with_banded and dt.timestep_range == (0, 3)
 
 
-def test_lazy_datasets_are_refused():
-    cfg = Config.from_dict({"dataset": {"module": "openfoam", "lazy": True}})
-    with pytest.raises(NotImplementedError, match="out-of-core"):
-        build_datasets(cfg, FluxD, splits=("valid",), device="cpu")
-
-
 # ---- loading shims -----------------------------------------------------------
 
 def test_backward_compatibility_renames_decoder():

@@ -379,19 +379,3 @@ def test_train_main_needs_a_card_unless_asked_for_the_cpu(tmp_path,
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(["--config", SYNTHETIC])
     assert not os.path.exists(tmp_path / "runs")
-
-
-def test_unported_training_options_raise(tmp_path):
-    """The size buckets (which the JAX package would use to pad each
-    batch to its bucket) and the out-of-core store raise where the
-    datasets are built, naming ROADMAP's item."""
-    cfg = load_config(SYNTHETIC)
-    model = train.build_model(cfg, "cpu")
-    cfg.dataset.num_buckets = 2
-    with pytest.raises(NotImplementedError, match="num_buckets.*item 4"):
-        train.build_datasets(cfg, type(model), device="cpu")
-    cfg = load_config(SYNTHETIC)
-    cfg.dataset.module = "openfoam"
-    cfg.dataset.lazy = True
-    with pytest.raises(NotImplementedError, match="item 4"):
-        train.build_datasets(cfg, type(model), device="cpu")
