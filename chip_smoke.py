@@ -33,7 +33,11 @@ Phases (each prints one flushed line; any failure exits non-zero):
    edge latents at the mesh and the batch, K6's roll form on 256-wide and
    K7 on 128-wide sources on the batch's tables; K6 and K7 also
    with a NaN source row that a tile's weights skip, whose NaN must reach
-   the same places as in the plain version; K7 and its library call timed
+   the same places as in the plain version; K6 and K7 in every form and
+   table type also on tables past the bands they held whole before they
+   streamed them (``wide_band_phase``: phase 14b's smallest mesh at its
+   all-mesh pad, es 15,616 rows, and FluxD-valid's vc widened to 1,920),
+   timed beside their bounds, with a NaN case there; K7 and its library call timed
    also with L2 flushed between launches; the launch floor (an empty kernel
    back to back, with and without the programmatic dependent launch
    attribute K3 and K5 launch with); and the PDL hazard checks: for 200
@@ -269,8 +273,8 @@ Phases (each prints one flushed line; any failure exits non-zero):
     * 13d the same for FluxD on the table route (the trainer's validation
       route): the bench mesh padded to 128 rows with int8 tables, each
       rank on its own tables built from its local index tables (their
-      band widths printed per rank, each within TABLE_MAX_BAND); K6 30 and
-      K7 15 a step a rank, the other kernels none;
+      band widths printed per rank); K6 30 and K7 15 a step a rank, the
+      other kernels none;
     * 13e ConservativeH (its MLPs f32) on the index route, K3 and K5 in
       their 256-lane form 15 each a step a rank; 13e' on 13d's table
       route, K6's wide roll form and K7's wide form 15 each;
@@ -304,11 +308,11 @@ Phases (each prints one flushed line; any failure exits non-zero):
     * 14b each bucket's validation batch at its pad on the table route
       (int8 tables) held against the plain route (and its index route)
       within STEP_TOL, K6 30 and K7 15 a step over a CHECK_STEPS-step
-      rollout, its band widths and each mesh's within TABLE_MAX_BAND; then
-      every mesh at ``pad_to``: a small mesh's tables there are wider than
-      K6 and K7 take, which refuse them (no fallback, nothing launched),
-      and that batch is held against the plain route on the index route
-      (fused K1-K3 15 each a step);
+      rollout, its band widths and each mesh's; then every mesh at
+      ``pad_to`` in one batch on the table route the same way (a small
+      mesh's bands there pass 1,792 rows), with its tables' bytes, a
+      device profile of ALL_MESH_PROFILE_STEPS steps and the host's peak
+      memory;
     * 14c the dataset again with ``max_cached_graphs`` BUCKET_CACHE: every
       mesh's graph visited (at most BUCKET_CACHE static graphs and tables
       held), the peak memory of the visits and the cache's bytes beside
@@ -336,11 +340,13 @@ import itertools
 import json
 import os
 import pathlib
+import resource
 import shutil
 import subprocess
 import sys
 import tempfile
 import time
+import types
 import warnings
 from unittest import mock
 
@@ -518,6 +524,7 @@ FUSED_EPOCHS = 2
 FUSED_WARMUP_EPOCHS = 1    # epoch 1 the warm slice, epoch 2 the pushforward
 FUSED_MINI_EPOCH = 40      # samples: 10 steps, a boundary inside each call
 FUSED_LOSS_WINDOW = 10     # epoch 1's first and last steps averaged
+                           # (on the combination it began with)
 FUSED_TIMED_CALLS = 3      # 10c: calls of each kind, in turns
 # 10b: should an op of the step have no deterministic CUDA implementation
 # (warned under use_deterministic_algorithms(True, warn_only=True)), the
@@ -565,6 +572,7 @@ BUCKET_STATES = 19         # 16 windows of 4 a mesh: calls 16, 16 an epoch
 BUCKET_TIMED_STEPS = 4     # pushforward steps a timed call
 BUCKET_TIMED_ROUNDS = 3    # timed calls of each, in turns
 BUCKET_CACHE = 2           # 14c's max_cached_graphs
+ALL_MESH_PROFILE_STEPS = 3  # 14b: the all-mesh batch's profiled steps
 # phase 12: the port's generation chain (scripts/datagen_r5.sh's: the inflow
 # regime, dt 0.01, seed 0, the built-in solver) feeding the fluxd-r5 recipe
 GEN_DIR = os.path.join(SMOKE_DIR, "gen")
@@ -816,6 +824,17 @@ WIDENED = {("K6_table_dual", "es_roll896"): 896,
 # the forms beside the FluxD-valid path's, held and timed but not in a
 # kernel's top-level numbers
 OFF_PATH_FORMS = (*WIDENED, *WIDE_TABLE_FORMS)
+# the widest band K6 and K7 held whole before they streamed it; phase 2 and
+# 14b run bands past it
+WHOLE_BAND_ROWS = 1792
+# phase 2 past WHOLE_BAND_ROWS (wide_band_phase): the forms run on the
+# smallest phase 14 mesh's tables at the all-mesh pad, and the band K7's
+# two forms take on FluxD-valid's vc tables widened to it (past 896, the
+# widest band K7's 128-lane form held whole)
+WIDE_BAND_FORMS = (("K6_table_dual", "es_roll"), ("K6_table_dual", "cf"),
+                   ("K6_table_dual", "es_roll_wide"),
+                   ("K7_table_single", "vc"), ("K7_table_single", "vc_wide"))
+WIDE_VC_BAND = 1920
 
 
 def table_form_bound(vg, form, tables) -> tuple:
@@ -932,6 +951,32 @@ def nan_case(what, kern, plain, tables, off, src) -> dict:
     return {"source_row": row, "tile": t, "n_nan": n_nan, "max_abs_err": err}
 
 
+def table_fns(form, tables, off):
+    """The kernel of ``form`` (a TABLE_FORMS key) and its plain version on
+    ``tables`` and ``off``, each a function of the source; and the library
+    yardstick on a source, one ``torch.bmm`` of the tables as one bf16 (T,
+    rows, B) batch by the stacked bands (T, B, W), both made beforehand."""
+    name, roll = form[0], TABLE_FORMS[form][2]
+    if name == "K7_table_single":
+        def kern(s):
+            return kernels.table_single(*tables, off, s)
+
+        def plain(s):
+            return kernels.table_single_ref(*tables, off, s)
+    else:
+        def kern(s):
+            return kernels.table_dual(*tables, off, s, roll)
+
+        def plain(s):
+            return kernels.table_dual_ref(*tables, off, s, roll)
+
+    def library(s):
+        oh = torch.cat([t.to(torch.bfloat16) for t in tables], dim=1)
+        idx = off.long()[:, None] + torch.arange(oh.shape[2], device=s.device)
+        return functools.partial(torch.bmm, oh, s[idx])
+    return kern, plain, library
+
+
 def table_phase(vg) -> dict:
     """K6 (es/er with the roll, cf without) and K7 (vc) on the FluxD-valid
     batch's own tables, int8 as the path runs them and once more cast to
@@ -967,30 +1012,13 @@ def table_phase(vg) -> dict:
                            for t in tables]
                 tables = tuple(t for t, _ in widened)
                 off = widened[0][1]
-            # the kernel and its plain version as functions of the source
-            if name == "K7_table_single":
-                def kern(s, tables=tables, off=off):
-                    return kernels.table_single(*tables, off, s)
-
-                def plain(s, tables=tables, off=off):
-                    return kernels.table_single_ref(*tables, off, s)
-            else:
-                def kern(s, tables=tables, off=off, roll=roll):
-                    return kernels.table_dual(*tables, off, s, roll)
-
-                def plain(s, tables=tables, off=off, roll=roll):
-                    return kernels.table_dual_ref(*tables, off, s, roll)
+            kern, plain, library = table_fns(form, tables, off)
             run = functools.partial(kern, src)
             ref = functools.partial(plain, src)
             err = _compare(f"{name} {fname} {tdt_name}", run(), ref(),
                            exact=fname == "cf")
-            # the library yardstick: the tables as one bf16 (T, rows, B)
-            # batch, times the bands (T, B, W), stacked beforehand
-            oh = torch.cat([t.to(torch.bfloat16) for t in tables], dim=1)
-            idx = off.long()[:, None] + torch.arange(oh.shape[2], device=dev)
-            bands = src[idx]
             nbytes, flops = table_form_bound(vg, form, tables)
-            lib = functools.partial(torch.bmm, oh, bands)
+            lib = library(src)
             results[(name, fname, tdt_name)] = r = {
                 "max_abs_err": err, "ms": gpu_ms(run), "plain_ms": gpu_ms(ref),
                 "library_ms": gpu_ms(lib),
@@ -998,7 +1026,7 @@ def table_phase(vg) -> dict:
             if name == "K7_table_single":
                 r["ms_l2_flushed"] = gpu_ms_flushed(run)
                 r["library_ms_l2_flushed"] = gpu_ms_flushed(lib)
-            del oh, bands, lib
+            del lib
             if tdt_name == "int8" and form not in WIDENED:
                 results[(name, fname, "nan")] = nan_case(
                     f"{name} {fname}", kern, plain, tables, off, src)
@@ -1028,6 +1056,81 @@ def table_phase(vg) -> dict:
                 f"{f}_int8" for (n, f) in TABLE_FORMS
                 if n == name and (n, f) not in OFF_PATH_FORMS)}
     return out
+
+
+def wide_band_phase(trajs, vg) -> dict:
+    """K6 and K7 on tables past WHOLE_BAND_ROWS (896 rows for K7's 128-lane
+    form), whose bands they stream: the smallest of phase 14's meshes with
+    its own tables at the all-mesh ``pad_to`` of phase 14b (``trajs``),
+    every form of WIDE_BAND_FORMS on them, and K7's two forms on the
+    FluxD-valid batch's vc tables widened to WIDE_VC_BAND. Each int8 as the
+    path runs them and cast to bf16 and f32, on seeded bf16 sources, held
+    against its plain version as ``table_phase`` holds them (the cf form
+    exactly) and timed beside its bound; the int8 tables also beside the
+    plain version's time and one ``torch.bmm``, and the es roll form on
+    them with a NaN source row (``nan_case``). Returns {"forms": {label:
+    record}, "nan": ..., "bands": ..., ...}, a label ``<form>@<band>_<table
+    type>``."""
+    dev = vg.device
+    pad = MeshDataset(trajs, num_buckets=BUCKETS, device=dev).pad_to
+    small = min(trajs, key=lambda t: t.geom["cell_pos"].shape[0])
+    t0 = time.perf_counter()
+    host = banded_tables_for(small.geom, pad)
+    built_s = time.perf_counter() - t0
+    wide = {k: torch.from_numpy(getattr(host, k)).to(dev).to(torch.int8)
+            for k in ("es_onehot", "er_onehot", "vc_onehot", "cf_row_onehot",
+                      "cf_col_onehot")}
+    for group in ("es", "vc", "cf"):
+        wide[f"{group}_off"] = torch.tensor(getattr(host, f"{group}_offsets"),
+                                            dtype=torch.int32, device=dev)
+    del host
+    sizes = types.SimpleNamespace(num_faces=pad["face"], num_cells=pad["cell"],
+                                  num_vertices=pad["vertex"])
+    cases = [(form, sizes, tuple(wide[k] for k in TABLE_FORMS[form][0]),
+              wide[TABLE_FORMS[form][0][0].split("_")[0] + "_off"])
+             for form in WIDE_BAND_FORMS]
+    widened = widen_band(vg.vc_onehot, vg.vc_off, WIDE_VC_BAND,
+                         vg.num_vertices)
+    cases += [((name, fname), vg, (widened[0],), widened[1])
+              for name, fname in TABLE_FORMS
+              if name == "K7_table_single" and fname in ("vc", "vc_wide")]
+    rng = np.random.default_rng(2)
+    srcs = {}
+    forms, nan = {}, {}
+    for form, rows, tables8, off in cases:
+        (name, fname), (_, count, _, width) = form, TABLE_FORMS[form]
+        n = getattr(rows, count)
+        if n not in srcs:
+            srcs[n] = torch.from_numpy(rng.normal(size=(n, 2 * H)).astype(
+                np.float32)).to(dev, torch.bfloat16)
+        src = srcs[n][:, :width].contiguous()
+        band = tables8[0].shape[2]
+        for tdt_name, tdt in TABLE_TYPES.items():
+            tables = tuple(t.to(tdt) for t in tables8)
+            kern, plain, library = table_fns(form, tables, off)
+            label = f"{fname}@{band}_{tdt_name}"
+            run = functools.partial(kern, src)
+            err = _compare(f"{name} {label}", run(), plain(src),
+                           exact=fname == "cf")
+            nbytes, flops = table_form_bound(rows, form, tables)
+            b_ms, b_by, _, _ = _bound(nbytes, flops, PEAK_F32_FLOPS)
+            r = forms[(name, label)] = {
+                "max_abs_err": err, "ms": gpu_ms(run), "bound_ms": b_ms,
+                "bound_by": b_by, "bytes": nbytes, "flops": flops}
+            if tdt_name == "int8":
+                r["plain_ms"] = gpu_ms(functools.partial(plain, src))
+                r["library_ms"] = gpu_ms(library(src))
+                if fname == "es_roll" and rows is sizes:
+                    nan[(name, f"{fname}@{band}")] = nan_case(
+                        f"{name} {fname}@{band}", kern, plain, tables, off,
+                        src)
+            del tables
+    return {"forms": forms, "nan": nan, "mesh": small.mesh_id, "pad_to": pad,
+            "tables_built_s": built_s,
+            "bands": {k: wide[k].shape[2] for k in ("es_onehot", "vc_onehot",
+                                                    "cf_row_onehot")},
+            "table_bytes": sum(wide[k].numel() for k in wide
+                               if k.endswith("onehot"))}
 
 
 def kernel_phase(graph, index_graph) -> dict:
@@ -2746,7 +2849,8 @@ def fused_training(train_ds, valid_ds, device_line: str, cfg=None,
     large as ``estimate_device_field_bytes``; no kernel in a warm-up call,
     and in a pushforward call only the unroll's rollout-mode forwards on
     the fused route (K1-K3 15 each a forward, PF forwards a step); each
-    validation phase 5's launches; the losses finite, epoch 1's falling.
+    validation phase 5's launches; the losses finite, epoch 1's falling
+    on the combination of meshes it began with.
     With ``checkpointer``, a checkpoint at the last mini-epoch; with
     ``timer`` (a ``profiling.StepTimer``), each call and each validation
     timed in its sections ``train_call/epoch <e>`` and ``validate``, the card
@@ -2860,11 +2964,17 @@ def fused_training(train_ds, valid_ds, device_line: str, cfg=None,
     if (not all(np.isfinite(v).all() for v in by_epoch.values())
             or len(mini) != want_me or not np.isfinite(mini).all()):
         fail(f"{name}: losses by epoch {by_epoch}, mini-epochs {mini}")
-    first = float(np.mean(by_epoch[1][:FUSED_LOSS_WINDOW]))
-    last = float(np.mean(by_epoch[1][-FUSED_LOSS_WINDOW:]))
+    # epoch 1's steps on the combination it began with: with size buckets
+    # (14a) its first steps are one bucket's meshes and its last another's,
+    # whose losses are not comparable
+    begun = torch.cat([c["losses"] for c in calls if c["epoch"] == 1
+                       and c["combo"] == calls[0]["combo"]]).tolist()
+    first = float(np.mean(begun[:FUSED_LOSS_WINDOW]))
+    last = float(np.mean(begun[-FUSED_LOSS_WINDOW:]))
     if not last < first:
         fail(f"{name}: epoch 1's mean loss of its last {FUSED_LOSS_WINDOW} "
-             f"steps {last} not below its first {FUSED_LOSS_WINDOW} {first}")
+             f"steps on its first combination {last} not below its first "
+             f"{FUSED_LOSS_WINDOW} {first}")
     mon = monitored(trainer)
     if (monitor.calls["copy_gradients"] != want_me
             or mon["steps"] != list(range(1, want_me + 1))
@@ -2887,8 +2997,11 @@ def fused_training(train_ds, valid_ds, device_line: str, cfg=None,
                       for c in calls])
         + " (the pushforward unroll's rollout-mode forwards only); per "
         "validation " + json.dumps({k: v for k, v in per_valid.items() if v})
-        + f"; epoch 1 mean loss of the first {FUSED_LOSS_WINDOW} steps "
-        f"{first:.6f}, of the last {last:.6f}; mini-epoch losses "
+        + f"; epoch 1 mean loss on its first combination ({len(begun)} "
+        f"steps) of the first {FUSED_LOSS_WINDOW} steps {first:.6f}, of the "
+        f"last {last:.6f}; of the whole epoch's ({len(by_epoch[1])}) first "
+        f"{FUSED_LOSS_WINDOW} {np.mean(by_epoch[1][:FUSED_LOSS_WINDOW]):.6f}, "
+        f"last {np.mean(by_epoch[1][-FUSED_LOSS_WINDOW:]):.6f}; mini-epoch losses "
         + json.dumps([round(v, 6) for v in mini])
         + f"; {run_s:.2f} s (two validations included); the monitor: "
         f"gradients copied {monitor.calls['copy_gradients']} times (once a "
@@ -4532,10 +4645,6 @@ def spmd_phase(line: str) -> dict:
                 fail(f"phase 13{sub} {path} rank {r['rank']}: launches "
                      f"{r['launches']} over {STEPS} steps, expected {want}; "
                      f"finite {r['finite']}")
-            if r["table_route"] and max(r["bands"].values()) > \
-                    kernels.TABLE_MAX_BAND:
-                fail(f"phase 13{sub} {path} rank {r['rank']}: bands "
-                     f"{r['bands']} past TABLE_MAX_BAND")
         say(_spmd_path_line(sub, path, per, line))
         records[f"{path}-spmd"] = {
             "launches": {k: sum(r["launches"][k] for r in per)
@@ -4606,7 +4715,8 @@ def bucket_training(trajs, valid_ds, device_line: str) -> tuple:
     """Phase 14a: phase 10a's ``Trainer.run`` of the fluxd-r5 recipe (with
     its checks: the calls, the counters, K1-K3 only in the pushforward
     unroll, 30 each a step, the store's bytes, finite losses, epoch 1's
-    falling, the monitor) on the meshes in BUCKETS size buckets, validated
+    falling on its first bucket's meshes, the monitor) on the meshes in
+    BUCKETS size buckets, validated
     on FluxD-valid's batch. Every sampler batch and every call lies in one
     bucket, and epoch 2 trains both. Returns (the record, the trainer, its
     state, the dataset, the config)."""
@@ -4721,11 +4831,6 @@ def bucket_times(trainer, state, ds, cfg, device_line: str) -> dict:
             "profiles": profiles}
 
 
-def band_widths(graph) -> dict:
-    return {"es": graph.es_onehot.shape[2], "vc": graph.vc_onehot.shape[2],
-            "cf": graph.cf_row_onehot.shape[2]}
-
-
 def counted_rollout(kern, graph, feats) -> tuple:
     """(fields of a CHECK_STEPS-step rollout of ``kern``, its launches, read
     around it)."""
@@ -4736,6 +4841,13 @@ def counted_rollout(kern, graph, feats) -> tuple:
     return fields, launch_counts()
 
 
+def table_bytes(graph) -> int:
+    """Bytes of a graph's banded tables (es/er, vc, cf)."""
+    return sum(getattr(graph, k).numel() * getattr(graph, k).element_size()
+               for k in ("es_onehot", "er_onehot", "vc_onehot",
+                         "cf_row_onehot", "cf_col_onehot"))
+
+
 def bucket_validation(trajs, device, device_line: str) -> tuple:
     """Phase 14b: the validation batch of each bucket (its meshes at t0, at
     its pad, int8 tables, the table route) held against the plain route
@@ -4743,114 +4855,93 @@ def bucket_validation(trajs, device, device_line: str) -> tuple:
     of the same batch), within STEP_TOL as phase 3 holds FluxD-valid; a
     CHECK_STEPS-step rollout with the counters read around it: K6 30 and
     K7 15 a step, no other kernel; each batch's and each mesh's band
-    widths within TABLE_MAX_BAND. Then every mesh at ``pad_to``: a small
-    mesh's tables at that pad have bands past TABLE_MAX_BAND, and K6 and
-    K7 refuse them (ValueError, nothing launched: no fallback), so that
-    batch is held against the plain route on the index route (fused K1-K3,
-    15 each a step). Returns (the records, {bucket: (model, fields)})."""
+    widths. Then every mesh at ``pad_to`` in one batch, the trainer's
+    validation batch of a one-bucket dataset, the same way: a small
+    mesh's tables at that pad have bands past WHOLE_BAND_ROWS, which K6
+    and K7 stream; its tables' bytes, the card's peak memory over it, a
+    device profile of ALL_MESH_PROFILE_STEPS steps and the host's peak
+    memory (ru_maxrss) are reported. Returns (the records, {bucket: (model, fields)})."""
     ds = MeshDataset(trajs, with_banded=True, banded_dtype="int8",
                      num_buckets=BUCKETS, device=device)
     out, refs, lines = {}, {}, []
+    batches = [(b, ids, ds.bucket_pad[b])
+               for b, ids in enumerate(bucket_members(ds))]
+    batches.append(("all", ds.sim_ids(), ds.pad_to))
     valid_launches = dict.fromkeys(KERNELS, 0)
-    for b, ids in enumerate(bucket_members(ds)):
-        pad = ds.bucket_pad[b]
+    all_mesh = {}
+    for b, ids, pad in batches:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
         graph = to_static_bands(ds.get_batch([(m, 0) for m in ids]),
                                 derive_idx=False)
+        built_s = time.perf_counter() - t0
+        if not graph.table_route or graph.num_cells != len(ids) * pad["cell"]:
+            fail(f"14b {b}: the batch of {ids} has {graph.num_cells} cells, "
+                 f"not {len(ids)} x {pad['cell']}, or is off the table route")
         kern, plain, feats = path_models("FluxD-valid", graph)
         worst = check_against_plain(kern, plain, graph, feats,
                                     to_static_bands(graph, derive_idx=True))
         fields, launches = counted_rollout(kern, graph, feats)
         want = {n: PATHS["FluxD-valid"][1].get(n, 0) * CHECK_STEPS
                 for n in KERNELS}
-        bands = band_widths(graph)
-        own = {m: band_widths(ds._static_graph(m, pad)) for m in ids}
-        if launches != want or max(bands.values()) > kernels.TABLE_MAX_BAND:
-            fail(f"14b bucket {b}: launches {launches}, expected {want}; "
-                 f"bands {bands}")
-        for n in KERNELS:
-            valid_launches[n] += launches[n]
-        refs[b] = (kern, fields)
-        lines.append(f"bucket {b} {ids} at its pad {json.dumps(pad)}: "
-                     f"{graph.num_cells} cells, band widths {json.dumps(bands)}"
-                     f" (each mesh's own {json.dumps(own)}), largest gaps "
-                     + json.dumps({n: {k: round(v, 6) for k, v in f.items()}
-                                   for n, f in worst.items()}))
+        if launches != want:
+            fail(f"14b {b}: launches {launches}, expected {want}")
+        bands = spmd.band_widths(graph)
+        own = {m: spmd.band_widths(ds._static_graph(m, pad)) for m in ids}
+        gaps = json.dumps({n: {k: round(v, 6) for k, v in f.items()}
+                           for n, f in worst.items()})
+        if b != "all":
+            for n in KERNELS:
+                valid_launches[n] += launches[n]
+            refs[b] = (kern, fields)
+            lines.append(f"bucket {b} {ids} at its pad {json.dumps(pad)}: "
+                         f"{graph.num_cells} cells, band widths "
+                         f"{json.dumps(bands)} (each mesh's own "
+                         f"{json.dumps(own)}), largest gaps {gaps}")
+            continue
+        if max(bands.values()) <= WHOLE_BAND_ROWS:
+            fail(f"14b: the all-mesh batch's bands {bands} do not pass "
+                 f"{WHOLE_BAND_ROWS} rows: no band is streamed")
+        profile = device_profile(kern, graph, feats, ALL_MESH_PROFILE_STEPS)
+        all_mesh = {"launches": launches, "rollout_steps": CHECK_STEPS,
+                    "bands": bands, "own_bands": own,
+                    "table_bytes": table_bytes(graph), "built_s": built_s,
+                    "cells": graph.num_cells, "faces": graph.num_faces,
+                    "vertices": graph.num_vertices, "gaps": gaps,
+                    "profile": profile,
+                    "peak_bytes": torch.cuda.max_memory_allocated()}
+        del graph, kern, plain, feats, fields
     out["FluxD-buckets-valid"] = {"launches": valid_launches,
                                   "rollout_steps": BUCKETS * CHECK_STEPS}
-
-    # every mesh at pad_to: the tables the table route would need
-    small = min(trajs, key=lambda t: t.geom["cell_pos"].shape[0])
-    wide = banded_tables_for(small.geom, ds.pad_to)
-    wide_bands = {"es": wide.es_onehot.shape[2], "vc": wide.vc_onehot.shape[2],
-                  "cf": wide.cf_row_onehot.shape[2]}
-    if max(wide_bands.values()) <= kernels.TABLE_MAX_BAND:
-        fail(f"14b: {small.mesh_id} at pad_to has bands {wide_bands}, within "
-             "TABLE_MAX_BAND: the all-mesh batch would take the table route")
-    refused = {}
-    zero_launches()
-
-    def on_card(x, dtype=torch.int8):
-        return torch.as_tensor(np.asarray(x)).to(dtype).to(device)
-
-    vc, es, er = (on_card(x) for x in (wide.vc_onehot, wide.es_onehot,
-                                       wide.er_onehot))
-    vc_off, es_off = (on_card(x, torch.int32)
-                      for x in (wide.vc_offsets, wide.es_offsets))
-    del wide
-    attempts = {
-        "K7_table_single": lambda: kernels.table_single(
-            vc, vc_off, torch.zeros(ds.pad_to["vertex"], H // 2,
-                                    dtype=torch.bfloat16, device=device)),
-        "K6_table_dual": lambda: kernels.table_dual(
-            es, er, es_off, torch.zeros(ds.pad_to["face"], H,
-                                        dtype=torch.bfloat16, device=device),
-            combine_roll=True)}
-    # each kernel whose table is wider than it takes
-    attempts = {name: attempt for name, attempt in attempts.items()
-                if wide_bands["vc" if name.startswith("K7") else "es"]
-                > kernels.TABLE_MAX_BAND}
-    for name, attempt in attempts.items():
-        try:
-            attempt()
-        except ValueError as exc:
-            refused[name] = str(exc)
-    del vc, es, er
-    if (not attempts or sorted(refused) != sorted(attempts)
-            or not all("take at most" in v for v in refused.values())
-            or any(launch_counts().values())):
-        fail(f"14b: the wide tables were not refused for their band: "
-             f"{refused} of {sorted(attempts)}, launches {launch_counts()}")
-    plain_ds = MeshDataset(trajs, num_buckets=BUCKETS, device=device)
-    samples = [(m, 0) for m in plain_ds.sim_ids()]
-    graph = plain_ds.get_batch(samples)
-    if graph.num_cells != len(samples) * plain_ds.pad_to["cell"]:
-        fail(f"14b: the all-mesh batch has {graph.num_cells} cells, not "
-             f"{len(samples)} x pad_to")
-    kern, plain, feats = path_models("FluxD", graph)
-    worst = check_against_plain(kern, plain, graph, feats)
-    _, launches = counted_rollout(kern, graph, feats)
-    want = {n: PATHS["FluxD"][1].get(n, 0) * CHECK_STEPS for n in KERNELS}
-    if launches != want:
-        fail(f"14b all meshes: launches {launches}, expected {want}")
-    out["FluxD-buckets-all"] = {"launches": launches,
-                                "rollout_steps": CHECK_STEPS}
+    out["FluxD-buckets-all"] = {k: all_mesh[k]
+                                for k in ("launches", "rollout_steps")}
+    prof = all_mesh["profile"]
     say(f"phase 14b FluxD-buckets validation per bucket on the table route "
         f"(int8 tables), {CHECK_STEPS} steps against the plain route on the "
         f"same inputs within {STEP_TOL}: ok; " + "; ".join(lines)
-        + f"; TABLE_MAX_BAND {kernels.TABLE_MAX_BAND}; launches per step "
-        + json.dumps({n: v / (BUCKETS * CHECK_STEPS)
-                      for n, v in valid_launches.items() if v})
-        + f". All {len(samples)} meshes at pad_to {json.dumps(ds.pad_to)} "
-        f"({graph.num_cells} cells): {small.mesh_id}'s tables at that pad "
-        f"have bands {json.dumps(wide_bands)}, and the kernels refuse the "
-        "tables wider than they take (nothing launched): "
-        + json.dumps(refused) + "; so on the index "
-        f"route (fused K1-K3) against the plain route: ok, largest gaps "
-        + json.dumps({n: {k: round(v, 6) for k, v in f.items()}
-                      for n, f in worst.items()})
-        + ", launches per step " + json.dumps(
-            {n: v / CHECK_STEPS for n, v in launches.items() if v})
-        + f"; card {device_line}")
+        + "; launches per step " + json.dumps(
+            {n: v / (BUCKETS * CHECK_STEPS)
+             for n, v in valid_launches.items() if v})
+        + f". All {len(ds.sim_ids())} meshes at pad_to {json.dumps(ds.pad_to)}"
+        f" in one batch on the table route ({all_mesh['cells']} cells, "
+        f"{all_mesh['faces']} faces, {all_mesh['vertices']} vertices; built "
+        f"in {all_mesh['built_s']:.2f} s), band widths "
+        f"{json.dumps(all_mesh['bands'])} (each mesh's own "
+        f"{json.dumps(all_mesh['own_bands'])}), tables "
+        f"{all_mesh['table_bytes']} bytes (the card's peak memory over the "
+        f"batch's build, checks and profile {all_mesh['peak_bytes']} bytes)"
+        ", against the plain route and its "
+        f"index route: ok, largest gaps {all_mesh['gaps']}, launches per step "
+        + json.dumps({n: v / CHECK_STEPS
+                      for n, v in all_mesh["launches"].items() if v})
+        + f"; device profile of {ALL_MESH_PROFILE_STEPS} steps: "
+        + ("not measured" if prof is None else json.dumps(
+            {k: prof[k] for k in ("device_ms_per_step", "busy_share",
+                                  "wall_ms_per_step", "gfd_ms_per_step")}))
+        + "; host peak memory (ru_maxrss) "
+        f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024} bytes"
+        f"; card {device_line}")
     return out, refs
 
 
@@ -4917,12 +5008,10 @@ def bucket_caches(trajs, refs, device, device_line: str) -> dict:
     return mem
 
 
-def bucket_phase(device, valid_ds, line: str) -> dict:
-    """Phase 14: 14a, its times, 14b and 14c. Returns the paths' records
-    (launches, rollout steps)."""
+def bucket_phase(device, valid_ds, trajs, line: str) -> dict:
+    """Phase 14: 14a, its times, 14b and 14c on ``bucket_data()``'s
+    trajectories. Returns the paths' records (launches, rollout steps)."""
     t14 = time.perf_counter()
-    trajs = bucket_data()
-    t_data = time.perf_counter() - t14
     record, trainer, state, ds, cfg = bucket_training(trajs, valid_ds, line)
     times = bucket_times(trainer, state, ds, cfg, line)
     del trainer, state, ds
@@ -4934,7 +5023,7 @@ def bucket_phase(device, valid_ds, line: str) -> dict:
     records.update(valid)
     bucket_caches(trajs, refs, device, line)
     say(f"phase 14 card {line}; FluxD-buckets wall time "
-        f"{time.perf_counter() - t14:.1f} s (data {t_data:.1f} s)")
+        f"{time.perf_counter() - t14:.1f} s")
     return records
 
 
@@ -4960,9 +5049,21 @@ def main() -> int:
         + ", vc " + "x".join(map(str, vgraph.vc_onehot.shape))
         + ", cf " + "x".join(map(str, vgraph.cf_row_onehot.shape))
         + f", built in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    trajs = bucket_data()
+    say(f"phase 1 FluxD-buckets data: {len(trajs)} meshes of "
+        f"{TRAIN_POINTS} and {VALID_POINTS} points, {BUCKET_STATES} states "
+        f"each, made in {time.perf_counter() - t0:.2f} s")
     vindex = to_static_bands(vgraph, derive_idx=True)
     per_kernel = kernel_phase(graph, vindex)
     per_kernel.update(table_phase(vgraph))
+    wide = wide_band_phase(trajs, vgraph)
+    for (name, label), r in wide["forms"].items():
+        k = per_kernel[name]
+        k["forms"][label] = r
+        k["max_abs_err"] = max(k["max_abs_err"], r["max_abs_err"])
+    for (name, label), r in wide["nan"].items():
+        per_kernel[name]["nan_through_zero_weight"][label] = r
     say("phase 2 kernel vs plain: ok " + json.dumps(
         {k: round(v["max_abs_err"], 6) for k, v in per_kernel.items()}))
     for name in ("K1_fused_face_block", "K2_fused_cell_block",
@@ -4987,6 +5088,16 @@ def main() -> int:
     say("phase 2 PDL hazard check, K3 on K1's raw output right behind K1 "
         "with both outputs (MgnA's face-first block): ok "
         + json.dumps(k1_k3_hazard_check(graph)))
+    say(f"phase 2 K6/K7 past {WHOLE_BAND_ROWS} rows (896 for K7's 128-lane "
+        f"form), streamed: {wide['mesh']}'s own int8 tables at the all-mesh "
+        f"pad_to {json.dumps(wide['pad_to'])}, bands "
+        f"{json.dumps(wide['bands'])} ({wide['table_bytes']} bytes, built in "
+        f"{wide['tables_built_s']:.2f} s), and FluxD-valid's vc widened to "
+        f"{WIDE_VC_BAND}; each against its plain version: ok; per launch, "
+        "ms beside its bound (max(bytes / 3.35 TB/s, operations / 67 "
+        "TFLOP/s)): " + json.dumps({f"{n[:2]} {lb}": r
+                                    for (n, lb), r in wide["forms"].items()})
+        + f"; card {line}")
     say("phase 2 NaN through a zero weight, same places as the plain version: "
         + json.dumps({name: per_kernel[name]["nan_through_zero_weight"]
                       for name in ("K6_table_dual", "K7_table_single")}))
@@ -5040,7 +5151,7 @@ def main() -> int:
     paths["FluxD-r5-dp"] = dp_phase(line)
     paths["FluxD-gen"] = gen_phase(dev, line)
     paths.update(spmd_phase(line))
-    paths.update(bucket_phase(dev, ds, line))
+    paths.update(bucket_phase(dev, ds, trajs, line))
 
     bnd = bounds(graph)
     rows = []

@@ -70,7 +70,10 @@
 //   and the form without the roll spilled.) A stage is refilled once all 8
 //   warps have arrived on its `empty` barrier, which they do once the
 //   products that read it are done. The ring takes any band width and runs
-//   on from one tile into the block's next.
+//   on from one tile into the block's next. The tables are read only
+//   through their tensor maps (64-bit strides: a batch's table of rows x B
+//   entries may pass 2^31 bytes), and a box's coordinates, a column of the
+//   band and a row of the tile, stay far below 2^31.
 // * With the roll the output is one (128 x W/2) accumulator over k = 2B:
 //   the first B steps take oh_a with the band's channels 0:W/2, the next B
 //   take oh_b with channels W/2:W; m64n64k16 products at W = 128, one band
@@ -448,7 +451,7 @@ cudaError_t launch_table_dual(int device, const void* oh_a, const void* oh_b,
 
 // Launches K6 on `stream`; returns the CUDA error code (0 on success).
 // table_dtype: 0 int8, 1 bf16, 2 f32. n_rows = tiles * 128; band is a
-// multiple of 128, at most 1,792; src is (src_rows, width) bf16, width 128,
+// positive multiple of 128, of any width; src is (src_rows, width) bf16, width 128,
 // or 256 with roll. With roll, out_a is (n_rows, width / 2) and out_b
 // unused; else both are (n_rows, 128).
 extern "C" int gfd_table_dual(int device, const void* oh_a, const void* oh_b,
@@ -459,8 +462,8 @@ extern "C" int gfd_table_dual(int device, const void* oh_a, const void* oh_b,
   using namespace gfd;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (n_rows % TABLE_TILE || band % BOX || band <= 0 || band > MAX_BAND ||
-      src_rows < band || !(width == H || (roll && width == 2 * H)))
+  if (n_rows % TABLE_TILE || band % BOX || band <= 0 || src_rows < band ||
+      !(width == H || (roll && width == 2 * H)))
     return cudaErrorInvalidValue;
   if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
   if (n_rows == 0) return cudaSuccess;

@@ -39,7 +39,6 @@ constexpr int TABLE_TILE = 128;  // target rows per table tile
 constexpr int BOX = 128;         // band rows per tensor copy
 constexpr int BOX_COLS = 64;     // channels per tensor copy: 128 bytes
 constexpr int BOX_BYTES = BOX * BOX_COLS * 2;
-constexpr int MAX_BAND = 1792;   // the widest band either kernel takes
 
 // A lane's four table entries of one row for one mma step: 4 neighbouring
 // columns, as one load.

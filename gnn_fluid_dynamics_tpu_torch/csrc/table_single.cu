@@ -32,21 +32,31 @@
 // m16n8k16, bf16 x bf16 -> f32): the tile's 8 warps share one copy of its
 // band (measured faster than two 64-cell blocks, which load it twice;
 // PERF.md §6).
-// * The band (B rows of 2 HALF bytes) goes to shared memory whole, as boxes
-//   of 128 rows by 64 channels by bulk tensor copies, each 128 rows on
-//   their own mbarrier, all issued by one thread at the start; the product
-//   starts on a box as soon as it lands. A whole band must fit one block's
-//   shared memory: at HALF 64 the widest band, 1,792 rows, takes 230,528
-//   bytes; at HALF 128 each row is twice as wide, so the wide form takes
-//   bands of at most 896 rows (MAX_BAND_WIDE, the same bytes), which the
-//   wrapper checks.
+// * The band (B rows of 2 HALF bytes) streams through a ring of slots in
+//   shared memory, a slot holding 128 rows (one box of 64 channels, or two
+//   side by side at HALF 128) brought by bulk tensor copies. A slot has a
+//   `full` mbarrier, which the copies complete, and an `empty` one, on which
+//   the 8 warps arrive once their products on it are done. Thread 0 copies
+//   the boxes in order: at each box it refills every slot already free, and
+//   waits only for a box it needs itself (as K6's ring does). The f32
+//   accumulators stay in registers across all boxes. The ring has as many
+//   slots as one block's 232,448 bytes of shared memory hold (14 of 16 KB at
+//   HALF 64, 7 of 32 KB at HALF 128), and a band of that many boxes or fewer
+//   takes one slot a box, every copy issued at the start: at the bands that
+//   fitted whole before (up to 1,792 rows, 896 at HALF 128) the schedule is
+//   that of the kernel that held its whole band, with the same shared
+//   memory to within the barriers' bytes. A band of any width streams, as
+//   banded_single_pallas takes any band that its memory holds.
 // * The table goes straight from device memory into registers, a chunk of
-//   128 columns ahead of the product, in the permuted k order of
-//   table_mma.cuh (with `swap` for q >= 2), which also holds the word
-//   loads and the tensor-map cache that K6 shares. ldmatrix.trans reads the
-//   B fragments with the band rows permuted to match (band_lane); the
-//   permutation keeps the 8 rows of each ldmatrix on 8 different rows mod
-//   8, hence, with the swizzle, on 8 different bank groups.
+//   128 columns ahead of the product (its rows addressed in size_t: a
+//   batch's table of rows x B entries may pass 2^31), in the permuted k
+//   order of table_mma.cuh (with `swap` for q >= 2), which also holds the
+//   word loads and the tensor-map cache that K6 shares. ldmatrix.trans
+//   reads the B fragments with the band rows permuted to match (band_lane);
+//   the permutation keeps the 8 rows of each ldmatrix on 8 different rows
+//   mod 8, hence, with the swizzle, on 8 different bank groups. Every slot
+//   starts on a multiple of 1,024 bytes, so the swizzle and band_lane's
+//   rows hold in each.
 // * mma.sync rather than wgmma: the product is far below the card's
 //   operations-per-byte line, and mma.sync takes the table fragments from
 //   registers in this permuted order.
@@ -56,16 +66,23 @@
 
 namespace gfd {
 
-constexpr int ROWS = TABLE_TILE;  // cells per block: a whole tile
-constexpr int THREADS = ROWS / 16 * 32;  // a warp per 16 cells
-constexpr int BAR_BYTES = 8 * 16;
-constexpr int MAX_BAND_WIDE = MAX_BAND / 2;  // the widest band at HALF 128
+constexpr int ROWS = TABLE_TILE;    // cells per block: a whole tile
+constexpr int WARPS = ROWS / 16;     // a warp per 16 cells
+constexpr int THREADS = WARPS * 32;
+constexpr int SMEM_LIMIT = 232448;   // dynamic shared memory a block may have
 
-// Shared memory for a band of `band` rows of `half` channels: the
-// barriers, then the band, aligned to 1,024 bytes as the 128-byte swizzle
-// requires.
-inline int smem_bytes(int band, int half) {
-  return BAR_BYTES + 1024 + band * half * 2;
+// Shared memory for a ring of `slots` slots of 128 rows of `half`
+// channels: a `full` and an `empty` barrier per slot, then the slots,
+// aligned to 1,024 bytes as the 128-byte swizzle requires.
+inline int smem_bytes(int slots, int half) {
+  return 16 * slots + 1024 + slots * BOX * half * 2;
+}
+
+// The ring's slots at HALF channels: as many as one block's shared memory
+// holds (14 at HALF 64, 7 at HALF 128).
+template <int HALF>
+constexpr int ring_slots() {
+  return (SMEM_LIMIT - 1024) / (16 + BOX * HALF * 2);
 }
 
 // Where this lane's ldmatrix.trans reads in a box: lane l gives a row of
@@ -131,29 +148,50 @@ template <typename T, int HALF>
 __global__ void __launch_bounds__(THREADS)
 table_single_kernel(const T* __restrict__ oh, const int* __restrict__ src_off,
                     const __grid_constant__ CUtensorMap band_map, int band,
-                    float* __restrict__ out) {
+                    int slots, float* __restrict__ out) {
   typedef typename Word<T>::type W;
   constexpr int CBOXES = HALF / BOX_COLS;  // channel boxes per 128 rows
   constexpr int NT = HALF / 8;             // n-tiles of 8 channels
+  constexpr int SLOT_BYTES = CBOXES * BOX_BYTES;
   extern __shared__ __align__(128) unsigned char smem[];
-  const uint32_t bars = smem_addr(smem);
-  const uint32_t band_base = (bars + BAR_BYTES + 1023) & ~1023u;
+  const uint32_t full = smem_addr(smem), empty = full + 8 * slots;
+  const uint32_t ring = (full + 16 * slots + 1023) & ~1023u;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, q = lane % 4;  // fragment row group, column pair
   const size_t row0 = (size_t)blockIdx.x * ROWS;
   const int boxes = band / BOX;
 
-  if (threadIdx.x == 0) {
-    for (int b = 0; b < boxes; ++b) mbar_init(bars + 8 * b, 1);
-    fence_barrier_init();
-    const int off = src_off[row0 / TABLE_TILE];
-    for (int b = 0; b < boxes; ++b) {
-      mbar_expect_tx(bars + 8 * b, BOX * HALF * 2);
+  // thread 0 copies the boxes in order; `next` is the next one to copy
+  int next = 0, off = 0;
+  auto copy_boxes = [&](int need) {
+    // every box whose slot is free, waiting for the slot only for boxes
+    // below `need` (the ones this warp is about to use)
+    while (next < boxes) {
+      const int ns = next % slots;  // next's slot
+      if (next >= slots) {
+        // the slot's last box released: phase next / slots - 1 of `empty`
+        const uint32_t freed = (next / slots - 1) & 1;
+        if (next < need)
+          mbar_wait(empty + 8 * ns, freed);
+        else if (!mbar_test(empty + 8 * ns, freed))
+          break;
+      }
+      mbar_expect_tx(full + 8 * ns, SLOT_BYTES);
 #pragma unroll
       for (int cb = 0; cb < CBOXES; ++cb)
-        tensor_copy_2d(band_base + (b * CBOXES + cb) * BOX_BYTES, &band_map,
-                       cb * BOX_COLS, off + b * BOX, bars + 8 * b);
+        tensor_copy_2d(ring + ns * SLOT_BYTES + cb * BOX_BYTES, &band_map,
+                       cb * BOX_COLS, off + next * BOX, full + 8 * ns);
+      ++next;
     }
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < slots; ++i) {
+      mbar_init(full + 8 * i, 1);
+      mbar_init(empty + 8 * i, WARPS);
+    }
+    fence_barrier_init();
+    off = src_off[row0 / TABLE_TILE];
+    copy_boxes(slots);
   }
 
   // this lane's entries: rows g and g + 8 of its warp, columns 16s + 4q ..
@@ -164,24 +202,40 @@ table_single_kernel(const T* __restrict__ oh, const int* __restrict__ src_off,
   W cur[2][8], nxt[2][8];
   load_words<T>(cur, r0, r1, 0);
   __syncthreads();  // the barriers are initialised
+  // a band of more boxes than slots refills them; one of at most as many
+  // takes one slot a box, every copy already issued, and skips the refills
+  const bool turns = boxes > slots;
+  int st = 0;              // box c's slot, c % slots
+  uint32_t parity = 0;     // its fill's phase parity, (c / slots) & 1
   float acc[NT][4] = {};
   for (int c = 0; c < boxes; ++c) {
     if (c + 1 < boxes) load_words<T>(nxt, r0, r1, (c + 1) * BOX);
-    mbar_wait(bars + 8 * c, 0);
+    if (turns && threadIdx.x == 0) copy_boxes(c + 1);
+    mbar_wait(full + 8 * st, parity);
+    if (turns) __syncwarp();
+    const uint32_t slot = ring + st * SLOT_BYTES;
 #pragma unroll
     for (int s = 0; s < 8; ++s) {
       uint32_t a[4];
       a_fragment(cur[0][s], cur[1][s], q >= 2, a);
 #pragma unroll
       for (int cb = 0; cb < CBOXES; ++cb)
-        box_step(band_base + (c * CBOXES + cb) * BOX_BYTES +
-                     16 * s * BOX_COLS * 2,
-                 bl, a, acc + 8 * cb);
+        box_step(slot + cb * BOX_BYTES + 16 * s * BOX_COLS * 2, bl, a,
+                 acc + 8 * cb);
+    }
+    if (turns) {
+      // the warp's reads of the slot are done: it may be refilled
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * st);
     }
 #pragma unroll
     for (int r = 0; r < 2; ++r)
 #pragma unroll
       for (int s = 0; s < 8; ++s) cur[r][s] = nxt[r][s];
+    if (++st == slots) {
+      st = 0;
+      parity ^= 1;
+    }
   }
 
   // epilogue: f32(bf16(s)) / 3. acc[j][0..1] is row g, channels 8j + 2q
@@ -216,15 +270,19 @@ template <typename T, int HALF>
 cudaError_t launch_table_single(int device, const void* oh, const void* src_off,
                                 const CUtensorMap& map, int n_rows, int band,
                                 void* out, cudaStream_t stream) {
-  // opted in once per device at the largest band's size
+  // opted in once per device at the whole ring's size; a band of fewer
+  // boxes than the ring has slots asks for one slot a box
+  constexpr int SLOTS = ring_slots<HALF>();
   static std::atomic<uint64_t> opted_in{0};
-  cudaError_t err = smem_opt_in_once(
-      (const void*)table_single_kernel<T, HALF>, device,
-      smem_bytes(HALF == H / 2 ? MAX_BAND : MAX_BAND_WIDE, HALF), opted_in);
+  cudaError_t err =
+      smem_opt_in_once((const void*)table_single_kernel<T, HALF>, device,
+                       smem_bytes(SLOTS, HALF), opted_in);
   if (err != cudaSuccess) return err;
+  const int boxes = band / BOX;
+  const int slots = boxes < SLOTS ? boxes : SLOTS;
   table_single_kernel<T, HALF>
-      <<<n_rows / ROWS, THREADS, smem_bytes(band, HALF), stream>>>(
-          (const T*)oh, (const int*)src_off, map, band, (float*)out);
+      <<<n_rows / ROWS, THREADS, smem_bytes(slots, HALF), stream>>>(
+          (const T*)oh, (const int*)src_off, map, band, slots, (float*)out);
   return cudaGetLastError();
 }
 
@@ -244,7 +302,7 @@ cudaError_t launch_table_single(int device, const void* oh, const void* src_off,
 // Launches K7 on `stream`; returns the CUDA error code (0 on success).
 // table_dtype: 0 int8, 1 bf16, 2 f32. n_rows = tiles * 128; src is
 // (src_rows, half) bf16, half 64 or 128, out (n_rows, half) f32; band is a
-// multiple of 128, at most 1,792 at half 64 and 896 at half 128.
+// positive multiple of 128, of any width.
 extern "C" int gfd_table_single(int device, const void* oh, const void* src_off,
                                 const void* src, int src_rows, int n_rows,
                                 int band, int table_dtype, int half, void* out,
@@ -253,8 +311,7 @@ extern "C" int gfd_table_single(int device, const void* oh, const void* src_off,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (half != H / 2 && half != H) return cudaErrorInvalidValue;
-  if (n_rows % TABLE_TILE || band % BOX || band <= 0 ||
-      band > (half == H ? MAX_BAND_WIDE : MAX_BAND) || src_rows < band)
+  if (n_rows % TABLE_TILE || band % BOX || band <= 0 || src_rows < band)
     return cudaErrorInvalidValue;
   if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
   if (n_rows == 0) return cudaSuccess;

@@ -22,7 +22,8 @@ read the graph's index vectors. K6 and K7 read its banded one-hot tables
 instead (a graph on the table route, :mod:`gnn_fluid_dynamics_tpu_torch.graph`):
 per block K6 on the es/er tables and K7 on vc in place of K3 and K5, and K6 on
 the cf tables in place of K4. Each launches once per table application to a
-whole batch of graphs.
+whole batch of graphs, and takes tables of any band width, as the TPU
+kernels do: each streams a tile's band through shared memory.
 
 The latents are H = 128 channels wide. K3 and K6's roll form also take
 edge latents of 2H = 256 channels (``WIDTHS``), and K5 and K7 the (., H)
@@ -95,13 +96,6 @@ _ARGTYPES = {
     "gfd_set_pdl": [_I],
 }
 TABLE_TILE = 128  # target rows per table tile
-# the widest band K6 and K7 take: K7 holds its whole band in shared memory,
-# K6 streams its band and takes the same, so the two accept the same graphs.
-# K7's rows of H channels (behind K6's wide roll form) are twice as wide, so
-# it takes half the band there: 896 rows, the same 230,528 bytes of shared
-# memory of the 232,448 a block may have
-TABLE_MAX_BAND = 1792
-TABLE_MAX_BAND_WIDE = TABLE_MAX_BAND // 2
 # the table dtypes K6/K7 read, by the code their C entry points take
 TABLE_DTYPES = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
 # the cell latents K4 reads, by the code its C entry point takes
@@ -581,9 +575,9 @@ def slow_writer(src, dst, negate: bool, cycles: int, blocks: int = 4) -> None:
 
 
 def _check_table(oh, what, dev, like=None) -> None:
-    """A (T, 128, B) table, B a positive multiple of 128 up to
-    TABLE_MAX_BAND, in one of the table dtypes (or ``like``'s dtype and
-    shape)."""
+    """A (T, 128, B) table, B a positive multiple of 128 of any width (as
+    ``banded_dual_pallas`` and ``banded_single_pallas`` take), in one of the
+    table dtypes (or ``like``'s dtype and shape)."""
     if oh.dtype not in TABLE_DTYPES:
         raise ValueError(f"{what} has dtype {oh.dtype}, expected one of "
                          f"{tuple(TABLE_DTYPES)}")
@@ -591,9 +585,6 @@ def _check_table(oh, what, dev, like=None) -> None:
             or oh.shape[2] == 0):
         raise ValueError(f"{what} has shape {tuple(oh.shape)}, expected "
                          f"(T, {TABLE_TILE}, a multiple of 128)")
-    if oh.shape[2] > TABLE_MAX_BAND:
-        raise ValueError(f"{what} has band {oh.shape[2]}; the table kernels "
-                         f"take at most {TABLE_MAX_BAND}")
     like = oh if like is None else like
     _check(oh, what, dev, like.dtype, like.shape)
 
@@ -601,7 +592,10 @@ def _check_table(oh, what, dev, like=None) -> None:
 def table_dual(oh_a, oh_b, src_off, src, combine_roll: bool = False):
     """K6: the dense-table dual apply. See :func:`table_dual_ref`. The
     source is (S, H), or with ``combine_roll`` (S, W) for W in ``WIDTHS``;
-    the bands must lie inside it (``off + B <= S``, checked)."""
+    the bands must lie inside it (``off + B <= S``, checked) and may be of
+    any width: the kernel streams each tile's band through shared memory.
+    Tables too large for the card raise as its allocator does; there is no
+    fallback."""
     if src.device.type == "cpu":
         return table_dual_ref(oh_a, oh_b, src_off, src, combine_roll)
     dev = src.device
@@ -629,18 +623,14 @@ def table_dual(oh_a, oh_b, src_off, src, combine_roll: bool = False):
 def table_single(oh, src_off, src):
     """K7: the dense-table single apply with the 1/3 epilogue on (S, W/2)
     vertex sums, W in ``WIDTHS``. See :func:`table_single_ref`; the bands
-    must lie inside ``src``, as for :func:`table_dual`, and at W/2 = H be
-    at most TABLE_MAX_BAND_WIDE rows wide."""
+    must lie inside ``src`` and may be of any width, as for
+    :func:`table_dual`."""
     if src.device.type == "cpu":
         return table_single_ref(oh, src_off, src)
     dev = src.device
     _check_table(oh, "oh", dev)
     T, _, band = oh.shape
     half = _width(src, "src", VERTEX_WIDTHS)
-    if half == H and band > TABLE_MAX_BAND_WIDE:
-        raise ValueError(f"oh has band {band}; on vertex sums of {H} channels "
-                         "K7 holds its band in shared memory, which takes at "
-                         f"most {TABLE_MAX_BAND_WIDE}")
     _check(src_off, "src_off", dev, torch.int32, (T,))
     _check(src, "src", dev, torch.bfloat16, (src.shape[0], half))
     _check_bands(src_off, band, src.shape[0])

@@ -29,9 +29,8 @@ insert it:
   single process's bit for bit. A graph with banded tables (the table
   route's K6/K7) gets each rank's own tables, es/er, cf and vc, built from
   its local index tables with the offsets of its own rows: its rows keep
-  increasing global id, so its bands stay as narrow as the whole graph's.
-  A band wider than the kernels' TABLE_MAX_BAND raises; the graph keeps
-  its route;
+  increasing global id, so its bands stay as narrow as the whole graph's,
+  and K6/K7 take a band of any width; the graph keeps its route;
 * :func:`shard_graph_spatial` / :func:`shard_spatial_batch` give this
   rank's local graph (``MeshGraph.halo`` carries its exchange plan,
   :class:`~gnn_fluid_dynamics_tpu_torch.parallel.halo.Halo`), whose
@@ -65,7 +64,6 @@ from gnn_fluid_dynamics_tpu_torch import resolve_device
 from gnn_fluid_dynamics_tpu_torch.graph import (FIELD_KEYS, MeshGraph,
                                                 local_banded_fields,
                                                 vertex_incidence_csr)
-from gnn_fluid_dynamics_tpu_torch.ops import kernels
 from gnn_fluid_dynamics_tpu_torch.parallel import data_parallel
 from gnn_fluid_dynamics_tpu_torch.parallel.halo import KINDS, Halo
 
@@ -278,15 +276,6 @@ def local_graph(graph: MeshGraph, part: Partition, s: int, group=None,
            if graph.es_onehot is not None else {}),
         table_route=graph.table_route,
     )
-    if local.es_onehot is not None:
-        for name, width in band_widths(local).items():
-            if width > kernels.TABLE_MAX_BAND:
-                raise ValueError(
-                    f"space rank {s}'s {name} band is {width} rows wide, "
-                    f"past the {kernels.TABLE_MAX_BAND} rows "
-                    "(TABLE_MAX_BAND) that K6/K7 take: shard this graph "
-                    "over more space ranks, or reorder it (RCM) so that "
-                    "its bands narrow")
     return local.replace(halo=_halo(part, s, group, dev, gmap))
 
 
@@ -296,9 +285,8 @@ def _local_tables(graph: MeshGraph, local_index, ids, pads, dev) -> dict:
     whose cell the rank does not hold keeps no cf entry for it (its local
     index points at the pad row, which would stretch its tile's band to
     the last row): it reads zeros there, and its row is refreshed from its
-    owner before an owned row reads it. ``local_graph`` then holds every
-    band to the kernels' TABLE_MAX_BAND rows, raising past it: the graph
-    never falls back to the index route."""
+    owner before an owned row reads it. Its bands may be of any width:
+    K6/K7 take them, and the graph never falls back to the index route."""
     cei = local_index["cell_edge_index"]
     cf_valid = np.ones(cei.shape, bool)
     n = len(ids["face"])

@@ -46,6 +46,15 @@ a patched copy of ``gnn_fluid_dynamics_tpu_torch/csrc`` under the ignored
   input cast on the FvgnF mesh, as run before K4 rounded its own input,
   as run now, and with the concatenation in bf16: kernels and device time
   per application (``measure_face_input``).
+* ``k7_ring``: K7 (int8 tables, 64 and 128 lanes) on FluxD-valid's vc
+  tables (band 256), on them widened to 1,920 rows and on the smallest
+  phase 14 mesh's own vc table at the all-mesh pad (5,376 rows), with the
+  shipped ring (``base``: as many slots as 232,448 bytes of shared memory
+  hold, one block an SM once a band fills it), with a ring of half the
+  bytes (``k7_half_ring``: 6 slots at 64 lanes, 3 at 128, two blocks an
+  SM), and, at band 256 only, as commit K7_PREVIOUS had it
+  (``k7_previous``: the whole band in shared memory, 1,792 rows at most,
+  read as ``previous`` is); in turns, each held against its plain version.
 * ``smoke_state``: whether what ``chip_smoke.py`` runs before its timed
   rollouts slows them: FluxD's kernel-route steps/s over 100-step
   rollouts, three before and three after running nothing (``control``),
@@ -71,6 +80,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 PREVIOUS = "25f4ea5"  # the commit whose K3 and K5 the k35 study reads
 K4_PREVIOUS = "3dfe0b7"  # the commit whose K4 the k4 study reads
+K7_PREVIOUS = "acb46f3"  # the commit whose K7 (whole band) the k7_ring study reads
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -263,6 +273,11 @@ VARIANTS = {
   n = __shfl_sync(0xffffffffu, n, 0, FACE_LANES);
   if (f >= n_faces) return;""")],
     "k4_previous": [],    # face_gather.cu of K4_PREVIOUS
+    "k7_half_ring": [("table_single.cu", "constexpr int SMEM_LIMIT = 232448;",
+                      "constexpr int SMEM_LIMIT = 100000;")],
+    # its source names the cap that table_mma.cuh then held
+    "k7_previous": [("table_single.cu", "namespace gfd {\n",
+                     "namespace gfd {\nconstexpr int MAX_BAND = 1792;\n")],
     "k6_no_l2_policy": [
         ("table_dual.cu", _K6_STORE, """      *reinterpret_cast<uint4*>(out + (size_t)(8 * h) * ld +
                                 8 * (j0 + q)) = v;"""),
@@ -277,12 +292,14 @@ STUDY_VARIANTS = {"w0_split": ("base", "w0_split"),
                   "k35": ("base", "previous", "fused"),
                   "k4": ("base", "k4_warp", "k4_warp_t1024", "k4_t512",
                          "k4_t1024", "k4_shuffle", "k4_previous"),
+                  "k7_ring": ("base", "k7_half_ring", "k7_previous"),
                   "face_input": ("base",),
                   "pdl_host": ("base", "previous"),
                   "smoke_state": ("control", "hazard", "phase2")}
 # variants whose sources are another commit's files
 FILES_FROM = {"previous": (PREVIOUS, ("edge_vertex.cu", "vertex_cell.cu")),
-              "k4_previous": (K4_PREVIOUS, ("face_gather.cu",))}
+              "k4_previous": (K4_PREVIOUS, ("face_gather.cu",)),
+              "k7_previous": (K7_PREVIOUS, ("table_single.cu",))}
 # the C signature of K4_PREVIOUS's gfd_face_gather: bf16 latents only
 K4_PREVIOUS_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [
     ctypes.c_int] + [ctypes.c_void_p] * 3
@@ -362,6 +379,8 @@ def measure(study: str, variant: str) -> dict:
         return measure_pdl_host(variant, latents)
     if study == "smoke_state":
         return measure_smoke_state(variant)
+    if study == "k7_ring":
+        return measure_k7_ring(variant, rng)
     if study == "k6":
         _, vg = cs.valid_data(dev)
         edges, cells = latents(vg.num_faces), latents(vg.num_cells)
@@ -409,6 +428,40 @@ def measure(study: str, variant: str) -> dict:
             fn(*args)
             out[f"{name}_{g.num_faces if name == 'K1_single' else g.num_cells}"] = (
                 cs.gpu_ms(lambda: fn(*args), ITERS))
+    return out
+
+
+def measure_k7_ring(variant: str, rng) -> dict:
+    """K7 per launch at its three bands and two widths (band 256 only for
+    ``k7_previous``), each held against its plain version."""
+    dev = torch.device("cuda", 0)
+    _, vg = cs.valid_data(dev)
+    widened = cs.widen_band(vg.vc_onehot, vg.vc_off, cs.WIDE_VC_BAND,
+                            vg.num_vertices)
+    bands = {256: (vg.vc_onehot, vg.vc_off, vg.num_vertices),
+             cs.WIDE_VC_BAND: (*widened, vg.num_vertices)}
+    if variant != "k7_previous":
+        trajs = cs.bucket_data()
+        pad = cs.MeshDataset(trajs, num_buckets=cs.BUCKETS, device=dev).pad_to
+        small = min(trajs, key=lambda t: t.geom["cell_pos"].shape[0])
+        t = cs.banded_tables_for(small.geom, pad)
+        bands[t.vc_onehot.shape[2]] = (
+            torch.from_numpy(t.vc_onehot).to(dev).to(torch.int8),
+            torch.tensor(t.vc_offsets, dtype=torch.int32, device=dev),
+            pad["vertex"])
+    else:
+        del bands[cs.WIDE_VC_BAND]
+    out = {}
+    for band, (oh, off, rows) in bands.items():
+        src = torch.from_numpy(rng.normal(size=(rows, 128)).astype(
+            np.float32)).to(dev, torch.bfloat16)
+        for lanes in (64, 128):
+            s = src[:, :lanes].contiguous()
+            cs._compare(f"K7 {variant} vc@{band} {lanes} lanes",
+                        kernels.table_single(oh, off, s),
+                        kernels.table_single_ref(oh, off, s), exact=False)
+            out[f"vc@{band}_{lanes}"] = cs.gpu_ms(
+                lambda: kernels.table_single(oh, off, s), ITERS)
     return out
 
 

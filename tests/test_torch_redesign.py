@@ -3,8 +3,9 @@
 build's hash sees every header; K6's and K7's plain versions agree with the
 JAX package's dense Pallas kernels (interpret mode) at other band widths and
 on NaN sources; the packed weight layout (K0 = 384 and 192) and the weights
-K1 and K2 are given; the wrappers' refusals (unpacked weights, bands above
-the kernels' limit or outside their source); and the yardsticks of
+K1 and K2 are given; the wrappers' refusals (unpacked weights, bands that
+are no multiple of 128 or lie outside their source; a band of any width
+is taken, ``tests/test_torch_wide_bands.py``); and the yardsticks of
 ``chip_smoke.py`` (bytes and operations of each kernel's work), so that a
 redesign cannot move its own bound.
 
@@ -300,26 +301,6 @@ def test_cell_block_refuses_weights_without_their_packing(small_graph):
         kernels.fused_cell_block(cells, vtx, gm, w._replace(
             mlp=w.mlp._replace(b1=w.mlp.b1.float())))
     assert kernels.fused_cell_block.launches == before
-
-
-@pytest.mark.parametrize("kernel", ["K6", "K7"])
-def test_table_kernels_refuse_a_band_above_their_limit(kernel):
-    """K6 and K7 take bands up to TABLE_MAX_BAND (1,792): a wider table is
-    refused before anything launches."""
-    meta = torch.device("meta")
-    band = kernels.TABLE_MAX_BAND + 128
-    oh = torch.empty((2, 128, band), dtype=torch.int8, device=meta)
-    off = torch.zeros(2, dtype=torch.int32, device=meta)
-    if kernel == "K6":
-        call, args = kernels.table_dual, (oh, oh, off, torch.empty(
-            (4096, H), dtype=torch.bfloat16, device=meta))
-    else:
-        call, args = kernels.table_single, (oh, off, torch.empty(
-            (4096, H // 2), dtype=torch.bfloat16, device=meta))
-    before = call.launches
-    with pytest.raises(ValueError, match="at most 1792"):
-        call(*args)
-    assert call.launches == before
 
 
 @pytest.mark.parametrize("band", [0, 200])

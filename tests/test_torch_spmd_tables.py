@@ -203,8 +203,8 @@ def test_local_tables_are_the_tables_of_the_local_geometry(parts, n):
     """Each rank's es/er, cf and vc tables and offsets equal, bit for bit,
     the tables ``ops.banded`` builds from its local index arrays (the
     global ones mapped to its rows here), without the cf entries of a
-    ghost face's cell the rank does not hold; each band is within
-    TABLE_MAX_BAND, and the graph stays on the table route."""
+    ghost face's cell the rank does not hold; the graph stays on the table
+    route."""
     g, by_n = parts
     for s, lg in enumerate(by_n[n][1]):
         assert lg.table_route and lg.es_onehot.dtype == torch.int8
@@ -225,7 +225,6 @@ def test_local_tables_are_the_tables_of_the_local_geometry(parts, n):
         print(f"1 x {n} rank {s}: band widths {widths}, global "
               f"{spmd.band_widths(g)}; cf entries left out "
               f"{int((~keep).sum())}")
-        assert max(widths.values()) <= kernels.TABLE_MAX_BAND
         # only a live ghost face drops an entry, never an owned one
         dropped = np.flatnonzero(~keep.all(0))
         assert np.all(dropped < n_held["face"])
@@ -262,17 +261,6 @@ def test_local_tables_sum_as_the_index_tables(parts, n):
         cei = lg.cell_edge_index.long()
         assert torch.equal(row[own_f], c[cei[0]][own_f])
         assert torch.equal(col[own_f], c[cei[1]][own_f])
-
-
-def test_band_past_the_limit_raises(parts, monkeypatch):
-    """A rank whose band is wider than TABLE_MAX_BAND raises, naming the
-    limit and the rank: its graph never falls back to the index route."""
-    g, by_n = parts
-    part = by_n[2][0]
-    monkeypatch.setattr(kernels, "TABLE_MAX_BAND", 128)
-    with pytest.raises(ValueError, match=r"space rank 0's es band .*"
-                                         r"TABLE_MAX_BAND"):
-        spmd.local_graph(g, part, 0)
 
 
 def test_local_graph_takes_its_route(parts):
