@@ -236,8 +236,9 @@ Phases (each prints one flushed line; any failure exits non-zero):
       numpy path's on a NATIVE_POINTS-point mesh, equal;
     * 12b (card) phase 10a's ``Trainer.run`` of the recipe (FUSED_EPOCHS
       epochs, the first the warm-up) on meshes 0-2, validated on mesh 3 on
-      the table route, its calls and validations timed in a
-      ``profiling.StepTimer`` (card synchronized), a checkpoint at its end;
+      the table route, its calls and validations timed as the recorder's
+      spans (``profiling.recording``, the card synchronized before each
+      span closes), a checkpoint at its end;
       then one mini-epoch (GEN_MINI_EPOCH samples of pushforward steps and
       a validation) under ``profiling.trace``: the trace file names the
       device functions of K1, K2, K3, K6 and K7, and gives the device
@@ -2839,8 +2840,18 @@ def crossing_rule(calls, steps_per_mini_epoch: int) -> tuple:
     return steps, mini_epochs
 
 
+@contextlib.contextmanager
+def synced_span(name: str, **attrs):
+    """The recorder's span ``name`` that waits for the card before it
+    closes, so that its time is the device's work and not only its
+    launch."""
+    with profiling.span(name, **attrs):
+        yield
+        torch.cuda.synchronize()
+
+
 def fused_training(train_ds, valid_ds, device_line: str, cfg=None,
-                   checkpointer=None, timer=None,
+                   checkpointer=None, timed: bool = False,
                    tag: str = "10a FluxD-r5", num_buckets: int = 1) -> tuple:
     """Phase 10a (and 12b, with ``tag``): ``Trainer.run`` of the fluxd-r5
     recipe (``cfg``, by default ``recipe_config()``) on the card. The
@@ -2852,9 +2863,9 @@ def fused_training(train_ds, valid_ds, device_line: str, cfg=None,
     validation phase 5's launches; the losses finite, epoch 1's falling
     on the combination of meshes it began with.
     With ``checkpointer``, a checkpoint at the last mini-epoch; with
-    ``timer`` (a ``profiling.StepTimer``), each call and each validation
-    timed in its sections ``train_call/epoch <e>`` and ``validate``, the card
-    synchronized before the clock stops. The dataset is padded in
+    ``timed``, each call and each validation is a :func:`synced_span`
+    (``train_call`` with its ``epoch``, ``validate``) for the caller's
+    ``profiling.recording`` to time. The dataset is padded in
     ``num_buckets`` size buckets (phase 14a), each combination's store at
     its own pad. Returns (the path's record, with each call's steps,
     epoch, cells and launches; the trainer, its state, the dataset)."""
@@ -2883,13 +2894,13 @@ def fused_training(train_ds, valid_ds, device_line: str, cfg=None,
     calls, valid_launches = [], []
     fused_fn, validate_fn = trainer.train_step_indexed, trainer.validate
 
-    def section(what, sync):
-        return (contextlib.nullcontext() if timer is None
-                else timer.section(what, sync=sync))
+    def section(what, **attrs):
+        return (synced_span(what, **attrs) if timed
+                else contextlib.nullcontext())
 
     def counted_call(state, graph, dev, ts, lrs, window, **kw):
         before = launch_counts()
-        with section(f"train_call/epoch {trainer.epoch_count}", dev):
+        with section("train_call", epoch=trainer.epoch_count):
             out = fused_fn(state, graph, dev, ts, lrs, window, **kw)
         calls.append({"epoch": trainer.epoch_count, "steps": len(lrs),
                       "cells": graph.num_cells,
@@ -2902,7 +2913,7 @@ def fused_training(train_ds, valid_ds, device_line: str, cfg=None,
 
     def counted_validate(state, *args, **kw):
         before = launch_counts()
-        with section("validate", next(state.module.parameters())):
+        with section("validate"):
             out = validate_fn(state, *args, **kw)
         valid_launches.append({k: v - before[k]
                                for k, v in launch_counts().items()})
@@ -3880,7 +3891,8 @@ def trace_kernels(trace_dir: str, wall_s: float) -> dict:
 
 def gen_training(dev, trajs, device_line: str) -> tuple:
     """Phase 12b: 10a's ``Trainer.run`` of the recipe on meshes 0-2 (mesh 3
-    validating on the table route), timed by a StepTimer, checkpointed;
+    validating on the table route), its calls and validations timed as
+    the recorder's spans, checkpointed;
     one more mini-epoch under ``profiling.trace``; the memory stats.
     Returns (the record, the validation's compute_window)."""
     cfg = gen_config()
@@ -3891,15 +3903,14 @@ def gen_training(dev, trajs, device_line: str) -> tuple:
                            pad_multiple=t.pad_multiple, with_banded=True,
                            banded_dtype="bfloat16", device=dev)
     ckpt = Checkpointer(os.path.join(GEN_DIR, "ckpt"))
-    timer = profiling.StepTimer()
-    record, trainer, state, ds = fused_training(
-        MeshDataset(trajs[:3], device=dev), valid_ds, device_line, cfg=cfg,
-        checkpointer=ckpt, timer=timer, tag="12b FluxD-gen")
+    with profiling.recording() as spans:
+        record, trainer, state, ds = fused_training(
+            MeshDataset(trajs[:3], device=dev), valid_ds, device_line,
+            cfg=cfg, checkpointer=ckpt, timed=True, tag="12b FluxD-gen")
     if ckpt.resolve("latest") is None:
         fail("12b: Trainer.run wrote no checkpoint")
     steps = record["rollout_steps"]   # 10a's: forwards of the run
     train_steps = trainer.step_count
-    report = timer.report()
 
     # one mini-epoch under the trace: its pushforward steps through the
     # indexed feed, then its validation
@@ -3911,14 +3922,12 @@ def gen_training(dev, trajs, device_line: str) -> tuple:
     before = launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profiling.trace(trace_dir):
-        with profiling.annotate("fluxd_gen_mini_epoch"):
-            with timer.section("traced_mini_epoch",
-                               sync=next(state.module.parameters())):
-                losses = trainer.train_step_indexed(
-                    state, graph, dev_fields, ts, [t.lr_min] * len(ts),
-                    ds.data_window)
-                trainer.validate(state, valid_ds, CHECK_STEPS)
+    with profiling.trace(trace_dir), profiling.recording() as traced_spans:
+        with synced_span("traced_mini_epoch"):
+            losses = trainer.train_step_indexed(
+                state, graph, dev_fields, ts, [t.lr_min] * len(ts),
+                ds.data_window)
+            trainer.validate(state, valid_ds, CHECK_STEPS)
     traced_s = time.perf_counter() - t0
     traced = {k: v - before[k] for k, v in launch_counts().items()}
     pf = t.pushforward_factor
@@ -3941,17 +3950,29 @@ def gen_training(dev, trajs, device_line: str) -> tuple:
     if not (0 < mem["bytes_in_use_mb"] <= mem["peak_bytes_in_use_mb"]
             <= mem["bytes_limit_mb"] == total_mb):
         fail(f"12b: device_memory_stats {mem}, the card's memory {total_mb} MB")
-    calls = [c for c in timer.counts if c.startswith("train_call/")]
-    ms_per_step = 1e3 * sum(timer.totals[c] for c in calls) / train_steps
+    calls = spans.named("train_call")
+    validations = spans.named("validate")
+    if (len(validations) != 2 or len(calls) != len(record["calls"])
+            or len(traced_spans.named("traced_mini_epoch")) != 1):
+        fail(f"12b: the recorder holds {len(calls)} train_call spans for "
+             f"{len(record['calls'])} calls, {len(validations)} validate "
+             f"spans for 2 validations, "
+             f"{len(traced_spans.named('traced_mini_epoch'))} traced "
+             f"mini-epochs for 1")
+    ms_per_step = 1e3 * sum(s.seconds for s in calls) / train_steps
     # each epoch takes the same steps (the sampler's 38 a mesh combination)
-    by_epoch = {c.split("/")[1]: 1e3 * timer.totals[c]
-                / (train_steps // FUSED_EPOCHS) for c in calls}
-    say(f"phase 12b FluxD-gen StepTimer (card synchronized before each clock "
-        f"stop): {train_steps} train steps in "
-        f"{sum(timer.counts[c] for c in calls)} calls, {ms_per_step:.3f} ms "
+    by_epoch = {f"epoch {e}": 1e3 * sum(s.seconds for s in calls
+                                        if s.attrs["epoch"] == e)
+                / (train_steps // FUSED_EPOCHS)
+                for e in sorted({s.attrs["epoch"] for s in calls})}
+    report = {"validate": sum(s.seconds for s in validations) / 2,
+              "traced_mini_epoch": traced_spans.seconds("traced_mini_epoch")}
+    say(f"phase 12b FluxD-gen spans (card synchronized before each span "
+        f"closes): {train_steps} train steps in "
+        f"{len(calls)} calls, {ms_per_step:.3f} ms "
         f"per step over both epochs, by epoch (1 the warm-up, 2 with the "
         f"pushforward unroll) {json.dumps({e: round(v, 3) for e, v in by_epoch.items()})}, "
-        f"{timer.counts['validate']} validations of {CHECK_STEPS} steps "
+        f"{len(validations)} validations of {CHECK_STEPS} steps "
         f"{1e3 * report['validate']:.1f} ms each; the traced mini-epoch "
         f"({len(ts)} pushforward steps and a validation) {traced_s:.2f} s "
         f"under the trace, launches {json.dumps({k: v for k, v in traced.items() if v})}"
@@ -3961,7 +3982,7 @@ def gen_training(dev, trajs, device_line: str) -> tuple:
         f"device share {100 * tr['device_share']:.1f} % of the traced wall "
         f"time; device_memory_stats {json.dumps({k: round(v, 1) for k, v in mem.items()})}"
         f"; card {device_line}")
-    record.update({"timer": report, "ms_per_step": ms_per_step,
+    record.update({"spans": report, "ms_per_step": ms_per_step,
                    "ms_per_step_by_epoch": by_epoch,
                    "train_steps": train_steps, "trace": tr,
                    "traced_s": traced_s, "memory": mem})

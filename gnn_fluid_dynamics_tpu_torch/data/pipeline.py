@@ -49,6 +49,7 @@ from gnn_fluid_dynamics_tpu_torch.graph import (FIELD_KEYS, MeshGraph,
                                                 banded_tables_for,
                                                 batch_graphs, from_geometry)
 from gnn_fluid_dynamics_tpu_torch.ops.mls import compute_mls_weights
+from gnn_fluid_dynamics_tpu_torch.training import profiling
 
 
 @dataclasses.dataclass
@@ -209,7 +210,8 @@ class MeshDataset:
         return value
 
     def _build_tables(self, mesh_id: str, pad: Dict[str, int]):
-        return banded_tables_for(self.by_id[mesh_id].geom, pad)
+        with profiling.span("setup.tables"):
+            return banded_tables_for(self.by_id[mesh_id].geom, pad)
 
     def _tables_put(self, key, value):
         return self._lru_put(self._tables_cache, key, value)
@@ -221,6 +223,7 @@ class MeshDataset:
         if key in self._tables_cache:
             self._tables_cache.move_to_end(key)
             return self._tables_cache[key]
+        profiling.count("dataset.table_builds")
         return self._tables_put(key, self._build_tables(mesh_id, pad))
 
     def _static_graph(self, mesh_id: str, pad: Dict[str, int]) -> MeshGraph:
@@ -264,17 +267,18 @@ class MeshDataset:
 
     def get_batch(self, samples: Sequence[Tuple[str, int]]) -> MeshGraph:
         """One batched MeshGraph for [(mesh_id, ts), ...], at the batch's
-        pad (:meth:`_pad_for`)."""
-        mesh_ids = tuple(m for m, _ in samples)
-        g = self._batched_static(mesh_ids)
-        pad = self._pad_for(mesh_ids)
-        winds = [self._window(m, ts, pad) for m, ts in samples]
-        updates = {}
-        for key in FIELD_KEYS:
-            if key in winds[0]:
-                arr = np.concatenate([w[key] for w in winds], axis=0)
-                updates[key] = self._to_device(arr)
-        return dataclasses.replace(g, **updates)
+        pad (:meth:`_pad_for`); the span ``setup.batch``."""
+        with profiling.span("setup.batch"):
+            mesh_ids = tuple(m for m, _ in samples)
+            g = self._batched_static(mesh_ids)
+            pad = self._pad_for(mesh_ids)
+            winds = [self._window(m, ts, pad) for m, ts in samples]
+            updates = {}
+            for key in FIELD_KEYS:
+                if key in winds[0]:
+                    arr = np.concatenate([w[key] for w in winds], axis=0)
+                    updates[key] = self._to_device(arr)
+            return dataclasses.replace(g, **updates)
 
     def get_item(self, idx: int) -> MeshGraph:
         return self.get_batch([self.sample_map[idx]])

@@ -44,6 +44,7 @@ import torch
 from gnn_fluid_dynamics_tpu_torch import resolve_device
 from gnn_fluid_dynamics_tpu_torch.ops.banded import (build_banded_tables,
                                                      pad_band_width)
+from gnn_fluid_dynamics_tpu_torch.training import profiling
 
 BANDED_DTYPES = {"int8": torch.int8, "bfloat16": torch.bfloat16,
                  "float32": torch.float32}
@@ -415,10 +416,11 @@ def to_static_bands(graph: MeshGraph, derive_idx: bool = True) -> MeshGraph:
     trainer's validation graph stays on the table route). The JAX package
     also bakes the band offsets into static specs here for its compiler;
     the port's kernels read them from ``*_off``. A graph without tables is
-    returned as it is."""
-    if derive_idx and graph.table_route:
-        return dataclasses.replace(graph, table_route=False)
-    return graph
+    returned as it is. The span ``setup.static_bands``."""
+    with profiling.span("setup.static_bands"):
+        if derive_idx and graph.table_route:
+            return dataclasses.replace(graph, table_route=False)
+        return graph
 
 
 FIELD_KEYS = ("cell_velocity", "cell_pressure", "face_velocity",

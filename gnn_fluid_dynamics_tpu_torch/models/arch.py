@@ -63,6 +63,7 @@ from gnn_fluid_dynamics_tpu_torch.ops import segment as seg_ops
 from gnn_fluid_dynamics_tpu_torch.ops.fvm import calc_gradient_tensor
 from gnn_fluid_dynamics_tpu_torch.parallel import halo
 from gnn_fluid_dynamics_tpu_torch.parallel.halo import refresh
+from gnn_fluid_dynamics_tpu_torch.training import profiling
 
 AGGREGATIONS = ("segment", "pallas", "auto", "banded", "gather")
 BLOCK_ORDERS = ("cell_first", "face_first")
@@ -231,6 +232,7 @@ class MLP(nn.Module):
                   self.layer_norm.weight, self.layer_norm.bias)
         key = (dtype, packed) + tuple((p.data_ptr(), p._version) for p in params)
         if self._kernel_cache is None or self._kernel_cache[0] != key:
+            profiling.count("mlp.weight_packs")
             w = kernels.BlockWeights(*(
                 (p.detach().t() if p.ndim == 2 else p.detach()).to(dtype).contiguous()
                 for p in params))
@@ -391,6 +393,10 @@ class FaceBlock(nn.Module):
                                     edge_attr.shape[0]), train, rng)
 
 
+_BLOCK_COUNTERS = {r: "gn_block." + r
+                   for r in ("fused", "unfused", "table", "plain")}
+
+
 class GNBlock(nn.Module):
     """One processor block with residuals, on the ``route`` of
     :func:`block_route`, in the config's ``block_order``: FVGN's cell block,
@@ -403,7 +409,11 @@ class GNBlock(nn.Module):
     Fused, the residuals are applied inside the kernels. Cell-first: K3 ->
     K2 with both outputs, then K1 on K2's raw output (with both outputs for
     ``face_raw``). Face-first: K1 with both outputs, then K3 on K1's raw
-    output -> K2 with the residual only."""
+    output -> K2 with the residual only.
+
+    Each application is the span ``gn_block`` with its ``route`` (the
+    unfused route on a graph on the table route as ``"table"``) and adds
+    one to the counter ``gn_block.<route>``."""
 
     def __init__(self, cfg: ArchConfig, generator: torch.Generator = None):
         super().__init__()
@@ -414,6 +424,14 @@ class GNBlock(nn.Module):
     def forward(self, cell_attr, edge_attr, graph, extra=None,
                 route: str = "plain", train: bool = False,
                 rng: torch.Generator = None, face_raw: bool = False):
+        kind = "table" if route == "unfused" and graph.table_route else route
+        profiling.count(_BLOCK_COUNTERS[kind])
+        with profiling.span("gn_block", route=kind):
+            return self._apply_block(cell_attr, edge_attr, graph, extra,
+                                     route, train, rng, face_raw)
+
+    def _apply_block(self, cell_attr, edge_attr, graph, extra, route, train,
+                     rng, face_raw):
         if route == "fused" and self.face_first:
             e_raw, e_res = self.face_block(cell_attr, edge_attr, graph,
                                            route=route, dual_out=True)

@@ -27,6 +27,8 @@ from typing import Dict
 
 import numpy as np
 
+from gnn_fluid_dynamics_tpu_torch.training import profiling
+
 
 def compute_connectivity(cells: np.ndarray, vertex_pos: np.ndarray):
     """Compute (face_index, cell_edge_index, vertex_edge_index).
@@ -231,7 +233,14 @@ def build_geometry(vertex_pos: np.ndarray, cells: np.ndarray,
     """Full geometry pipeline — the analogue of reference
     ``DataSet.write_geometry`` (``src/datasets/DataSet.py:276-312``), plus the
     precomputed static sign/slot tables that make the flux ops pure gathers.
+    The span ``setup.connectivity``.
     """
+    with profiling.span("setup.connectivity"):
+        return _build_geometry(vertex_pos, cells, vertex_types, class_types,
+                               use_native)
+
+
+def _build_geometry(vertex_pos, cells, vertex_types, class_types, use_native):
     vertex_pos = np.asarray(vertex_pos, dtype=np.float64)
     cells = np.asarray(cells, dtype=np.int64)
     (face_index, cell_edge_index, vertex_edge_index, cell_face_sign,

@@ -41,7 +41,10 @@ has waited for that kernel.
 The sources are compiled with ``nvcc`` for ``sm_90a`` into plain-C shared
 libraries under ``build/torch_kernels/`` at the checkout's root, at first use
 (one ``nvcc`` per source, all started together), keyed by a hash of the
-sources and flags, and loaded with ``ctypes``.
+sources and flags, and loaded with ``ctypes``. That first use is the span
+``setup.kernels``; each ``nvcc`` process adds one to the counter
+``kernels.builds``, each library loaded one to ``kernels.loads``
+(:mod:`~gnn_fluid_dynamics_tpu_torch.training.profiling`).
 """
 
 from __future__ import annotations
@@ -62,6 +65,7 @@ import torch.nn.functional as F
 
 from gnn_fluid_dynamics_tpu_torch.ops.segment import (
     aggregate_edges_to_vertices_scatter)
+from gnn_fluid_dynamics_tpu_torch.training import profiling
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -205,6 +209,7 @@ def build_kernels() -> float:
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
+        profiling.count("kernels.builds")
     failures = []
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
@@ -222,11 +227,12 @@ def _library(name: str) -> ctypes.CDLL:
     lib = _libs.get(name)
     if lib is not None:
         return lib
-    with _lock:
+    with _lock, profiling.span("setup.kernels"):
         if not _libs:
             build_kernels()
             for n in SOURCES:
                 dll = ctypes.CDLL(str(_library_path(n)))
+                profiling.count("kernels.loads")
                 for entry in (_ENTRY[n],) + _EXTRA_ENTRIES.get(n, ()):
                     fn = getattr(dll, entry)
                     fn.argtypes = _ARGTYPES[entry]

@@ -18,9 +18,17 @@ from typing import Dict
 
 import numpy as np
 
+from gnn_fluid_dynamics_tpu_torch.training import profiling
+
 
 def rcm_reorder_geometry(geom: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
-    """Return a new geometry dict with vertices/edges/cells RCM-relabeled."""
+    """Return a new geometry dict with vertices/edges/cells RCM-relabeled;
+    the span ``setup.rcm``."""
+    with profiling.span("setup.rcm"):
+        return _rcm_reorder_geometry(geom)
+
+
+def _rcm_reorder_geometry(geom):
     from scipy.sparse import csr_matrix
     from scipy.sparse.csgraph import reverse_cuthill_mckee
 

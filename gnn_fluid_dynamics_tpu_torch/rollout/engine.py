@@ -29,6 +29,7 @@ from gnn_fluid_dynamics_tpu_torch.models.losses import (mse_per_graph,
 from gnn_fluid_dynamics_tpu_torch.models.transforms import interior_face_mask
 from gnn_fluid_dynamics_tpu_torch.ops import fvm
 from gnn_fluid_dynamics_tpu_torch.parallel import halo
+from gnn_fluid_dynamics_tpu_torch.training import profiling
 
 SAVABLE_FIELDS = ("cell_velocity", "cell_pressure", "cell_flux",
                   "face_velocity", "face_pressure", "face_flux")
@@ -119,6 +120,13 @@ def rollout_scan(model, graph, feats0: Dict[str, torch.Tensor],
         stacked per-step fields when ``save_fields``, and always
         ``final_cell_state``.
     """
+    with profiling.span("rollout"):
+        return _rollout_scan(model, graph, feats0, gt_cell_velocity,
+                             gt_cell_pressure, config)
+
+
+def _rollout_scan(model, graph, feats0, gt_cell_velocity, gt_cell_pressure,
+                  config):
     if graph.device != model.device:
         raise ValueError(f"graph is on {graph.device}, model on {model.device}")
     bundle = int(getattr(model.config, "bundle_size", None) or 1)
@@ -154,18 +162,27 @@ def rollout_scan(model, graph, feats0: Dict[str, torch.Tensor],
                 graph.cell_batch, num_graphs))
 
     feats = feats0
+    span = profiling.span
     with torch.inference_mode(), halo.sharded(graph.halo):
         for i in range(n_outer):
-            subs = [halo.refresh_state(sol, graph) for sol in derive_states(
-                model, model.forward(graph, feats), feats, graph)]
-            for k, sol in enumerate(subs):
+            with span("rollout.step", step=i):
+                with span("model.forward"):
+                    outputs = model.forward(graph, feats)
+                with span("rollout.derive"):
+                    subs = [halo.refresh_state(sol, graph) for sol in
+                            derive_states(model, outputs, feats, graph)]
                 if compute_error:
-                    measure(sol, feats, i * bundle + k, k)
-            if config.save_fields:
-                for key in SAVABLE_FIELDS:
-                    if all(key in sol for sol in subs):
-                        ys.setdefault(key, []).extend(sol[key] for sol in subs)
-            feats = model.update_features(subs[-1], feats, graph)
+                    with span("rollout.metrics"):
+                        for k, sol in enumerate(subs):
+                            measure(sol, feats, i * bundle + k, k)
+                if config.save_fields:
+                    with span("rollout.save"):
+                        for key in SAVABLE_FIELDS:
+                            if all(key in sol for sol in subs):
+                                ys.setdefault(key, []).extend(
+                                    sol[key] for sol in subs)
+                with span("rollout.feedback"):
+                    feats = model.update_features(subs[-1], feats, graph)
     stacked = {k: torch.stack(v) for k, v in ys.items()}
     errors = {k: v for k, v in stacked.items() if k not in SAVABLE_FIELDS}
     fields = {k: v for k, v in stacked.items() if k in SAVABLE_FIELDS}

@@ -1,7 +1,7 @@
-"""The port's training tools against the JAX package's: ``StepTimer``,
-``trace``, ``annotate`` and ``device_memory_stats`` (``training/
-profiling.py``); the per-head report and CLI of ``training/diagnose.py``;
-the sweep tool (``training/sweep.py``); and the logger's TensorBoard and
+"""The port's training tools, against the JAX package's where it has
+them: ``trace`` with the recorder's spans and ``device_memory_stats``
+(``training/profiling.py``); the per-head report and CLI of
+``training/diagnose.py``; the sweep tool (``training/sweep.py``); and the logger's TensorBoard and
 wandb sinks (``training/logging.py``), with a resumed run continuing the
 checkpoint's wandb run.
 
@@ -19,7 +19,6 @@ import io
 import json
 import os
 import sys
-import time
 import types
 
 import jax
@@ -40,7 +39,6 @@ from gnn_fluid_dynamics_tpu.models.normalizer import \
     StatsAccumulator as JaxStatsAccumulator
 from gnn_fluid_dynamics_tpu.ops import mls as jax_mls
 from gnn_fluid_dynamics_tpu.training import diagnose as jdiagnose
-from gnn_fluid_dynamics_tpu.training import profiling as jprofiling
 from gnn_fluid_dynamics_tpu.training import sweep as jsweep
 from gnn_fluid_dynamics_tpu.training.config import Config as JaxConfig
 from gnn_fluid_dynamics_tpu.training.logging import Logger as JaxLogger
@@ -65,39 +63,23 @@ STATS = ("corr", "rel", "pred_mean", "pred_std", "tgt_mean", "tgt_std")
 
 # ---- profiling ----------------------------------------------------------------
 
-def test_step_timer_matches_jax(monkeypatch):
-    """On one fake clock, both timers count, total, average and reset
-    alike; a section with a tensor to synchronize (on the CPU: nothing to
-    wait for) still counts."""
-    ticks = iter(np.arange(0.0, 100.0, 0.5))
-    monkeypatch.setattr(time, "time", lambda: float(next(ticks)))
-    reports = []
-    for mod in (jprofiling, profiling):
-        t = mod.StepTimer()
-        for name in ("a", "b", "a", "a"):
-            with t.section(name):
-                time.time()
-        sync = (jax.numpy.ones(2) if mod is jprofiling else
-                {"x": [torch.ones(2)]})
-        with t.section("c", sync=sync):
-            pass
-        reports.append((dict(t.totals), dict(t.counts), t.report(),
-                        t.mean("a"), t.mean("missing")))
-        t.reset()
-        assert t.report() == {} and t.totals == {} and t.counts == {}
-    assert reports[0] == reports[1]
-    assert reports[1][1] == {"a": 3, "b": 1, "c": 1}
-
-
 def test_trace_writes_a_file_with_the_annotation(tmp_path):
-    with profiling.trace(str(tmp_path)):
-        with profiling.annotate("gfd_tools_region"):
+    """A span recorded under ``trace`` is the trace's host range
+    ``gfd::<name>``; outside ``recording`` it marks nothing."""
+    with profiling.trace(str(tmp_path / "on")), profiling.recording():
+        with profiling.span("tools_region"):
             torch.ones(64, 64) @ torch.ones(64, 64)
-    files = glob.glob(str(tmp_path / "*.pt.trace.json"))
-    assert len(files) == 1
-    with open(files[0]) as f:
-        names = {e.get("name") for e in json.load(f)["traceEvents"]}
-    assert "gfd_tools_region" in names
+    with profiling.trace(str(tmp_path / "off")):
+        with profiling.span("tools_region"):
+            torch.ones(64, 64) @ torch.ones(64, 64)
+    for sub, want in (("on", 1), ("off", 0)):
+        files = glob.glob(str(tmp_path / sub / "*.pt.trace.json"))
+        assert len(files) == 1
+        with open(files[0]) as f:
+            ranges = [e for e in json.load(f)["traceEvents"]
+                      if e.get("name") == "gfd::tools_region"]
+        assert len(ranges) == want
+        assert all(e["cat"] == "user_annotation" for e in ranges)
 
 
 def test_device_memory_stats_off_the_card():
