@@ -47,6 +47,11 @@ Phases (each prints one flushed line; any failure exits non-zero):
    200 rounds K1 with both outputs, then K3 on K1's raw output (MgnA's
    face-first order), K3 agreeing with its plain version on every round;
    and the first check again for 50 rounds at the wide forms' 256 lanes;
+   and K8, the unfused sub-block's MLP -> LayerNorm -> residual, in both
+   forms (cell: f32 latents and f32 vertex mean; face: f32 edge latents and
+   bf16 owner/neighbour rows), with and without the step scalar, single-
+   and dual-output, at the bench mesh's rows and at the benchmark's b8
+   batch's, each against its plain version and an f64 evaluation as K1/K2;
 3. the three paths at hidden 128, 15 GN block applications and bf16, with
    seeded weights and statistics from the synthetic channel flow:
 
@@ -54,14 +59,17 @@ Phases (each prints one flushed line; any failure exits non-zero):
      5,361 faces, 1,899 vertices), 15 fused GN blocks: K3 -> K2 -> K1 per
      block;
    * FvgnF, on the same mesh, one shared GN block applied 15 times with a
-     step scalar, so unfused: K3 -> K5 -> cell MLP, K4 -> face MLP per
-     application; its integrator's BatchNorm at Flax's init (mean 0, var 1);
+     step scalar, so unfused: K3 -> K5 -> K8 (cell MLP), K4 -> K8 (face
+     MLP) per application; its integrator's BatchNorm at Flax's init (mean
+     0, var 1);
    * FluxD-valid, the rollout half of the trainer's validation: two
      RCM-ordered 9,700-point cylinder meshes (``bench.py``'s production
      point) in one ``MeshDataset`` with int8 banded tables, padded to one
      shape and batched on the table route, so every block is unfused and
-     reads the tables: K6 (es/er) -> K7 (vc) -> cell MLP, K6 (cf) -> face
-     MLP; each table application is one launch for the whole batch.
+     reads the tables: K6 (es/er) -> K7 (vc) -> K8 (cell MLP), K6 (cf) ->
+     K8 (face MLP); each table application is one launch for the whole
+     batch. Every unfused bf16 path of the later phases (the table routes'
+     validations, FvgnF's) launches K8 twice a block application.
 
    Each of the first 5 steps of a path is held against the same model's
    plain path on the card, on the same inputs (FluxD-valid's also against
@@ -70,7 +78,7 @@ Phases (each prints one flushed line; any failure exits non-zero):
    ``validate`` on both routes, whose errors must agree); then a 100-step rollout is timed with
    every launch counter set to 0 just before it and read just after, and
    each kernel must have launched as often per step as its path runs it
-   (15, K6 30) and never on another path; last a device profile of 10
+   (15, K6 30, K8 30) and never on another path; last a device profile of 10
    steps;
 4. a summary line of the three paths;
 5. training on the card, through ``Trainer.run`` (no kernel runs in a train
@@ -418,6 +426,11 @@ PEAK_BYTES = 3.35e12
 # from f32 sums in another order, plus its effect downstream. K4 rounds
 # each value to bf16 once, as its plain version does, and is held exactly.
 KERNEL_RTOL = KERNEL_ATOL = 2.0 ** -7
+# K8's rows in phase 2: the bench mesh's (3,462 cells, 5,361 faces) and the
+# benchmark's b8 batch's live rows (perfbench/traffic/rollout_b8.json: eight
+# 9,700-point meshes)
+MESH_ROWS = {"cell": 3462, "face": 5361}
+B8_ROWS = {"cell": 108886, "face": 165873}
 # kernel vs plain route of the same model on the same inputs, as the
 # largest difference relative to the field's largest magnitude: bf16
 # latents through 15 blocks (measured on the CPU at 904 cells: up to 2.8%
@@ -644,6 +657,13 @@ KERNELS = {
         source="gnn_fluid_dynamics_tpu_torch/csrc/table_single.cu",
         replaces="gnn_fluid_dynamics_tpu/ops/pallas_agg.py:353 "
                  "(_single_kernel; banded_single_pallas :380, pallas_call :397)"),
+    "K8_mlp_block": dict(
+        wrapper=kernels.mlp_block,
+        source="gnn_fluid_dynamics_tpu_torch/csrc/mlp_block.cu",
+        replaces="none: the counterpart of the fusion XLA does around "
+                 "gnn_fluid_dynamics_tpu/ops/pallas_agg.py's banded_*_pallas "
+                 "on the unfused route (a sub-block's MLP, LayerNorm and "
+                 "residual)"),
 }
 # the main paths: model class, and the launches per step of each kernel the
 # path runs (every other kernel: none)
@@ -653,14 +673,17 @@ PATHS = {
                       "K3_edges_to_vertices": MP_NUM}),
     "FvgnF": (FvgnF, {"K3_edges_to_vertices": MP_NUM,
                       "K4_gather_face_cells": MP_NUM,
-                      "K5_vertices_to_cells": MP_NUM}),
+                      "K5_vertices_to_cells": MP_NUM,
+                      "K8_mlp_block": 2 * MP_NUM}),
     "FluxD-valid": (FluxD, {"K6_table_dual": 2 * MP_NUM,
-                            "K7_table_single": MP_NUM}),
+                            "K7_table_single": MP_NUM,
+                            "K8_mlp_block": 2 * MP_NUM}),
     "MgnA": (MgnA, {"K1_fused_face_block": MP_NUM,
                     "K2_fused_cell_block": MP_NUM,
                     "K3_edges_to_vertices": MP_NUM}),
     "MgnA-valid": (MgnA, {"K6_table_dual": 2 * MP_NUM,
-                          "K7_table_single": MP_NUM}),
+                          "K7_table_single": MP_NUM,
+                          "K8_mlp_block": 2 * MP_NUM}),
 }
 _FUSED_PER_STEP = {"K1_fused_face_block": MP_NUM,
                    "K2_fused_cell_block": MP_NUM,
@@ -670,12 +693,14 @@ PATHS.update({name: (get_model_class(name), _FUSED_PER_STEP)
               for name in FVGN_VARIANTS + STREAMFUNC_VARIANTS})
 PATHS["FvgnC-valid"] = (get_model_class("FvgnC"),
                         {"K6_table_dual": 2 * MP_NUM,
-                         "K7_table_single": MP_NUM})
+                         "K7_table_single": MP_NUM,
+                         "K8_mlp_block": 2 * MP_NUM})
 PATHS.update({name: (get_model_class(name), _FUSED_PER_STEP)
               for name in FLUX_VARIANTS + VERTPOT_VARIANTS})
 PATHS["VertPotA-valid"] = (get_model_class("VertPotA"),
                            {"K6_table_dual": 2 * MP_NUM,
-                            "K7_table_single": MP_NUM})
+                            "K7_table_single": MP_NUM,
+                            "K8_mlp_block": 2 * MP_NUM})
 _TWICE_MP_PER_STEP = {"K3_edges_to_vertices": MP_NUM,
                       "K5_vertices_to_cells": MP_NUM}
 PATHS.update({name: (get_model_class(name),
@@ -692,7 +717,8 @@ ROLLOUT_PATHS = ("FluxD", "FvgnF", "FluxD-valid")      # phase 3
 BLOCK_ORDER = {
     "MgnA": ["fused_face_block:dual", "edges_to_vertices",
              "fused_cell_block"],
-    "MgnA-valid": ["table_dual", "table_dual:roll", "table_single"],
+    "MgnA-valid": ["table_dual", "mlp_block:dual", "table_dual:roll",
+                   "table_single", "mlp_block"],
     **{name: ["edges_to_vertices", "fused_cell_block:dual",
               "fused_face_block"] for name in FVGN_VARIANTS},
     **{name: ["fused_face_block:dual", "edges_to_vertices",
@@ -1209,6 +1235,7 @@ def kernel_phase(graph, index_graph) -> dict:
     for name, w in (("K1_fused_face_block", w_face),
                     ("K2_fused_cell_block", w_cell)):
         results[name] = block_forms(name, graph, index_graph, w, latents)
+    results["K8_mlp_block"] = mlp_block_forms(dev)
     return results
 
 
@@ -1609,6 +1636,120 @@ def block_forms(name, graph, index_graph, w, latents) -> dict:
         "unit": f"per launch, {main} (the FluxD path's form)"}
 
 
+def mlp_block_exact(parts, extra, w) -> tuple:
+    """K8's function in f64 with its plain version's bf16 rounding points
+    (the input row; each product, bias add and SiLU): (raw, res), the
+    LayerNorm unrounded."""
+    rows = parts[0].shape[0]
+    cols = list(parts) + ([extra.expand(rows, 1)] if extra is not None else [])
+    h = torch.cat([c.float() for c in cols], 1).to(torch.bfloat16).double()
+    for i, (weight, bias) in enumerate(w.dense):
+        h = (h @ weight.double().t()).to(torch.bfloat16).double()
+        h = (h + bias.double()).to(torch.bfloat16).double()
+        if i < 2:
+            h = F.silu(h).to(torch.bfloat16).double()
+    mu = h.mean(1, keepdim=True)
+    var = torch.clamp((h * h).mean(1, keepdim=True) - mu * mu, min=0.0)
+    hn = ((h - mu) / torch.sqrt(var + kernels.LN_EPS) * w.ln_g.double()
+          + w.ln_b.double())
+    return hn, parts[0].double() + hn
+
+
+def mlp_block_bound(form: str, rows: int, dual: bool) -> tuple:
+    """K8's least time at ``rows``: bytes (f32 base in, the other parts in
+    f32 (cell) or bf16 (face), f32 residual out, bf16 raw out with
+    ``dual``, the weights once) against its three products in bf16."""
+    k0 = H + H // 2 if form == "cell" else 3 * H
+    part_bytes = rows * H // 2 * 4 if form == "cell" else 2 * rows * H * 2
+    nbytes = (rows * H * 4 + part_bytes + rows * H * 4
+              + (rows * H * 2 if dual else 0)
+              + (k0 + 1 + 2 * H) * H * 2 + 3 * H * 2 + 2 * H * 4)
+    flops = 2 * rows * H * (k0 + 1 + 2 * H)
+    return _bound(nbytes, flops, PEAK_BF16_FLOPS)
+
+
+def silu_check(dev) -> dict:
+    """K8's SiLU against PyTorch's on every bf16 value, bit for bit (NaN by
+    place): K8 computes it with the fast exponential and division where
+    they round to the same bf16 (``csrc/mlp_block.cu``), so this holds
+    that claim on the card it runs on."""
+    bits = torch.arange(65536, dtype=torch.int32, device=dev)
+    x = torch.where(bits >= 32768, bits - 65536, bits).to(torch.int16).view(
+        torch.bfloat16)
+    got, want = kernels.mlp_block_silu_table(dev), F.silu(x)
+    nan = torch.isnan(want)
+    if not torch.equal(torch.isnan(got), nan):
+        fail("K8's SiLU: NaN at other places than PyTorch's")
+    off = int((got.view(torch.int16) != want.view(torch.int16))[~nan].sum())
+    if off:
+        fail(f"K8's SiLU: {off} of the 65,536 bf16 values round otherwise "
+             "than PyTorch's SiLU")
+    return {"values": 65536, "nan": int(nan.sum()), "differ": off}
+
+
+def mlp_block_forms(dev) -> dict:
+    """K8 in both forms, with and without the step scalar, single- and
+    dual-output, at the bench mesh's rows and at the benchmark's b8 batch's
+    (``B8_ROWS``), on seeded parts in the dtypes the routes pass (cell:
+    f32, f32; face: f32, bf16, bf16) and a seeded MLP with nonzero biases;
+    each held against its plain version and its f64 evaluation
+    (``_compare_block``, K1/K2's tolerance), timed beside the plain version,
+    with its bound. The top-level numbers are FvgnF's face launch (single
+    output, with the step scalar) at the bench mesh."""
+    forms = {}
+    for form, mesh_rows in (("cell", MESH_ROWS["cell"]),
+                            ("face", MESH_ROWS["face"])):
+        for step in (False, True):
+            k0 = (H + H // 2 if form == "cell" else 3 * H) + int(step)
+            gen = torch.Generator().manual_seed(k0)
+            mlp = MLP(k0, H, H, dtype=torch.bfloat16, generator=gen)
+            with torch.no_grad():
+                for p in (mlp.dense0.bias, mlp.dense1.bias, mlp.dense2.bias,
+                          mlp.layer_norm.bias):
+                    p.copy_(0.1 * torch.randn(p.shape, generator=gen))
+                mlp.layer_norm.weight.copy_(
+                    1.0 + 0.2 * torch.randn(H, generator=gen))
+            w = mlp.to(dev).kernel_weights(mlp_block=True)
+            extra = torch.tensor([[7 / 15]], device=dev) if step else None
+            for rows in (mesh_rows, B8_ROWS[form]):
+                g = torch.Generator(device=dev).manual_seed(rows + k0)
+                widths = (H, H // 2) if form == "cell" else (H, H, H)
+                parts = [torch.randn(rows, wd, device=dev, generator=g)
+                         for wd in widths]
+                if form == "face":
+                    parts[1:] = [p.to(torch.bfloat16) for p in parts[1:]]
+                exact = mlp_block_exact(parts, extra, w)
+                for dual in (False, True):
+                    fname = (f"{form}_{'step_' if step else ''}"
+                             f"{'dual' if dual else 'single'}_{rows}")
+                    run = functools.partial(kernels.mlp_block, parts, extra,
+                                            w, True, dual)
+                    ref = functools.partial(kernels.mlp_block_ref, parts,
+                                            extra, w, True, dual)
+                    got, want = run(), ref()
+                    got, want = (got, want) if dual else ((got,), (want,))
+                    err, readings = _compare_block(
+                        f"K8_mlp_block {fname}", got, want,
+                        exact if dual else exact[1:])
+                    del got, want
+                    forms[fname] = {"ms": gpu_ms(run), "plain_ms": gpu_ms(ref),
+                                    "max_abs_err": err, "vs_f64": readings,
+                                    "bound": mlp_block_bound(form, rows, dual)}
+                del exact, parts
+    main = f"face_step_single_{MESH_ROWS['face']}"
+    return {
+        "silu": silu_check(dev) if dev.type == "cuda" else None,
+        "max_abs_err": max(f["max_abs_err"] for f in forms.values()),
+        "ms": forms[main]["ms"], "plain_ms": forms[main]["plain_ms"],
+        "bound": forms[main]["bound"],
+        "forms": {f: {**{k: v for k, v in r.items() if k != "bound"},
+                      "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+                      "bytes": r["bound"][2], "flops": r["bound"][3]}
+                  for f, r in forms.items()},
+        "unit": f"per launch, {main} (FvgnF's face launch at the bench mesh); "
+                "forms <form>_[step_]<single|dual>_<rows>"}
+
+
 def check_against_plain(kern, plain, graph, feats, index_graph=None,
                         tol: float = STEP_TOL) -> dict:
     """The kernel and the plain route of the same model, step by step on the
@@ -1848,7 +1989,7 @@ def launch_order(model, graph, feats) -> list:
     saved = {name: getattr(kernels, name) for name in (
         "fused_face_block", "fused_cell_block", "edges_to_vertices",
         "gather_face_cells", "vertices_to_cells", "table_dual",
-        "table_single")}
+        "table_single", "mlp_block")}
 
     def wrap(name, fn):
         def call(*args, **kw):
@@ -3878,7 +4019,8 @@ def trace_kernels(trace_dir: str, wall_s: float) -> dict:
                  "K4_gather_face_cells": "face_gather_kernel",
                  "K5_vertices_to_cells": "vertex_cell_kernel",
                  "K6_table_dual": "table_dual_kernel",
-                 "K7_table_single": "table_single_kernel"}
+                 "K7_table_single": "table_single_kernel",
+                 "K8_mlp_block": "k8::mlp_block_kernel"}
     named = {k: sum(1 for e in kernels_ if f"gfd::{fn}" in e.get("name", ""))
              for k, fn in functions.items()}
     device_us = sum(float(e.get("dur", 0.0)) for e in kernels_)
@@ -3941,7 +4083,8 @@ def gen_training(dev, trajs, device_line: str) -> tuple:
     tr = trace_kernels(trace_dir, traced_s)
     missing = [k for k in ("K1_fused_face_block", "K2_fused_cell_block",
                            "K3_edges_to_vertices", "K6_table_dual",
-                           "K7_table_single") if not tr["named"][k]]
+                           "K7_table_single", "K8_mlp_block")
+               if not tr["named"][k]]
     if missing:
         fail(f"12b: the trace names no device function of {missing} "
              f"({tr['named']})")
@@ -5085,11 +5228,14 @@ def main() -> int:
         k["max_abs_err"] = max(k["max_abs_err"], r["max_abs_err"])
     for (name, label), r in wide["nan"].items():
         per_kernel[name]["nan_through_zero_weight"][label] = r
+    say("phase 2 K8's SiLU against PyTorch's on every bf16 value, bit for "
+        "bit: ok " + json.dumps(per_kernel["K8_mlp_block"]["silu"]))
     say("phase 2 kernel vs plain: ok " + json.dumps(
         {k: round(v["max_abs_err"], 6) for k, v in per_kernel.items()}))
     for name in ("K1_fused_face_block", "K2_fused_cell_block",
                  "K3_edges_to_vertices", "K4_gather_face_cells",
-                 "K5_vertices_to_cells", "K6_table_dual", "K7_table_single"):
+                 "K5_vertices_to_cells", "K6_table_dual", "K7_table_single",
+                 "K8_mlp_block"):
         say(f"phase 2 {name} by form: " + json.dumps(per_kernel[name]["forms"]))
     k4 = per_kernel["K4_gather_face_cells"]
     say("phase 2 K4 on the rounding cases, bit for bit (NaN by place): ok "

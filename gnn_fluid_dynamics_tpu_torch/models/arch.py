@@ -13,14 +13,17 @@ The GN blocks take one of two routes, as in the JAX package:
   versions on the CPU). A block without a step scalar on a graph on the
   index route is **fused**: per block the edge->vertex sum (K3), the fused
   cell block (K2) and the fused face block (K1), with bf16 latents between
-  them. Any other block is **unfused**, its MLPs run as :class:`MLP` modules
-  and its residuals outside the kernels: on the index route (a block with a
+  them. Any other block is **unfused**: on the index route (a block with a
   step scalar, as in FvgnF) K3 then the 3-vertex mean (K5) before the cell
   MLP and the owner/neighbour gather (K4) before the face MLP; on a graph on
   the table route (``MeshGraph.table_route``, the trainer's validation
   graph) the dense-table kernels instead: K6 on the es/er tables then K7 on
   vc before the cell MLP, K6 on the cf tables before the face MLP
-  (``_fused_block_ok``, ``aggregate_twice_mp``, ``gather_face_cells``);
+  (``_fused_block_ok``, ``aggregate_twice_mp``, ``gather_face_cells``).
+  Each sub-block's MLP -> LayerNorm -> residual then runs as one kernel,
+  K8, on the aggregations' outputs where the MLP is one K8 takes (bf16, H
+  wide, with a LayerNorm: :func:`mlp_block_ok`), and as its :class:`MLP`
+  module with the residual outside otherwise (the f32 MLPs);
 * the **plain** route: segment aggregation, row gathers and the
   :class:`MLP` modules in the configured compute dtype.
 
@@ -154,16 +157,11 @@ def _init_dense(layer: nn.Linear, generator: torch.Generator) -> None:
 
 
 def _flax_layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
-    """LayerNorm as Flax computes it: f32 statistics with var = E[x^2] -
-    mean^2 clamped at 0, eps 1e-5 (the reference's torch default), result in
-    ``x``'s dtype; a LayerNorm without bias adds none."""
-    xf = x.float()
-    mu = xf.mean(dim=-1, keepdim=True)
-    var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mu * mu, min=0.0)
-    y = (xf - mu) * (torch.rsqrt(var + ln.eps) * ln.weight)
-    if ln.bias is not None:
-        y = y + ln.bias
-    return y.to(x.dtype)
+    """LayerNorm as Flax computes it (:func:`kernels.layer_norm_ref`): f32
+    statistics with var = E[x^2] - mean^2 clamped at 0, eps 1e-5 (the
+    reference's torch default), result in ``x``'s dtype; a LayerNorm
+    without bias adds none."""
+    return kernels.layer_norm_ref(x, ln.weight, ln.bias, ln.eps)
 
 
 def dropout(x: torch.Tensor, rate: float,
@@ -201,7 +199,7 @@ class MLP(nn.Module):
         self.dtype = dtype
         for layer in (self.dense0, self.dense1, self.dense2):
             _init_dense(layer, generator)
-        self._kernel_cache = None
+        self._kernel_cache = {}   # form -> (parameter versions, weights)
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 rng: torch.Generator = None) -> torch.Tensor:
@@ -219,25 +217,41 @@ class MLP(nn.Module):
             h = _flax_layer_norm(h, self.layer_norm)
         return h.float()
 
-    def kernel_weights(self, dtype=torch.bfloat16, packed: bool = False):
-        """This MLP as the fused blocks take it: matrices (inputs, outputs),
-        every tensor in ``dtype`` (the kernels take bf16; the plain versions
-        any float dtype). With ``packed``, the fused kernels' (K1's and
-        K2's) ``PackedWeights``: the same with the matrices packed as the
-        kernels read them (``kernels.packed_weights``).
-        Cached until a parameter is replaced or changed in place, so the
-        packing runs once per set of weights."""
+    def kernel_weights(self, dtype=torch.bfloat16, packed: bool = False,
+                       mlp_block: bool = False):
+        """This MLP as the kernels take it, the one cache of its weights in
+        the compute dtype. By default as the fused blocks' plain versions
+        take it: matrices (inputs, outputs), every tensor in ``dtype`` (the
+        kernels take bf16; the plain versions any float dtype). With
+        ``packed``, the fused kernels' (K1's and K2's) ``PackedWeights``: the
+        same with the matrices packed as the kernels read them
+        (``kernels.packed_weights``). With ``mlp_block``, K8's
+        ``MlpBlockWeights``: the Dense layers in ``dtype`` as ``F.linear``
+        takes them, packed beside (``kernels.mlp_block_weights``), and the
+        LayerNorm's f32 parameters.
+        Each form is cached until a parameter is replaced or changed in
+        place, so the packing runs once per set of weights."""
         params = (self.dense0.weight, self.dense0.bias, self.dense1.weight,
                   self.dense1.bias, self.dense2.weight, self.dense2.bias,
                   self.layer_norm.weight, self.layer_norm.bias)
-        key = (dtype, packed) + tuple((p.data_ptr(), p._version) for p in params)
-        if self._kernel_cache is None or self._kernel_cache[0] != key:
+        form = (dtype, packed, mlp_block)
+        key = tuple((p.data_ptr(), p._version) for p in params)
+        cached = self._kernel_cache.get(form)
+        if cached is None or cached[0] != key:
             profiling.count("mlp.weight_packs")
-            w = kernels.BlockWeights(*(
-                (p.detach().t() if p.ndim == 2 else p.detach()).to(dtype).contiguous()
-                for p in params))
-            self._kernel_cache = (key, kernels.packed_weights(w) if packed else w)
-        return self._kernel_cache[1]
+            w = [p.detach() for p in params]
+            if mlp_block:
+                value = kernels.mlp_block_weights(
+                    [(w[i].to(dtype), w[i + 1].to(dtype)) for i in (0, 2, 4)],
+                    w[6].float(), w[7].float())
+            else:
+                value = kernels.BlockWeights(*(
+                    (p.t() if p.ndim == 2 else p).to(dtype).contiguous()
+                    for p in w))
+                if packed:
+                    value = kernels.packed_weights(value)
+            cached = self._kernel_cache[form] = (key, value)
+        return cached[1]
 
 
 class AntisymMLP(nn.Module):
@@ -344,9 +358,47 @@ def _with_extra(parts: list, extra, rows: int) -> torch.Tensor:
     return torch.cat(parts, dim=-1)
 
 
+def mlp_block_ok(mlp: MLP, route: str, fan_ins: tuple) -> bool:
+    """Whether K8 runs a sub-block's MLP: on the unfused route (which
+    excludes training), a bf16 MLP of the kernels' width with a LayerNorm,
+    whose fan-in is one of ``fan_ins`` (the sub-block's, without and with
+    the step scalar's column). Only what the call can observe decides it."""
+    return (route == "unfused" and mlp.dtype == torch.bfloat16
+            and mlp.layer_norm is not None
+            and mlp.dense0.out_features == kernels.H
+            and mlp.dense2.out_features == kernels.H
+            and mlp.dense0.in_features in fan_ins)
+
+
+def _sub_block_mlp(mlp: MLP, parts: list, extra, route: str, fan_ins: tuple,
+                   residual: bool, dual_out: bool, train: bool, rng):
+    """A non-fused sub-block's MLP on its input ``parts`` (the residual base
+    first): K8 where :func:`mlp_block_ok`, else the :class:`MLP` module on
+    their concatenation with the residual added after. Returns raw, or with
+    ``residual`` ``parts[0] + raw`` (and raw before it with ``dual_out``);
+    K8's raw is bf16, the module's f32, of the same values. On the unfused
+    route, counts ``gn_mlp.kernel`` or ``gn_mlp.plain`` by the path taken."""
+    kernel = mlp_block_ok(mlp, route, fan_ins)
+    if route == "unfused":
+        profiling.count("gn_mlp.kernel" if kernel else "gn_mlp.plain")
+    if kernel:
+        return kernels.mlp_block(parts, extra,
+                                 mlp.kernel_weights(mlp_block=True),
+                                 residual=residual, dual_out=dual_out)
+    raw = mlp(_with_extra(parts, extra, parts[0].shape[0]), train, rng)
+    if not residual:
+        return raw
+    res = parts[0] + raw
+    return (raw, res) if dual_out else res
+
+
 class CellBlock(nn.Module):
     """Edge->vertex->cell aggregation + cell MLP (reference ``Cell_Block``,
-    Fvgn.py:298-325)."""
+    Fvgn.py:298-325). Off the fused route it returns the MLP's raw output,
+    or with ``residual`` ``cell_attr + raw`` as the fused route does (with
+    ``dual_out`` raw too)."""
+
+    FAN_INS = (kernels.H + kernels.H // 2, kernels.H + kernels.H // 2 + 1)
 
     def __init__(self, cfg: ArchConfig, generator: torch.Generator = None):
         super().__init__()
@@ -356,22 +408,27 @@ class CellBlock(nn.Module):
 
     def forward(self, cell_attr, edge_attr, graph, extra=None,
                 route: str = "plain", dual_out: bool = False,
-                train: bool = False, rng: torch.Generator = None):
+                train: bool = False, rng: torch.Generator = None,
+                residual: bool = False):
         if route == "fused":
             vtx = kernels.edges_to_vertices(edge_attr.to(torch.bfloat16), graph)
             return kernels.fused_cell_block(
                 cell_attr.to(torch.bfloat16), vtx, graph,
                 self.mlp.kernel_weights(packed=True), dual_out=dual_out)
         cell_agg = aggregate_twice_mp(edge_attr, graph, route == "unfused")
-        return self.mlp(_with_extra([cell_attr, cell_agg], extra,
-                                    cell_attr.shape[0]), train, rng)
+        return _sub_block_mlp(self.mlp, [cell_attr, cell_agg], extra, route,
+                              self.FAN_INS, residual, dual_out, train, rng)
 
 
 class FaceBlock(nn.Module):
     """[edge | cell_owner | cell_neighbour] -> face MLP (reference
     ``Face_Block``, Fvgn.py:286-296). Unfused, the kernel route gathers the
-    cell rows in bf16 and the concatenation widens them to f32, as the JAX
-    wrapper's cast does."""
+    cell rows in bf16, which K8 reads as they are (the MLP module's
+    concatenation widens them to f32, as the JAX wrapper's cast does). Off
+    the fused route it returns as :class:`CellBlock` does, the residual's
+    base being ``edge_attr``."""
+
+    FAN_INS = (3 * kernels.H, 3 * kernels.H + 1)
 
     def __init__(self, cfg: ArchConfig, generator: torch.Generator = None):
         super().__init__()
@@ -381,7 +438,8 @@ class FaceBlock(nn.Module):
 
     def forward(self, cell_attr, edge_attr, graph, extra=None,
                 route: str = "plain", dual_out: bool = False,
-                train: bool = False, rng: torch.Generator = None):
+                train: bool = False, rng: torch.Generator = None,
+                residual: bool = False):
         if route == "fused":
             return kernels.fused_face_block(cell_attr.to(torch.bfloat16),
                                             edge_attr.to(torch.bfloat16),
@@ -389,8 +447,8 @@ class FaceBlock(nn.Module):
                                             self.mlp.kernel_weights(packed=True),
                                             dual_out=dual_out)
         own, nbr = gather_face_cells(cell_attr, graph, route == "unfused")
-        return self.mlp(_with_extra([edge_attr, own, nbr], extra,
-                                    edge_attr.shape[0]), train, rng)
+        return _sub_block_mlp(self.mlp, [edge_attr, own, nbr], extra, route,
+                              self.FAN_INS, residual, dual_out, train, rng)
 
 
 _BLOCK_COUNTERS = {r: "gn_block." + r
@@ -409,7 +467,9 @@ class GNBlock(nn.Module):
     Fused, the residuals are applied inside the kernels. Cell-first: K3 ->
     K2 with both outputs, then K1 on K2's raw output (with both outputs for
     ``face_raw``). Face-first: K1 with both outputs, then K3 on K1's raw
-    output -> K2 with the residual only.
+    output -> K2 with the residual only. Unfused (and plain), each
+    sub-block returns its raw output and the residual (K8 computes both);
+    K8's raw output is bf16 (VertPot widens it).
 
     Each application is the span ``gn_block`` with its ``route`` (the
     unfused route on a graph on the table route as ``"table"``) and adds
@@ -450,22 +510,30 @@ class GNBlock(nn.Module):
                         refresh(e_raw, graph, "face"))
             return c_res, refresh(self.face_block(c_raw, edge_attr, graph,
                                                   route=route), graph, "face")
+        # the residuals go with the MLPs (K8's in the kernel) where the ghost
+        # rows' refresh is the identity; on a graph of more than one space
+        # rank each raw output is refreshed first, as the next sub-block
+        # and the residual read it
+        fused_res = graph.halo is None or graph.halo.n_space == 1
+
+        def sub(kind, c, e, dual):
+            block = self.cell_block if kind == "cell" else self.face_block
+            if fused_res:
+                return block(c, e, graph, extra, route, dual, train, rng,
+                             residual=True)
+            raw = refresh(block(c, e, graph, extra, route, train=train,
+                                rng=rng).float(), graph, kind)
+            res = (c if kind == "cell" else e) + raw
+            return (raw, res) if dual else res
+
         if self.face_first:
-            new_edge = refresh(self.face_block(cell_attr, edge_attr, graph,
-                                               extra, route, train=train,
-                                               rng=rng), graph, "face")
-            new_cell = refresh(self.cell_block(cell_attr, new_edge, graph,
-                                               extra, route, train=train,
-                                               rng=rng), graph, "cell")
+            e_raw, e_res = sub("face", cell_attr, edge_attr, True)
+            c_res = sub("cell", cell_attr, e_raw, False)
         else:
-            new_cell = refresh(self.cell_block(cell_attr, edge_attr, graph,
-                                               extra, route, train=train,
-                                               rng=rng), graph, "cell")
-            new_edge = refresh(self.face_block(new_cell, edge_attr, graph,
-                                               extra, route, train=train,
-                                               rng=rng), graph, "face")
-        out = (cell_attr + new_cell, edge_attr + new_edge)
-        return out + (new_edge,) if face_raw else out
+            c_raw, c_res = sub("cell", cell_attr, edge_attr, True)
+            e_out = sub("face", c_raw, edge_attr, face_raw)
+            e_raw, e_res = e_out if face_raw else (None, e_out)
+        return (c_res, e_res, e_raw) if face_raw else (c_res, e_res)
 
 
 def _remat_block(block: GNBlock, cell_attr, edge_attr, graph, extra,

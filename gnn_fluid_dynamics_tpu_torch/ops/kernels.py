@@ -13,15 +13,18 @@ K4     :func:`gather_face_cells` :func:`gather_face_cells_ref`       ``csrc/face
 K5     :func:`vertices_to_cells` :func:`vertices_to_cells_ref`       ``csrc/vertex_cell.cu``
 K6     :func:`table_dual`        :func:`table_dual_ref`              ``csrc/table_dual.cu``
 K7     :func:`table_single`      :func:`table_single_ref`            ``csrc/table_single.cu``
+K8     :func:`mlp_block`         :func:`mlp_block_ref`               ``csrc/mlp_block.cu``
 =====  =======================  ===================================  ==========================
 
-K1-K3 carry the fused GN block; K3, K5 and K4 carry the unfused one, whose
-MLPs run outside the kernels (a block with a step scalar, as in FvgnF), and
-K3 -> K5 the Conservative family's twice message passing. K1-K5
-read the graph's index vectors. K6 and K7 read its banded one-hot tables
-instead (a graph on the table route, :mod:`gnn_fluid_dynamics_tpu_torch.graph`):
-per block K6 on the es/er tables and K7 on vc in place of K3 and K5, and K6 on
-the cf tables in place of K4. Each launches once per table application to a
+K1-K3 carry the fused GN block; K3, K5 and K4 carry the unfused one's
+aggregations (a block with a step scalar, as in FvgnF), and K8 each of its
+sub-blocks' MLP -> LayerNorm -> residual on their outputs; K3 -> K5 carry
+the Conservative family's twice message passing, whose f32 MLPs run
+outside the kernels. K1-K5 read the graph's index vectors. K6 and K7 read
+its banded one-hot tables instead (a graph on the table route,
+:mod:`gnn_fluid_dynamics_tpu_torch.graph`): per block K6 on the es/er tables
+and K7 on vc in place of K3 and K5, and K6 on the cf tables in place of K4,
+each feeding K8 as those do. Each launches once per table application to a
 whole batch of graphs, and takes tables of any band width, as the TPU
 kernels do: each streams a tile's band through shared memory.
 
@@ -74,7 +77,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SOURCES = {"face_block": "face_block.cu", "cell_block": "cell_block.cu",
            "edge_vertex": "edge_vertex.cu", "face_gather": "face_gather.cu",
            "vertex_cell": "vertex_cell.cu", "table_dual": "table_dual.cu",
-           "table_single": "table_single.cu"}
+           "table_single": "table_single.cu", "mlp_block": "mlp_block.cu"}
 HEADERS = ("async_copy.cuh", "common.cuh", "gn_wgmma.cuh", "pdl.cuh",
            "table_mma.cuh", "wgmma.cuh")
 H = 128          # the latent width the kernels are built for
@@ -95,6 +98,8 @@ _ARGTYPES = {
     "gfd_vertex_cell": [_I] + [_P] * 4 + [_I] * 2 + [_P] * 2,
     "gfd_table_dual": [_I] + [_P] * 4 + [_I] * 6 + [_P] * 3,
     "gfd_table_single": [_I] + [_P] * 3 + [_I] * 5 + [_P] * 2,
+    "gfd_mlp_block": [_I] * 2 + [_P] * 3 + [_I] + [_P] * 13,
+    "gfd_mlp_block_silu": [_I] + [_P] * 2,
     "gfd_launch_floor": [_I] * 3 + [_P],
     "gfd_slow_writer": [_I, _P] + [_I] * 4 + [_P] * 2,
     "gfd_set_pdl": [_I],
@@ -107,11 +112,13 @@ GATHER_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _ENTRY = {name: "gfd_" + name for name in SOURCES}
 # entry points beside a library's kernel, for measuring and checking: the
 # empty kernel of K3's launch path (the launch floor), the PDL hazard check's
-# writer, and the PDL switch of the libraries that launch by PDL
+# writer, the PDL switch of the libraries that launch by PDL, and K8's SiLU
+# on every bf16 value
 PDL_LIBRARIES = ("edge_vertex", "vertex_cell")
 _EXTRA_ENTRIES = {"edge_vertex": ("gfd_launch_floor", "gfd_slow_writer",
                                   "gfd_set_pdl"),
-                  "vertex_cell": ("gfd_set_pdl",)}
+                  "vertex_cell": ("gfd_set_pdl",),
+                  "mlp_block": ("gfd_mlp_block_silu",)}
 
 _libs: dict = {}
 _lock = threading.Lock()
@@ -167,6 +174,58 @@ def packed_weights(w: BlockWeights) -> PackedWeights:
 
 def _unpacked(w) -> BlockWeights:
     return w.mlp if isinstance(w, PackedWeights) else w
+
+
+class MlpBlockWeights(NamedTuple):
+    """K8's weights, one sub-block MLP's (``MLP.kernel_weights(mlp_block=
+    True)``): ``dense``, its three (weight, bias) pairs in bf16 as
+    ``F.linear`` takes them ((outputs, inputs); the plain version's);
+    ``ln_g`` and ``ln_b``, its LayerNorm's parameters in f32;
+    ``packed``, the three matrices as K8 copies them into shared memory
+    (:func:`pack_mlp_block`), W0 without its step-scalar row; ``w0_step``,
+    that row, (H,) bf16, or None for an MLP without one."""
+    dense: tuple
+    ln_g: torch.Tensor
+    ln_b: torch.Tensor
+    packed: torch.Tensor
+    w0_step: Optional[torch.Tensor]
+
+
+# K8's permutations (csrc/mlp_block.cu). Inputs: in each 16-column k step,
+# the product's row p holds input column _K_STEP[p], so that the four values
+# a thread's A fragment holds of a row (rows 2q, 2q+1, 2q+8, 2q+9) are the
+# neighbouring columns 4q..4q+3. Outputs: W2's column n holds output column
+# _OUT[n], so that a thread's accumulator (columns 8i+2q, 8i+2q+1) holds
+# columns 16m+4q..16m+4q+3 of its rows.
+_K_STEP = [4 * ((p % 8) // 2) + p % 2 + 2 * (p // 8) for p in range(16)]
+_OUT = [16 * (n // 16) + 4 * ((n % 8) // 2) + 2 * ((n // 8) % 2) + n % 2
+        for n in range(H)]
+
+
+def pack_mlp_block(w0: torch.Tensor, w1: torch.Tensor,
+                   w2: torch.Tensor) -> torch.Tensor:
+    """W0 ((K0, H), K0 a multiple of 16), W1 and W2 ((H, H)), inputs x
+    outputs, in the layout K8 copies into shared memory: W0's rows and
+    W2's columns permuted (``_K_STEP``, ``_OUT``), then
+    :func:`pack_weights`."""
+    k0 = w0.shape[0]
+    rows = torch.tensor([16 * (p // 16) + _K_STEP[p % 16] for p in range(k0)],
+                        device=w0.device)
+    cols = torch.tensor(_OUT, device=w2.device)
+    return pack_weights(w0[rows], w1, w2[:, cols])
+
+
+def mlp_block_weights(dense, ln_g: torch.Tensor,
+                      ln_b: torch.Tensor) -> MlpBlockWeights:
+    """K8's weights from an MLP's: ``dense`` its three (weight, bias) pairs
+    in bf16 as ``F.linear`` takes them; W0's inputs past the last multiple
+    of 16 (one: the step scalar's column) become ``w0_step``. Made once per
+    set of weights (``MLP.kernel_weights(mlp_block=True)`` caches it)."""
+    w0 = dense[0][0]
+    k0 = w0.shape[1] - w0.shape[1] % 16
+    packed = pack_mlp_block(w0[:, :k0].t(), dense[1][0].t(), dense[2][0].t())
+    step = w0[:, k0].contiguous() if w0.shape[1] > k0 else None
+    return MlpBlockWeights(tuple(dense), ln_g, ln_b, packed, step)
 
 
 # ---------------------------------------------------------------------------
@@ -336,6 +395,48 @@ def _mlp_ln_tail_ref(base: torch.Tensor, h0: torch.Tensor, w: BlockWeights):
     var = (h * h).mean(dim=1, keepdim=True) - mu * mu
     hn = (h - mu) * torch.rsqrt(var + LN_EPS) * w.ln_g.float() + w.ln_b.float()
     return hn.to(wdt), (base.float() + hn).to(wdt)
+
+
+def layer_norm_ref(x: torch.Tensor, weight: torch.Tensor,
+                   bias: Optional[torch.Tensor],
+                   eps: float = LN_EPS) -> torch.Tensor:
+    """LayerNorm as Flax computes it: f32 statistics with var = E[x^2] -
+    mean^2 clamped at 0, the f32 parameters as they are, result in ``x``'s
+    dtype; without ``bias`` none is added."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mu * mu, min=0.0)
+    y = (xf - mu) * (torch.rsqrt(var + eps) * weight)
+    if bias is not None:
+        y = y + bias
+    return y.to(x.dtype)
+
+
+def mlp_block_ref(parts, extra, w: MlpBlockWeights, residual: bool = True,
+                  dual_out: bool = False):
+    """Plain version of K8: the sub-block's MLP (``models/arch.py``'s
+    ``MLP.forward`` in bf16) on ``parts`` concatenated, with the (1, 1) step
+    scalar ``extra`` appended to every row when given, and the residual
+    ``parts[0] + raw``. The parts are ``[cell latents, vertex mean]`` (the
+    cell form) or ``[edge latents, x[owner], x[neighbour]]`` (the face
+    form). Returns raw (bf16) without ``residual``; else the residual (f32),
+    or (raw, residual) with ``dual_out``."""
+    rows = parts[0].shape[0]
+    cols = list(parts)
+    if extra is not None:
+        cols.append(extra.expand(rows, extra.shape[-1]))
+    # parts of mixed dtypes are promoted by the concatenation (exactly)
+    h = torch.cat(cols, dim=-1).to(torch.bfloat16)
+    for i, (weight, bias) in enumerate(w.dense):
+        # the product and the bias add each round to bf16
+        h = F.linear(h, weight) + bias
+        if i < 2:
+            h = F.silu(h)
+    raw = layer_norm_ref(h, w.ln_g, w.ln_b)
+    if not residual:
+        return raw
+    res = parts[0] + raw.float()
+    return (raw, res) if dual_out else res
 
 
 def fused_face_block_ref(cell_attr, edge_attr, graph, w, dual_out: bool = False):
@@ -580,6 +681,20 @@ def slow_writer(src, dst, negate: bool, cycles: int, blocks: int = 4) -> None:
             blocks, _ptr(dst), entry="gfd_slow_writer")
 
 
+def mlp_block_silu_table(device) -> torch.Tensor:
+    """K8's SiLU of every bf16 value, (65536,) bf16, entry ``i`` that of
+    the value whose bits are ``i``: to hold against PyTorch's SiLU of the
+    same values, which K8 computes otherwise than PyTorch does where the
+    two round to the same bf16 (``csrc/mlp_block.cu``). On a card only;
+    counts nothing."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"K8's SiLU table is read on a card, not {device}")
+    out = torch.empty(65536, dtype=torch.bfloat16, device=device)
+    _launch("mlp_block", device, _ptr(out), entry="gfd_mlp_block_silu")
+    return out
+
+
 def _check_table(oh, what, dev, like=None) -> None:
     """A (T, 128, B) table, B a positive multiple of 128 of any width (as
     ``banded_dual_pallas`` and ``banded_single_pallas`` take), in one of the
@@ -648,6 +763,57 @@ def table_single(oh, src_off, src):
     return out
 
 
+def mlp_block(parts, extra, w: MlpBlockWeights, residual: bool = True,
+              dual_out: bool = False):
+    """K8: a sub-block's MLP -> LayerNorm -> residual. See
+    :func:`mlp_block_ref`. On the card the parts are ``[(R, H) f32, (R,
+    H/2) f32]`` (cell form: K5's or K7's vertex mean) or ``[(R, H) f32,
+    (R, H) bf16, (R, H) bf16]`` (face form: K4's or K6's rows), and
+    ``extra`` is given exactly when ``w`` has a step-scalar row."""
+    base = parts[0]
+    if base.device.type == "cpu":
+        return mlp_block_ref(parts, extra, w, residual, dual_out)
+    dev = base.device
+    rows = base.shape[0]
+    if len(parts) not in (2, 3):
+        raise ValueError(f"K8 takes 2 parts (cell) or 3 (face), not {len(parts)}")
+    face = len(parts) == 3
+    k0 = 3 * H if face else H + H // 2
+    _check(w.packed, "packed", dev, torch.bfloat16, ((k0 + 2 * H) * H,))
+    for name, (_, bias) in zip(("b0", "b1", "b2"), w.dense):
+        _check(bias, name, dev, torch.bfloat16, (H,))
+    _check(w.ln_g, "ln_g", dev, torch.float32, (H,))
+    _check(w.ln_b, "ln_b", dev, torch.float32, (H,))
+    if (extra is None) != (w.w0_step is None):
+        raise ValueError("K8 takes the step scalar exactly when W0 has its row")
+    if extra is not None:
+        _check(w.w0_step, "w0_step", dev, torch.bfloat16, (H,))
+        # a row of the step scalars: read as one f32, so any alignment
+        if (extra.device, extra.dtype, tuple(extra.shape)) != (
+                dev, torch.float32, (1, 1)):
+            raise ValueError(f"extra is {extra.dtype} {tuple(extra.shape)} on "
+                             f"{extra.device}, expected float32 (1, 1) on {dev}")
+    _check(base, "parts[0]", dev, torch.float32, (rows, H))
+    for i, p in enumerate(parts[1:], 1):
+        _check(p, f"parts[{i}]", dev, torch.bfloat16 if face else torch.float32,
+               (rows, H if face else H // 2))
+    raw = (torch.empty((rows, H), dtype=torch.bfloat16, device=dev)
+           if dual_out or not residual else None)
+    res = (torch.empty((rows, H), dtype=torch.float32, device=dev)
+           if residual else None)
+    p0 = w.packed.data_ptr()
+    p1 = p0 + k0 * H * 2                               # bf16 bytes
+    p2 = p1 + H * H * 2
+    _launch("mlp_block", dev, int(face), _ptr(base), _ptr(parts[1]),
+            _ptr(parts[2]) if face else None, rows, _ptr(extra), p0, p1, p2,
+            _ptr(w.w0_step), *(_ptr(b) for _, b in w.dense), _ptr(w.ln_g),
+            _ptr(w.ln_b), _ptr(raw), _ptr(res))
+    mlp_block.launches += 1
+    if not residual:
+        return raw
+    return (raw, res) if dual_out else res
+
+
 fused_face_block.launches = 0
 fused_cell_block.launches = 0
 edges_to_vertices.launches = 0
@@ -655,3 +821,4 @@ gather_face_cells.launches = 0
 vertices_to_cells.launches = 0
 table_dual.launches = 0
 table_single.launches = 0
+mlp_block.launches = 0

@@ -12,9 +12,9 @@ plain version:
   subnormals, +-Inf and NaN: every bit where the value is not NaN, NaN at
   the same places (payloads may differ);
 * (c) one unfused FvgnF face block on the kernel route, index and table
-  route, against the same block fed the concatenation it was fed before K4
-  rounded its own input (``torch.cat([edge, own.float(), nbr.float(),
-  extra])``): the MLP's input and output bit for bit;
+  route, against the same block's MLP fed the concatenation it was fed
+  before K4 rounded its own input (``torch.cat([edge, own.float(),
+  nbr.float(), extra])``): the row K8 takes and its output bit for bit;
 * (d) the casts the unfused route issues around the gather, counted under a
   ``TorchDispatchMode``: none on the index route, one (before K6) on the
   table route, where each issued three before;
@@ -193,7 +193,12 @@ def _before(cell, graph):
 
 
 @pytest.mark.parametrize("route", ["index", "table"])
-def test_face_block_input_and_output_unchanged(graph, table_graph, route):
+def test_face_block_input_and_output_unchanged(graph, table_graph, route,
+                                               monkeypatch):
+    """The face block's MLP runs as K8 (its plain version here): the row K8
+    is handed, its parts concatenated as its plain version concatenates
+    them, and its raw output against the MLP module on the row from
+    before."""
     g = graph if route == "index" else table_graph
     rng = np.random.default_rng(5)
     cell = torch.from_numpy(rng.normal(size=(g.num_cells, H)).astype(np.float32))
@@ -201,15 +206,23 @@ def test_face_block_input_and_output_unchanged(graph, table_graph, route):
     extra = torch.tensor([[0.4]])
     block = _face_block()
     seen = []
-    block.mlp.register_forward_pre_hook(lambda m, args: seen.append(args[0]))
+    k8 = kernels.mlp_block
+
+    def record(parts, extra, *args, **kwargs):
+        seen.append(torch.cat([*parts, extra.expand(parts[0].shape[0], 1)],
+                              dim=-1))
+        return k8(parts, extra, *args, **kwargs)
+
+    monkeypatch.setattr(kernels, "mlp_block", record)
     out = block(cell, edge, g, extra, route="unfused")
     own, nbr = _before(cell, g)
-    out_before = block.mlp(torch.cat([edge, own, nbr, extra.expand(
-        g.num_faces, 1)], dim=-1))
-    x, x_before = seen
+    x_before = torch.cat([edge, own, nbr, extra.expand(g.num_faces, 1)], dim=-1)
+    out_before = block.mlp(x_before)
+    (x,) = seen
     assert x.dtype == x_before.dtype == torch.float32
     assert torch.equal(_bits(x), _bits(x_before))
-    assert torch.equal(_bits(out), _bits(out_before))
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(_bits(out.float()), _bits(out_before))
 
 
 # ---- (d) the casts around the gather ------------------------------------------

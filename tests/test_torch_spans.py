@@ -153,7 +153,8 @@ def test_each_rollout_step_records_its_layers_once(dataset, name, aggregation,
                                                    table, route, save_fields):
     """Per step: one forward, ``mp_num`` GN blocks on the graph's route,
     one each of derive, metrics and feedback, and the save only under
-    ``save_fields``; the route's counter counts the blocks. After a first
+    ``save_fields``; the route's counter counts the blocks, and on the
+    unfused route ``gn_mlp.plain`` the sub-blocks' MLPs. After a first
     rollout the fused blocks' packed weights are cached: no pack."""
     inputs = _rollout_inputs(dataset, name, aggregation, table)
     _rollout(inputs)
@@ -170,7 +171,12 @@ def test_each_rollout_step_records_its_layers_once(dataset, name, aggregation,
                 got[s.name] = got.get(s.name, 0) + 1
         assert got == want
     assert {s.attrs["route"] for s in rec.named("gn_block")} == {route}
-    assert rec.counters == {f"gn_block.{route}": STEPS * MP}
+    counters = {f"gn_block.{route}": STEPS * MP}
+    if route in ("unfused", "table"):
+        # at hidden 32 and in f32 K8 takes no MLP: each sub-block's runs as
+        # the module
+        counters["gn_mlp.plain"] = 2 * STEPS * MP
+    assert rec.counters == counters
 
 
 def test_setup_phases_and_their_counters(monkeypatch):
